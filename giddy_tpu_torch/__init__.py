@@ -1,0 +1,40 @@
+"""giddy_tpu_torch: the PyTorch + CUDA port of giddy_tpu.
+
+Decodes the same encoded columns and containers (FORMAT.md) on an NVIDIA
+GPU with hand-written CUDA kernels (csrc/), or on the CPU with their plain
+PyTorch versions. Imports torch and NumPy, never JAX or giddy_tpu.
+
+Ported so far: single-column decode of nbit, dzbf, for, delta and dict.
+"""
+
+from .api import decode, decode_ref, device_streams, encode, get_decoder, narrow_store_dtype
+from .format import (
+    EncodedColumn,
+    container_bytes,
+    from_reference,
+    open_container,
+    read_container,
+    write_container,
+)
+from .registry import get, schemes
+from .util import GROUP, LANES, SLOTS
+
+__all__ = [
+    "EncodedColumn",
+    "GROUP",
+    "LANES",
+    "SLOTS",
+    "container_bytes",
+    "decode",
+    "decode_ref",
+    "device_streams",
+    "encode",
+    "from_reference",
+    "get",
+    "get_decoder",
+    "narrow_store_dtype",
+    "open_container",
+    "read_container",
+    "schemes",
+    "write_container",
+]

@@ -1,0 +1,125 @@
+"""Public decode API of the PyTorch port (counterpart of giddy_tpu/api.py).
+
+``decode(col, device=...)``: registry lookup -> host prep -> upload of the
+streams -> (cached) decoder -> one kernel -> logical-dtype tensor. On a CUDA
+device the decoder launches the hand-written kernels of csrc/; on the CPU it
+runs their plain PyTorch versions (kernels/lanes.py).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import kernels as _kernels  # noqa: F401  (installs device decoders)
+from . import ref as _ref  # noqa: F401  (installs host codecs)
+from . import registry
+from .format import EncodedColumn
+from .util import GROUP, num_groups
+
+_DECODER_CACHE: dict[tuple, object] = {}
+
+# A single decode call addresses fewer than 2**31 padded values, as in the
+# reference (giddy_tpu/util.py MAX_DEVICE_ELEMS); larger columns are
+# ROADMAP.md queue 1, item 9.
+MAX_DEVICE_ELEMS = 2**31
+
+# Logical dtype -> (storage dtype the kernels write, dtype the caller sees).
+# Narrow columns store at their own width (the reference's narrow_store);
+# uint16 rides in int16 storage, since torch has little uint16 arithmetic.
+_LOGICAL = {
+    "int32": (torch.int32, torch.int32),
+    "uint32": (torch.int32, torch.uint32),
+    "float32": (torch.int32, torch.float32),
+    "int16": (torch.int16, torch.int16),
+    "uint16": (torch.int16, torch.uint16),
+    "int8": (torch.uint8, torch.int8),
+    "uint8": (torch.uint8, torch.uint8),
+}
+
+
+def encode(values: np.ndarray, scheme: str, **opts) -> EncodedColumn:
+    """Host-side encode with the port's NumPy codecs (byte-identical to
+    ``giddy_tpu.encode`` for the ported schemes)."""
+    return registry.get(scheme).encode(values, **opts)
+
+
+def decode_ref(col: EncodedColumn) -> np.ndarray:
+    """NumPy oracle decode — the bit-exactness reference."""
+    return registry.get(col.scheme).decode_ref(col)
+
+
+def _check_supported(col: EncodedColumn) -> None:
+    registry.get(col.scheme)  # raises NotImplementedError for a pending scheme
+    if col.dtype not in _LOGICAL:
+        raise NotImplementedError(
+            f"dtype {col.dtype!r} of {col.name!r} is decoded through the 64-bit "
+            "'wide' scheme, not ported yet (ROADMAP.md queue 1, item 11)"
+        )
+    if num_groups(col.n) * GROUP >= MAX_DEVICE_ELEMS:
+        raise NotImplementedError(
+            f"{col.name!r} holds {col.n} values, past the 2**31 single-call limit; "
+            "chunked decode is not ported yet (ROADMAP.md queue 1, item 9)"
+        )
+
+
+def narrow_store_dtype(col: EncodedColumn) -> torch.dtype:
+    """The dtype the decoder stores: the column's own width for int8/int16
+    columns of narrow-store schemes, the int32 payload otherwise."""
+    store = _LOGICAL[col.dtype][0]
+    if store != torch.int32 and not registry.get(col.scheme).narrow_store:
+        return torch.int32
+    return store
+
+
+def get_decoder(col: EncodedColumn, out_store: torch.dtype = torch.int32):
+    """Build (or fetch cached) the decoder for this column's static
+    configuration: fn(streams) -> (n_pad,) tensor of out_store."""
+    _check_supported(col)
+    key = (col.static_key(), out_store)
+    fn = _DECODER_CACHE.get(key)
+    if fn is None:
+        builder = registry.get(col.scheme).decode_device
+        if builder is None:
+            raise NotImplementedError(f"no device decoder for {col.scheme!r}")
+        fn = _DECODER_CACHE[key] = builder(col, out_store)
+    return fn
+
+
+def device_streams(col: EncodedColumn, device: torch.device) -> dict[str, torch.Tensor]:
+    """Host prep, then each stream as a tensor on ``device``; uint32 word
+    streams travel as int32 carrying the same bits."""
+    prep = registry.get(col.scheme).prep_streams
+    streams = prep(col) if prep is not None else col.streams
+    out = {}
+    for k, v in streams.items():
+        v = np.ascontiguousarray(v)
+        if v.dtype == np.uint32:
+            v = v.view(np.int32)
+        out[k] = torch.from_numpy(v).to(device)
+    return out
+
+
+def _to_logical(u: torch.Tensor, dtype: str) -> torch.Tensor:
+    store, logical = _LOGICAL[dtype]
+    if u.dtype != store:  # a uint32 payload of a narrow column: truncate
+        u = u.to(store)
+    return u.view(logical)
+
+
+def decode(col: EncodedColumn, *, device: torch.device | str, pad: bool = False) -> torch.Tensor:
+    """Decode a column on ``device`` (``"cuda"`` or ``"cpu"``; no default).
+
+    Returns a tensor of the column's logical dtype on that device, of
+    length n, or n_pad (whole groups) when ``pad=True``."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("decode on a CUDA device, but torch sees no CUDA device")
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"no decoder for device {device}")
+    _check_supported(col)
+    if col.n == 0 and not pad:
+        return torch.empty(0, dtype=_LOGICAL[col.dtype][1], device=device)
+    u = get_decoder(col, narrow_store_dtype(col))(device_streams(col, device))
+    out = _to_logical(u, col.dtype)
+    return out if pad else out[: col.n]

@@ -1,0 +1,93 @@
+"""Builds and loads the CUDA kernels in ``giddy_tpu_torch/csrc``.
+
+At first use, ``nvcc`` compiles every ``csrc/*.cu`` file for ``sm_90a``
+into one shared library with a plain C interface, under
+``giddy_tpu_torch/_build/`` (git-ignored), named by a hash of the sources
+and flags, so an edited source builds anew. The library is loaded with
+ctypes; every pointer and the stream pass as ``c_void_p``. Nothing here
+runs at import: the CPU tests import every module and have no ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import time
+
+_PKG = pathlib.Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+# No --use_fast_math: the decoders are integer-only, and later float
+# decoders (alp) need IEEE rounding.
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+]
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_SIGNATURES = {
+    "gt_lmp_unpack": [_P, _P, _L, _I, _I, _P],
+    "gt_for_unpack": [_P, _P, _P, _L, _I, _I, _P],
+    "gt_delta_decode": [_P, _P, _P, _L, _I, _I, _P],
+    "gt_dict_decode": [_P, _P, _P, _L, _I, _L, _I, _P],
+    "gt_dict_shared": [_L],
+}
+
+_LIB: ctypes.CDLL | None = None
+build_seconds: float | None = None  # wall time of the nvcc run, when one ran
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    path = pathlib.Path(cuda_home) / "bin" / "nvcc"
+    if not path.exists():
+        raise RuntimeError("nvcc not found: put it on PATH or set CUDA_HOME")
+    return str(path)
+
+
+def _sources() -> list[pathlib.Path]:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def library_path() -> pathlib.Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode() + b"\0" + src.read_bytes())
+    return BUILD_DIR / f"libgiddy_decode_{h.hexdigest()[:16]}.so"
+
+
+def _compile(out: pathlib.Path) -> None:
+    global build_seconds
+    BUILD_DIR.mkdir(exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sorted(CSRC.glob("*.cu")))]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stderr}")
+    os.replace(tmp, out)  # atomic: a concurrent loader sees the whole file or none
+    build_seconds = time.perf_counter() - t0
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library, built first if this source has no build."""
+    global _LIB
+    if _LIB is None:
+        path = library_path()
+        if not path.exists():
+            _compile(path)
+        loaded = ctypes.CDLL(str(path))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(loaded, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _LIB = loaded
+    return _LIB
+

@@ -1,0 +1,63 @@
+"""Argument checks and launch plumbing shared by the kernel wrappers.
+
+A wrapper takes its plain PyTorch version only when its tensors lie on the
+CPU; on a CUDA tensor it launches its kernel or raises. Any other device,
+dtype, shape or layout that the kernel does not take raises here.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..util import GROUP, LANES
+from . import _build
+
+# Output element types the kernels store, by their width in bytes: the
+# uint32 payload as int32, and the narrow int16 / uint8 stores.
+OUT_BYTES = {torch.int32: 4, torch.int16: 2, torch.uint8: 1}
+
+
+def check_packed(packed: torch.Tensor, bits: int, out_dtype: torch.dtype) -> int:
+    """Validate an LMP(bits) word stream and the output type; returns ng."""
+    if not isinstance(bits, int) or not 1 <= bits <= 32:
+        raise ValueError(f"bits must be an int in [1, 32], got {bits!r}")
+    if out_dtype not in OUT_BYTES:
+        raise TypeError(f"out_dtype must be one of {list(OUT_BYTES)}, got {out_dtype}")
+    if packed.dtype != torch.int32:
+        raise TypeError(f"packed words must be int32 (uint32 bits), got {packed.dtype}")
+    if packed.dim() != 2 or packed.shape[0] < 1 or packed.shape[1] != bits * LANES:
+        raise ValueError(
+            f"packed words must have shape (ng >= 1, {bits * LANES}), got {tuple(packed.shape)}"
+        )
+    if not packed.is_contiguous():
+        raise ValueError("packed words must be contiguous")
+    if packed.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no decode kernel for device {packed.device}")
+    return packed.shape[0]
+
+
+def check_side(t: torch.Tensor, length: int | None, name: str, device: torch.device) -> None:
+    """Validate a 1-D int32 side stream (refs, anchors, dictionary) of
+    ``length`` values, or of at least one when ``length`` is None."""
+    if t.dtype != torch.int32:
+        raise TypeError(f"{name} must be int32, got {t.dtype}")
+    if t.dim() != 1 or t.shape[0] < 1 or t.shape[0] != (length or t.shape[0]):
+        want = f"({length},)" if length else "(d >= 1,)"
+        raise ValueError(f"{name} must have shape {want}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, the packed words on {device}")
+
+
+def empty_out(ng: int, out_dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    return torch.empty((ng, GROUP), dtype=out_dtype, device=device)
+
+
+def launch(fn_name: str, device: torch.device, *args) -> None:
+    """Call one C entry point of the kernel library on ``device`` and its
+    current PyTorch stream (passed last); raise on a CUDA error."""
+    with torch.cuda.device(device):
+        rc = getattr(_build.lib(), fn_name)(*args, torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{fn_name}: CUDA error {rc} at launch")

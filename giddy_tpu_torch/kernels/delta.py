@@ -1,0 +1,43 @@
+"""Delta decode: kernel K3 (csrc/lmp_decode.cu ``delta_decode_kernel``).
+
+Counterpart of giddy_tpu/kernels/delta.py: unpack, unzigzag, inclusive
+per-GROUP cumsum (mod 2^32) plus the group's anchor.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import registry
+from ..format import EncodedColumn
+from . import _wrap, lanes
+
+LAUNCHES = 0
+
+
+def delta_decode(packed: torch.Tensor, anchors: torch.Tensor, bits: int, out_dtype: torch.dtype = torch.int32) -> torch.Tensor:
+    """(ng, bits*1024) zigzag deltas + (ng,) anchors -> (ng, GROUP) of out_dtype."""
+    global LAUNCHES
+    ng = _wrap.check_packed(packed, bits, out_dtype)
+    _wrap.check_side(anchors, ng, "anchors", packed.device)
+    if packed.device.type == "cpu":
+        return lanes.delta_decode(packed, anchors, bits, out_dtype)
+    out = _wrap.empty_out(ng, out_dtype, packed.device)
+    _wrap.launch(
+        "gt_delta_decode", packed.device, packed.data_ptr(), anchors.data_ptr(), out.data_ptr(),
+        ng, bits, _wrap.OUT_BYTES[out_dtype],
+    )
+    LAUNCHES += 1
+    return out
+
+
+def args(col: EncodedColumn, streams: dict, out_store: torch.dtype) -> tuple:
+    """The arguments of :func:`delta_decode` that decode ``col``."""
+    return streams["packed"], streams["anchors"], col.params["bits"], out_store
+
+
+def build(col: EncodedColumn, out_store: torch.dtype = torch.int32):
+    return lambda streams: delta_decode(*args(col, streams, out_store)).reshape(-1)
+
+
+registry.register_device("delta", build, narrow_store=True)

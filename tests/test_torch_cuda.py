@@ -1,0 +1,76 @@
+"""giddy_tpu_torch's CUDA kernels against their plain PyTorch versions and
+the NumPy oracle, on the card. Every test here needs a CUDA device and
+skips without one. The file imports no JAX, so it runs on a GPU machine
+that has none:
+
+    python -m pytest tests/test_torch_cuda.py -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import giddy_tpu_torch as gtt
+from giddy_tpu_torch import kernels
+from giddy_tpu_torch.kernels import dict_, lanes, nbit
+from giddy_tpu_torch.util import GROUP
+
+pytestmark = pytest.mark.cuda
+
+N = 3 * GROUP + 17
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _values(scheme, dtype, rng):
+    if scheme == "delta":
+        v = (np.cumsum(rng.integers(-(2**20), 2**20, N)) + 1_600_000_000).astype(np.int64)
+    elif scheme == "dict":
+        v = rng.integers(-(2**31), 2**31, 300, dtype=np.int64)[rng.integers(0, 300, N)]
+    else:
+        v = rng.integers(0, 2**32, N, dtype=np.uint64).astype(np.int64)
+    u = v.astype(np.uint32)  # wraps: every dtype sees its full bit range
+    return u.view(np.dtype(dtype)) if dtype in ("int32", "float32") else u.astype(np.dtype(dtype))
+
+
+@pytest.mark.parametrize("dtype", ["int32", "uint32", "float32", "int16", "uint16", "int8", "uint8"])
+@pytest.mark.parametrize("scheme", ["nbit", "dzbf", "for", "delta", "dict"])
+def test_kernel_matches_plain_and_oracle(cuda, scheme, dtype):
+    v = _values(scheme, dtype, np.random.default_rng(5))
+    col = gtt.encode(v, scheme)
+    store = gtt.narrow_store_dtype(col)
+    name, args = kernels.kernel_call(col, gtt.device_streams(col, cuda), store)
+    before = kernels.launches()[name]
+    got = getattr(kernels.WRAPPERS[name], name)(*args)
+    assert kernels.launches()[name] == before + 1
+    want = getattr(lanes, name)(*args)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype == store and torch.equal(got, want)
+    out = gtt.decode(col, device=cuda)
+    assert out.is_cuda and out.shape == (N,)
+    signed = {4: torch.int32, 2: torch.int16, 1: torch.int8}[v.itemsize]
+    assert out.view(signed).cpu().numpy().tobytes() == gtt.decode_ref(col).tobytes() == v.tobytes()
+
+
+@pytest.mark.parametrize("d", [1, 2049, 65536])
+def test_dict_shared_and_global_modes(cuda, d):
+    rng = np.random.default_rng(d)
+    vocab = rng.permutation(np.arange(d, dtype=np.int64) * 65_537 - 2**31 + 7).astype(np.int32)
+    v = vocab[rng.integers(0, d, N)]
+    col = gtt.encode(v, "dict", dictionary=vocab)
+    assert dict_.dict_in_shared(d) == (d <= 2049)  # 256 KiB exceeds any block's shared memory
+    np.testing.assert_array_equal(gtt.decode(col, device=cuda).cpu().numpy(), v)
+
+
+def test_kernel_rejects_tensors_on_two_devices(cuda):
+    col = gtt.encode(np.arange(GROUP, dtype=np.int32), "dict")
+    streams = gtt.device_streams(col, cuda)
+    with pytest.raises(ValueError, match="values is on cpu"):
+        dict_.dict_decode(streams["codes"], streams["values"].cpu(), col.params["bits"])
+    with pytest.raises(TypeError):
+        nbit.lmp_unpack(streams["codes"].to(torch.int64), col.params["bits"])

@@ -1,0 +1,161 @@
+"""giddy_tpu_torch's host layer against giddy_tpu's: encode, containers,
+oracle decode and the NumPy utilities must agree byte for byte."""
+
+import hashlib
+import pathlib
+
+import numpy as np
+import pytest
+
+import giddy_tpu as gt
+import giddy_tpu.util as gt_util
+import giddy_tpu_torch as gtt
+import giddy_tpu_torch.util as port_util
+from giddy_tpu_torch.util import GROUP
+
+from helpers import gen_column
+
+GOLDEN = pathlib.Path(__file__).parent / "golden"
+SCHEMES = ["nbit", "dzbf", "for", "delta", "dict"]
+
+
+def assert_same_column(port, ref):
+    assert (port.name, port.scheme, port.dtype, port.n) == (ref.name, ref.scheme, ref.dtype, ref.n)
+    assert port.params == ref.params
+    assert sorted(port.streams) == sorted(ref.streams)
+    for k, s in ref.streams.items():
+        p = port.streams[k]
+        assert (p.dtype, p.shape) == (s.dtype, s.shape), k
+        assert p.tobytes() == s.tobytes(), k
+
+
+@pytest.mark.parametrize("hard", [False, True])
+@pytest.mark.parametrize("scheme", SCHEMES)
+def test_encode_matches_reference(scheme, hard):
+    rng = np.random.default_rng(31)
+    v = gen_column(scheme, 2 * GROUP + 999, rng, hard=hard)
+    assert_same_column(gtt.encode(v, scheme, name="c"), gt.encode(v, scheme, name="c"))
+
+
+@pytest.mark.parametrize(
+    "scheme,opts",
+    [("nbit", {"bits": 17}), ("dzbf", {"width": 3}), ("for", {"frame_len": 2 * GROUP}),
+     ("dict", {"dictionary": np.arange(-50, 50, dtype=np.int32)})],
+)
+def test_encode_options_match_reference(scheme, opts):
+    rng = np.random.default_rng(32)
+    v = rng.integers(-50, 50, 3 * GROUP).astype(np.int32) if scheme == "dict" else (
+        rng.integers(0, 40_000, 3 * GROUP).astype(np.int32))
+    assert_same_column(gtt.encode(v, scheme, **opts), gt.encode(v, scheme, **opts))
+
+
+@pytest.mark.parametrize("dtype", ["int8", "uint8", "int16", "uint16", "uint32", "float32"])
+@pytest.mark.parametrize("scheme", SCHEMES)
+def test_encode_and_oracle_dtypes_match_reference(scheme, dtype):
+    rng = np.random.default_rng(33)
+    raw = rng.integers(0, 2**32, GROUP + 77, dtype=np.uint64).astype(np.uint32)
+    v = raw.view(np.float32) if dtype == "float32" else raw.astype(np.dtype(dtype))
+    if scheme == "dict":
+        v = v[rng.integers(0, 300, v.shape[0])]
+    port, ref = gtt.encode(v, scheme), gt.encode(v, scheme)
+    assert_same_column(port, ref)
+    out = gtt.decode_ref(port)
+    assert out.dtype == v.dtype
+    assert out.tobytes() == gt.decode_ref(ref).tobytes() == v.tobytes()
+
+
+@pytest.mark.parametrize(
+    "scheme,digest_name",
+    [("nbit", "nbit_9bit"), ("dzbf", "dzbf_2b"), ("for", "for_ts"),
+     ("delta", "delta_ts"), ("dict", "dict_lowcard")],
+)
+def test_golden_container_digests(scheme, digest_name):
+    """The port writes the checked-in golden containers of
+    tests/test_container.py byte for byte."""
+    rng = np.random.default_rng(20260817)
+    v = gen_column(scheme, GROUP + 100, rng)
+    col = gtt.encode(v, scheme, name=digest_name)
+    digest = hashlib.sha256(gtt.container_bytes([col])).hexdigest()
+    assert (GOLDEN / f"{digest_name}.sha256").read_text().strip() == digest
+
+
+@pytest.fixture(scope="module")
+def columns():
+    """(values, reference column) per scheme, small and ragged."""
+    rng = np.random.default_rng(34)
+    out = {}
+    for s in SCHEMES:
+        v = gen_column(s, GROUP + 5, rng)
+        out[s] = (v, gt.encode(v, s, name=f"c_{s}"))
+    return out
+
+
+def test_containers_round_trip_both_ways(columns, tmp_path):
+    refs = [col for _, col in columns.values()]
+    blob = gt.container_bytes(refs)
+    ported = gtt.read_container(blob)
+    assert gtt.container_bytes(ported) == blob
+    for p, r in zip(ported, refs):
+        assert_same_column(p, r)
+        assert gtt.decode_ref(p).tobytes() == gt.decode_ref(r).tobytes()
+    back = gt.read_container(gtt.container_bytes(ported))
+    for b, r in zip(back, refs):
+        assert b.params == r.params
+        np.testing.assert_array_equal(gt.decode_ref(b), gt.decode_ref(r))
+    path = tmp_path / "cols.gtp"
+    path.write_bytes(blob)
+    for p, (v, _) in zip(gtt.open_container(str(path)), columns.values()):
+        np.testing.assert_array_equal(gtt.decode_ref(p), v)
+
+
+def test_from_reference(columns):
+    for v, ref in columns.values():
+        port = gtt.from_reference(ref)
+        assert isinstance(port, gtt.EncodedColumn)
+        assert_same_column(port, ref)
+        assert port.static_key() == ref.static_key()
+        np.testing.assert_array_equal(gtt.decode_ref(port), v)
+        np.testing.assert_array_equal(gtt.decode(port, device="cpu").numpy(), v)
+
+
+def test_container_rejects_corruption():
+    blob = gtt.container_bytes([gtt.encode(np.arange(100, dtype=np.int32), "nbit")])
+    with pytest.raises(ValueError, match="truncated"):
+        gtt.read_container(blob[:10])
+    with pytest.raises(ValueError, match="magic"):
+        gtt.read_container(b"NOTGIDDY" + blob[8:])
+    with pytest.raises(ValueError, match="exceeds"):
+        gtt.read_container(blob[:-64])
+
+
+def test_util_matches_reference():
+    rng = np.random.default_rng(35)
+    d = rng.integers(-(2**31), 2**31, 5000, dtype=np.int64).astype(np.int32)
+    z = port_util.zigzag(d)
+    np.testing.assert_array_equal(z, gt_util.zigzag(d))
+    np.testing.assert_array_equal(port_util.unzigzag(z), gt_util.unzigzag(z))
+    np.testing.assert_array_equal(port_util.unzigzag(z), d)
+    v = rng.integers(-5, 5, 1000).astype(np.int32)
+    for a, b in zip(port_util.sorted_factorize(v), gt_util.sorted_factorize(v)):
+        np.testing.assert_array_equal(a, b)
+    for x in (0, 1, 255, 256, 2**31 - 1, 2**32 - 1):
+        assert port_util.bits_needed(x) == gt_util.bits_needed(x)
+        assert port_util.bytes_needed(x) == gt_util.bytes_needed(x)
+    for n in (0, 1, GROUP, GROUP + 1):
+        assert port_util.num_groups(n) == gt_util.num_groups(n)
+    assert (port_util.LANES, port_util.SLOTS, port_util.GROUP) == (gt_util.LANES, gt_util.SLOTS, gt_util.GROUP)
+
+
+@pytest.mark.parametrize("frame_groups", [1, 2, 3])
+def test_for_prep_matches_reference(frame_groups):
+    from giddy_tpu.kernels import for_ as gt_for
+    from giddy_tpu_torch.kernels import for_ as port_for
+
+    rng = np.random.default_rng(36)
+    v = gen_column("for", 4 * GROUP + 3, rng)
+    ref = gt.encode(v, "for", frame_len=frame_groups * GROUP)
+    want = gt_for.prep(ref)
+    got = port_for.prep(gtt.from_reference(ref))
+    np.testing.assert_array_equal(got["refs_g"], want["refs_g"].reshape(-1))
+    assert got["refs_g"].dtype == np.int32
+    np.testing.assert_array_equal(got["packed"], want["packed"])
