@@ -4,9 +4,11 @@ Decodes the same encoded columns and containers (FORMAT.md) on an NVIDIA
 GPU with hand-written CUDA kernels (csrc/), or on the CPU with their plain
 PyTorch versions. Imports torch and NumPy, never JAX or giddy_tpu.
 
-Ported so far: single-column decode of nbit, dzbf, for, delta and dict.
+Ported so far: single-column decode of nbit, dzbf, for, delta, dict, rle,
+rpe, delta2 and xordelta, and ``scan.group_prefix_sum`` / ``group_reduce``.
 """
 
+from . import scan
 from .api import decode, decode_ref, device_streams, encode, get_decoder, narrow_store_dtype
 from .format import (
     EncodedColumn,
@@ -35,6 +37,7 @@ __all__ = [
     "narrow_store_dtype",
     "open_container",
     "read_container",
+    "scan",
     "schemes",
     "write_container",
 ]

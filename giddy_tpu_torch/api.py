@@ -1,7 +1,7 @@
 """Public decode API of the PyTorch port (counterpart of giddy_tpu/api.py).
 
 ``decode(col, device=...)``: registry lookup -> host prep -> upload of the
-streams -> (cached) decoder -> one kernel -> logical-dtype tensor. On a CUDA
+streams -> (cached) decoder -> its kernel -> logical-dtype tensor. On a CUDA
 device the decoder launches the hand-written kernels of csrc/; on the CPU it
 runs their plain PyTorch versions (kernels/lanes.py).
 """

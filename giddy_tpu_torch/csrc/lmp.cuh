@@ -7,8 +7,15 @@
 // is bits [i*B, (i+1)*B) of those B words, stitched across two words where
 // it straddles one, and decodes to linear position i * 1024 + c, so a
 // warp's stores of slot i are coalesced too.
+//
+// Also here: the block-row scan every per-GROUP prefix kernel shares, and
+// the host-side argument checks and output-type dispatch of the entry
+// points.
 #pragma once
 
+#include <cuda_runtime.h>
+
+#include <climits>
 #include <cstdint>
 
 namespace gt {
@@ -16,6 +23,98 @@ namespace gt {
 constexpr int kLanes = 1024;
 constexpr int kSlots = 32;
 constexpr int kGroup = kLanes * kSlots;
+
+// Unsigned zigzag -> signed value, as uint32 bits (FORMAT.md §0.2).
+__device__ __forceinline__ uint32_t unzigzag(uint32_t z) { return (z >> 1) ^ (0u - (z & 1u)); }
+
+constexpr unsigned kFullMask = 0xFFFFFFFFu;
+
+// Combines of the block-row scan: Scan::T is the value scanned and
+// Scan::combine an associative, commutative operation on it. Scan::span(t,
+// k), with lane l of a warp holding the scan t of warp l's 32 values of the
+// row, gives every lane the scan of warps 0 .. k-1 (warp reductions, no
+// shuffles). All wrap mod 2^32.
+struct AddScan {
+  using T = uint32_t;
+  static __device__ __forceinline__ T combine(T a, T b) { return a + b; }
+  static __device__ __forceinline__ T span(T t, int k) {
+    return __reduce_add_sync(kFullMask, static_cast<int>(threadIdx.x & 31) < k ? t : 0u);
+  }
+};
+
+struct XorScan {
+  using T = uint32_t;
+  static __device__ __forceinline__ T combine(T a, T b) { return a ^ b; }
+  static __device__ __forceinline__ T span(T t, int k) {
+    return __reduce_xor_sync(kFullMask, static_cast<int>(threadIdx.x & 31) < k ? t : 0u);
+  }
+};
+
+// Two prefix sums side by side (delta2's sum(s_k) and sum(k * s_k)).
+struct PairAddScan {
+  using T = uint2;
+  static __device__ __forceinline__ T combine(T a, T b) { return make_uint2(a.x + b.x, a.y + b.y); }
+  static __device__ __forceinline__ T span(T t, int k) {
+    const bool in = static_cast<int>(threadIdx.x & 31) < k;
+    return make_uint2(__reduce_add_sync(kFullMask, in ? t.x : 0u), __reduce_add_sync(kFullMask, in ? t.y : 0u));
+  }
+};
+
+__device__ __forceinline__ uint32_t shfl_up(uint32_t v, int d) { return __shfl_up_sync(kFullMask, v, d); }
+__device__ __forceinline__ uint2 shfl_up(uint2 v, int d) { return make_uint2(shfl_up(v.x, d), shfl_up(v.y, d)); }
+
+// One row of a per-GROUP inclusive scan. A group's linear order is 32 rows
+// (slots) of 1024 values, value row * 1024 + c in thread c, so the group's
+// scan is 32 block scans with a carry from row to row. Every thread of the
+// block calls this once per row, rows in order, with its value x; it
+// returns carry (+) the scan of the row up to this thread and moves carry
+// past the whole row. carry starts as the scan of what comes before the
+// group (an anchor, or the identity).
+//
+// Per row: a 5-step __shfl_up_sync warp scan, the 32 warp totals through
+// shared memory, one __syncthreads; every warp then reduces the 32 totals
+// itself (Scan::span, __reduce_*_sync), so there is no second barrier. The
+// shuffle unit is what bounds these kernels on the H100 (one warp shuffle
+// per clock per SM), and the reductions take the place of a second 5-step
+// shuffle scan and two broadcasts per warp and row. The totals are
+// double-buffered by row parity (totals[2][32] in shared memory), which
+// keeps a fast warp writing row i+1 from racing a slow warp still reading
+// row i.
+template <typename Scan>
+__device__ __forceinline__ typename Scan::T block_row_scan(typename Scan::T x, typename Scan::T& carry,
+                                                           typename Scan::T (*totals)[32], int row) {
+  using T = typename Scan::T;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const T y = shfl_up(x, off);
+    if (lane >= off) x = Scan::combine(y, x);
+  }
+  T* row_totals = totals[row & 1];
+  if (lane == 31) row_totals[warp] = x;
+  __syncthreads();
+  const T t = row_totals[lane];
+  const T before = Scan::span(t, warp);  // warps 0 .. warp-1 of the row
+  const T row_total = Scan::span(t, 32);
+  const T out = Scan::combine(carry, warp > 0 ? Scan::combine(before, x) : x);
+  carry = Scan::combine(carry, row_total);
+  return out;
+}
+
+inline bool valid(long long ng, int bits) { return ng >= 1 && ng <= INT_MAX && bits >= 1 && bits <= 32; }
+
+// Calls f with a value of the output element type that out_bytes names:
+// 4 stores the uint32 payload, 2 and 1 its low 16 or 8 bits.
+template <typename F>
+int dispatch_out(int out_bytes, F&& f) {
+  switch (out_bytes) {
+    case 4: return f(uint32_t{});
+    case 2: return f(uint16_t{});
+    case 1: return f(uint8_t{});
+    default: return cudaErrorInvalidValue;
+  }
+}
 
 // Reads the 32 slots of one lane in order, loading each of its B words from
 // device memory exactly once. B is a runtime value in [1, 32].

@@ -16,7 +16,6 @@
 
 #include <cuda_runtime.h>
 
-#include <climits>
 #include <cstdint>
 
 #include "lmp.cuh"
@@ -62,15 +61,10 @@ __global__ void __launch_bounds__(kLanes)
 // K3. Replaces the Pallas kernel at giddy_tpu/kernels/delta.py:23 (unpack,
 // unzigzag, inclusive per-GROUP cumsum via lanes.py:391 signed_cumsum ->
 // :365 group_cumsum, plus anchors[g]).
-// Bound: device-memory bytes, as K1, once the scan keeps up: a group's
-// linear order is 32 rows (slots) of 1024 lanes, so the scan is 32 block
-// scans of 1024 values with a carry from row to row. Design: per row, a
-// 5-step __shfl_up_sync warp scan, the 32 warp totals through shared
-// memory, and one __syncthreads; every warp then scans the 32 totals
-// itself, so there is no second barrier. The totals are double-buffered by
-// row parity, which keeps a fast warp writing row i+1 from racing a slow
-// warp still reading row i. The MXU byte-plane trick of the TPU kernel is
-// not carried over.
+// Bound: device-memory bytes, as K1, once the scan keeps up. Design: the
+// block-row scan of lmp.cuh (block_row_scan<AddScan>, one barrier per row)
+// with the anchor as its starting carry. The MXU byte-plane trick of the
+// TPU kernel is not carried over.
 template <typename T>
 __global__ void __launch_bounds__(kLanes)
     delta_decode_kernel(const uint32_t* __restrict__ packed, const int32_t* __restrict__ anchors,
@@ -78,33 +72,11 @@ __global__ void __launch_bounds__(kLanes)
   __shared__ uint32_t warp_totals[2][32];
   const size_t g = blockIdx.x;
   const int c = threadIdx.x;
-  const int lane = c & 31;
-  const int warp = c >> 5;
   uint32_t carry = static_cast<uint32_t>(__ldg(anchors + g));
   LaneReader r(packed + g * bits * kLanes + c, bits);
   T* o = out + g * kGroup + c;
-  for (int i = 0; i < kSlots; ++i) {
-    const uint32_t z = r.next();
-    uint32_t x = (z >> 1) ^ (0u - (z & 1u));  // unzigzag (FORMAT.md §0.2), as uint32 bits
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const uint32_t y = __shfl_up_sync(0xFFFFFFFFu, x, off);
-      if (lane >= off) x += y;
-    }
-    uint32_t* totals = warp_totals[i & 1];
-    if (lane == 31) totals[warp] = x;
-    __syncthreads();
-    uint32_t t = totals[lane];
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const uint32_t y = __shfl_up_sync(0xFFFFFFFFu, t, off);
-      if (lane >= off) t += y;
-    }
-    const uint32_t upto_prev_warp = __shfl_sync(0xFFFFFFFFu, t, warp > 0 ? warp - 1 : 0);
-    const uint32_t row_total = __shfl_sync(0xFFFFFFFFu, t, 31);
-    o[i * kLanes] = static_cast<T>(carry + (warp > 0 ? upto_prev_warp : 0u) + x);
-    carry += row_total;
-  }
+  for (int i = 0; i < kSlots; ++i)
+    o[i * kLanes] = static_cast<T>(block_row_scan<AddScan>(unzigzag(r.next()), carry, warp_totals, i));
 }
 
 // K4. Replaces the Pallas kernel at giddy_tpu/kernels/dict_.py:70 with its
@@ -136,8 +108,6 @@ __global__ void __launch_bounds__(kLanes)
   }
 }
 
-bool valid(long long ng, int bits) { return ng >= 1 && ng <= INT_MAX && bits >= 1 && bits <= 32; }
-
 // Largest dictionary staged in shared memory: what one block may opt in to.
 int dict_shared_max_bytes() {
   int dev = 0, optin = 0;
@@ -166,17 +136,6 @@ int launch_dict(const void* codes, const void* values, void* out, long long ng, 
         c, v, static_cast<T*>(out), bits, static_cast<uint32_t>(d));
   }
   return cudaGetLastError();
-}
-
-// Calls f with a value of the output element type that out_bytes names.
-template <typename F>
-int dispatch_out(int out_bytes, F&& f) {
-  switch (out_bytes) {
-    case 4: return f(uint32_t{});
-    case 2: return f(uint16_t{});
-    case 1: return f(uint8_t{});
-    default: return cudaErrorInvalidValue;
-  }
 }
 
 }  // namespace gt

@@ -1,0 +1,229 @@
+// Run expansion (rle, rpe) and the per-group scan family (dense cumsum
+// rows, delta2, xordelta) of giddy_tpu_torch. Same conventions as
+// lmp_decode.cu: plain C interface bound with ctypes by
+// giddy_tpu_torch/kernels/_build.py; one block of 1024 threads per GROUP
+// (grid = number of groups), thread c owning positions i * 1024 + c (K5:
+// four neighbouring positions per step); every entry point launches on the
+// stream it is given, allocates nothing, and
+// returns cudaGetLastError() after the launch, or cudaErrorInvalidValue for
+// arguments it does not take. out_bytes 4/2/1 stores the uint32 payload or
+// its low 16/8 bits. All arithmetic wraps mod 2^32 (FORMAT.md §0).
+
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "lmp.cuh"
+
+namespace gt {
+
+// Largest run table one group may bring: T tiles of w_pad runs, T <= 64
+// (tile width W >= 512) and w_pad <= 128 (CHAIN_HARD of the host prep).
+constexpr int kRunTableMax = 8192;
+constexpr int kRunPadMax = 128;
+
+// K5. Replaces both Pallas run expansions of giddy_tpu/kernels/rle.py,
+// _chain_call (:153, the select chain) and _rank_call (:216, the 7-probe
+// search); their split is a TPU cost choice.
+// Input: the tile form of the host prep. Group g owns rows g*T .. g*T+T-1
+// of ends_w / vals_w (rows, w_pad), tile t covering positions
+// [t*W, (t+1)*W) of the group, ends tile-relative, exclusive and
+// non-decreasing. Output at tile position j: vals[r] with
+// r = #{m < w_pad - 1 : ends[m] <= j}, the select chain's result.
+// Bound: device-memory stores (4, 2 or 1 bytes a value; the tables are a
+// few percent of that). Design: the block stages its group's T*w_pad-entry
+// tables in dynamic shared memory (at most 64 KB for both). Thread c then
+// writes 4 neighbouring positions q .. q+3, q = 4 * (i * 1024 + c), as one
+// 16-, 8- or 4-byte store (warp stores stay coalesced): a binary search of
+// log2(w_pad) probes finds the run at q (libgiddy's per-thread search,
+// SURVEY.md CS-4), and the next three positions step forward from it.
+// Neighbouring threads search one tile for neighbouring j, so probes mostly
+// broadcast. On NVIDIA H100 80GB HBM3, 700.00 W, the vector store took K5
+// from 0.153 ms to 0.105 ms at configs[3] (PERF.md): with one 4-byte store
+// per value the kernel reached only 56% of a plain fill of the same bytes.
+template <typename T>
+struct Quad;  // four values of T, packed into one vector store
+template <>
+struct Quad<uint32_t> {
+  using V = uint4;
+  static __device__ __forceinline__ V pack(const uint32_t* v) { return make_uint4(v[0], v[1], v[2], v[3]); }
+};
+template <>
+struct Quad<uint16_t> {
+  using V = uint2;
+  static __device__ __forceinline__ V pack(const uint32_t* v) {
+    return make_uint2((v[0] & 0xFFFFu) | (v[1] << 16), (v[2] & 0xFFFFu) | (v[3] << 16));
+  }
+};
+template <>
+struct Quad<uint8_t> {
+  using V = uint32_t;
+  static __device__ __forceinline__ V pack(const uint32_t* v) {
+    return (v[0] & 0xFFu) | ((v[1] & 0xFFu) << 8) | ((v[2] & 0xFFu) << 16) | (v[3] << 24);
+  }
+};
+
+template <typename T>
+__global__ void __launch_bounds__(kLanes)
+    run_expand_kernel(const int32_t* __restrict__ ends_w, const uint32_t* __restrict__ vals_w,
+                      T* __restrict__ out, int w_shift, int w_pad) {
+  extern __shared__ uint32_t tables[];
+  const size_t g = blockIdx.x;
+  const int c = threadIdx.x;
+  const int entries = (kGroup >> w_shift) * w_pad;
+  int32_t* ends = reinterpret_cast<int32_t*>(tables);
+  uint32_t* vals = tables + entries;
+  for (int k = c; k < entries; k += kLanes) {
+    ends[k] = __ldg(ends_w + g * entries + k);
+    vals[k] = __ldg(vals_w + g * entries + k);
+  }
+  __syncthreads();
+  const int w_mask = (1 << w_shift) - 1;
+  using V = typename Quad<T>::V;
+  V* o = reinterpret_cast<V*>(out + g * kGroup) + c;
+  for (int i = 0; i < kGroup / (4 * kLanes); ++i) {
+    const int q = 4 * (i * kLanes + c);  // q .. q+3 lie in one tile: W >= 512
+    const int32_t* e = ends + (q >> w_shift) * w_pad;
+    const uint32_t* tv = vals + (q >> w_shift) * w_pad;
+    const int j = q & w_mask;
+    int r = 0;
+    for (int step = w_pad >> 1; step > 0; step >>= 1)
+      if (e[r + step - 1] <= j) r += step;
+    uint32_t v[4];
+    v[0] = tv[r];
+#pragma unroll
+    for (int k = 1; k < 4; ++k) {
+      while (r < w_pad - 1 && e[r] <= j + k) ++r;
+      v[k] = tv[r];
+    }
+    o[i * kLanes] = Quad<T>::pack(v);
+  }
+}
+
+// K6. Replaces giddy_tpu/kernels/rle.py:305 _cumsum_rows_call (the dense
+// per-GROUP cumsum after rle/rpe's scatter form, and scan.group_prefix_sum).
+// Bound: device-memory bytes, 4 in and 4 (or 2, 1) out per value. Design:
+// each thread loads its 32 values up front (32 independent loads in
+// flight), then the block-row scan of lmp.cuh runs over them.
+template <typename T>
+__global__ void __launch_bounds__(kLanes)
+    cumsum_rows_kernel(const uint32_t* __restrict__ in, T* __restrict__ out) {
+  __shared__ uint32_t warp_totals[2][32];
+  const size_t g = blockIdx.x;
+  const int c = threadIdx.x;
+  const uint32_t* x = in + g * kGroup + c;
+  uint32_t v[kSlots];
+#pragma unroll
+  for (int i = 0; i < kSlots; ++i) v[i] = __ldg(x + i * kLanes);
+  T* o = out + g * kGroup + c;
+  uint32_t carry = 0;
+#pragma unroll
+  for (int i = 0; i < kSlots; ++i)
+    o[i * kLanes] = static_cast<T>(block_row_scan<AddScan>(v[i], carry, warp_totals, i));
+}
+
+// K7. Replaces giddy_tpu/kernels/delta2.py:27 (body :32: unpack, unzigzag,
+// lanes.py:490 signed_double_cumsum, then anchor + slope * (j+1)).
+// Bound: device-memory bytes, as K3, and the shuffles of its scan. Design:
+// cumsum(cumsum(s))[j] = (j+1) * sum_{k<=j} s_k - sum_{k<=j} k * s_k, so
+// one block-row scan carries the pair of plain prefix sums (PairAddScan of
+// lmp.cuh), one barrier per row as in K3, and the epilogue is
+// anchor + (j+1) * (slope + sum s) - sum k*s, all mod 2^32.
+template <typename T>
+__global__ void __launch_bounds__(kLanes)
+    delta2_decode_kernel(const uint32_t* __restrict__ packed, const int32_t* __restrict__ anchors,
+                         const int32_t* __restrict__ slopes, T* __restrict__ out, int bits) {
+  __shared__ uint2 warp_totals[2][32];
+  const size_t g = blockIdx.x;
+  const int c = threadIdx.x;
+  const uint32_t anchor = static_cast<uint32_t>(__ldg(anchors + g));
+  const uint32_t slope = static_cast<uint32_t>(__ldg(slopes + g));
+  LaneReader r(packed + g * bits * kLanes + c, bits);
+  T* o = out + g * kGroup + c;
+  uint2 carry = make_uint2(0u, 0u);
+  for (int i = 0; i < kSlots; ++i) {
+    const uint32_t s = unzigzag(r.next());
+    const uint32_t j = static_cast<uint32_t>(i * kLanes + c);
+    const uint2 sums = block_row_scan<PairAddScan>(make_uint2(s, j * s), carry, warp_totals, i);
+    o[i * kLanes] = static_cast<T>(anchor + (j + 1u) * (slope + sums.x) - sums.y);
+  }
+}
+
+// K8. Replaces giddy_tpu/kernels/xordelta.py:18 (body :22: unpack,
+// lanes.py:589 group_cumxor, XOR the anchor). Stores the uint32 payload
+// only: xordelta has no narrow store in the reference.
+// Bound: device-memory bytes, as K3. Design: K3 with the add swapped for
+// XOR (block_row_scan<XorScan>), the anchor as the starting carry.
+__global__ void __launch_bounds__(kLanes)
+    xordelta_decode_kernel(const uint32_t* __restrict__ packed, const int32_t* __restrict__ anchors,
+                           uint32_t* __restrict__ out, int bits) {
+  __shared__ uint32_t warp_totals[2][32];
+  const size_t g = blockIdx.x;
+  const int c = threadIdx.x;
+  uint32_t carry = static_cast<uint32_t>(__ldg(anchors + g));
+  LaneReader r(packed + g * bits * kLanes + c, bits);
+  uint32_t* o = out + g * kGroup + c;
+  for (int i = 0; i < kSlots; ++i) o[i * kLanes] = block_row_scan<XorScan>(r.next(), carry, warp_totals, i);
+}
+
+bool valid_run_table(int w_shift, int w_pad) {
+  const bool pow2 = w_pad >= 1 && (w_pad & (w_pad - 1)) == 0;
+  return w_shift >= 9 && w_shift <= 15 && pow2 && w_pad <= kRunPadMax &&
+         (kGroup >> w_shift) * w_pad <= kRunTableMax;
+}
+
+}  // namespace gt
+
+using gt::kLanes;
+
+extern "C" {
+
+int gt_run_expand(const void* ends_w, const void* vals_w, void* out, long long ng, int w_shift, int w_pad,
+                  int out_bytes, void* stream) {
+  if (!gt::valid(ng, 1) || !gt::valid_run_table(w_shift, w_pad)) return cudaErrorInvalidValue;
+  const size_t smem = 2 * sizeof(uint32_t) * static_cast<size_t>((gt::kGroup >> w_shift) * w_pad);
+  return gt::dispatch_out(out_bytes, [&](auto tag) -> int {
+    using T = decltype(tag);
+    if (smem > 48 * 1024) {
+      const cudaError_t err = cudaFuncSetAttribute(gt::run_expand_kernel<T>,
+                                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                   static_cast<int>(smem));
+      if (err != cudaSuccess) return err;
+    }
+    gt::run_expand_kernel<T><<<static_cast<unsigned>(ng), kLanes, smem, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int32_t*>(ends_w), static_cast<const uint32_t*>(vals_w), static_cast<T*>(out), w_shift,
+        w_pad);
+    return cudaGetLastError();
+  });
+}
+
+int gt_cumsum_rows(const void* in, void* out, long long ng, int out_bytes, void* stream) {
+  if (!gt::valid(ng, 1)) return cudaErrorInvalidValue;
+  return gt::dispatch_out(out_bytes, [&](auto tag) -> int {
+    using T = decltype(tag);
+    gt::cumsum_rows_kernel<T><<<static_cast<unsigned>(ng), kLanes, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint32_t*>(in), static_cast<T*>(out));
+    return cudaGetLastError();
+  });
+}
+
+int gt_delta2_decode(const void* packed, const void* anchors, const void* slopes, void* out, long long ng, int bits,
+                     int out_bytes, void* stream) {
+  if (!gt::valid(ng, bits)) return cudaErrorInvalidValue;
+  return gt::dispatch_out(out_bytes, [&](auto tag) -> int {
+    using T = decltype(tag);
+    gt::delta2_decode_kernel<T><<<static_cast<unsigned>(ng), kLanes, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint32_t*>(packed), static_cast<const int32_t*>(anchors),
+        static_cast<const int32_t*>(slopes), static_cast<T*>(out), bits);
+    return cudaGetLastError();
+  });
+}
+
+int gt_xordelta_decode(const void* packed, const void* anchors, void* out, long long ng, int bits, void* stream) {
+  if (!gt::valid(ng, bits)) return cudaErrorInvalidValue;
+  gt::xordelta_decode_kernel<<<static_cast<unsigned>(ng), kLanes, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(packed), static_cast<const int32_t*>(anchors), static_cast<uint32_t*>(out), bits);
+  return cudaGetLastError();
+}
+
+}  // extern "C"

@@ -1,11 +1,12 @@
 """Builds and loads the CUDA kernels in ``giddy_tpu_torch/csrc``.
 
 At first use, ``nvcc`` compiles every ``csrc/*.cu`` file for ``sm_90a``
-into one shared library with a plain C interface, under
-``giddy_tpu_torch/_build/`` (git-ignored), named by a hash of the sources
-and flags, so an edited source builds anew. The library is loaded with
-ctypes; every pointer and the stream pass as ``c_void_p``. Nothing here
-runs at import: the CPU tests import every module and have no ``nvcc``.
+(one process per source, all started together) and links them into one
+shared library with a plain C interface, under ``giddy_tpu_torch/_build/``
+(git-ignored), named by a hash of the sources and flags, so an edited
+source builds anew. The library is loaded with ctypes; every pointer and
+the stream pass as ``c_void_p``. Nothing here runs at import: the CPU
+tests import every module and have no ``nvcc``.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ BUILD_DIR = _PKG / "_build"
 # decoders (alp) need IEEE rounding.
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 ]
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -35,6 +36,10 @@ _SIGNATURES = {
     "gt_delta_decode": [_P, _P, _P, _L, _I, _I, _P],
     "gt_dict_decode": [_P, _P, _P, _L, _I, _L, _I, _P],
     "gt_dict_shared": [_L],
+    "gt_run_expand": [_P, _P, _P, _L, _I, _I, _I, _P],
+    "gt_cumsum_rows": [_P, _P, _L, _I, _P],
+    "gt_delta2_decode": [_P, _P, _P, _P, _L, _I, _I, _P],
+    "gt_xordelta_decode": [_P, _P, _P, _L, _I, _P],
 }
 
 _LIB: ctypes.CDLL | None = None
@@ -63,15 +68,38 @@ def library_path() -> pathlib.Path:
     return BUILD_DIR / f"libgiddy_decode_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds: list[list[str]]) -> None:
+    """Run the commands side by side; raise with the first failure's output."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for cmd in cmds]
+    failed = []
+    try:
+        for cmd, proc in zip(cmds, procs):
+            _, err = proc.communicate(timeout=600)
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{err}")
+    finally:
+        for proc in procs:  # after a timeout: stop the others too
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def _compile(out: pathlib.Path) -> None:
     global build_seconds
     BUILD_DIR.mkdir(exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sorted(CSRC.glob("*.cu")))]
+    nvcc, tag = _nvcc(), f"{os.getpid()}.tmp"
+    sources = sorted(CSRC.glob("*.cu"))
+    objects = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources]
+    tmp = out.with_suffix(f".{tag}")
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stderr}")
+    try:
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)] for src, obj in zip(sources, objects)])
+        _run_all([[nvcc, "-shared", *NVCC_FLAGS, "-o", str(tmp), *map(str, objects)]])
+    finally:
+        for obj in objects:
+            obj.unlink(missing_ok=True)
     os.replace(tmp, out)  # atomic: a concurrent loader sees the whole file or none
     build_seconds = time.perf_counter() - t0
 

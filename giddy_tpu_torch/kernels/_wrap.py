@@ -17,23 +17,32 @@ from . import _build
 OUT_BYTES = {torch.int32: 4, torch.int16: 2, torch.uint8: 1}
 
 
+def check_out_dtype(out_dtype: torch.dtype) -> None:
+    if out_dtype not in OUT_BYTES:
+        raise TypeError(f"out_dtype must be one of {list(OUT_BYTES)}, got {out_dtype}")
+
+
+def check_rows(t: torch.Tensor, name: str, width: int | None = None) -> int:
+    """Validate a contiguous 2-D int32 tensor of rows (``width`` wide when
+    given) on the CPU or a CUDA device; returns its row count."""
+    if t.dtype != torch.int32:
+        raise TypeError(f"{name} must be int32 (uint32 bits), got {t.dtype}")
+    if t.dim() != 2 or t.shape[0] < 1 or t.shape[1] < 1 or t.shape[1] != (width or t.shape[1]):
+        want = f"(rows >= 1, {width})" if width else "(rows >= 1, >= 1)"
+        raise ValueError(f"{name} must have shape {want}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no decode kernel for device {t.device}")
+    return t.shape[0]
+
+
 def check_packed(packed: torch.Tensor, bits: int, out_dtype: torch.dtype) -> int:
     """Validate an LMP(bits) word stream and the output type; returns ng."""
     if not isinstance(bits, int) or not 1 <= bits <= 32:
         raise ValueError(f"bits must be an int in [1, 32], got {bits!r}")
-    if out_dtype not in OUT_BYTES:
-        raise TypeError(f"out_dtype must be one of {list(OUT_BYTES)}, got {out_dtype}")
-    if packed.dtype != torch.int32:
-        raise TypeError(f"packed words must be int32 (uint32 bits), got {packed.dtype}")
-    if packed.dim() != 2 or packed.shape[0] < 1 or packed.shape[1] != bits * LANES:
-        raise ValueError(
-            f"packed words must have shape (ng >= 1, {bits * LANES}), got {tuple(packed.shape)}"
-        )
-    if not packed.is_contiguous():
-        raise ValueError("packed words must be contiguous")
-    if packed.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"no decode kernel for device {packed.device}")
-    return packed.shape[0]
+    check_out_dtype(out_dtype)
+    return check_rows(packed, "packed words", bits * LANES)
 
 
 def check_side(t: torch.Tensor, length: int | None, name: str, device: torch.device) -> None:

@@ -1,4 +1,5 @@
-"""Plain PyTorch versions of the four decode kernels (csrc/lmp_decode.cu).
+"""Plain PyTorch versions of the decode kernels (csrc/lmp_decode.cu K1-K4,
+csrc/run_decode.cu K5-K8).
 
 The counterpart of Pallas interpret mode: the same arithmetic in torch
 ops, at the same signatures as the kernel wrappers. The wrappers take them
@@ -22,7 +23,7 @@ def _srl(x: torch.Tensor, s: int) -> torch.Tensor:
     return x if s == 0 else (x >> s) & ((1 << (32 - s)) - 1)
 
 
-def _wrap32(x: torch.Tensor) -> torch.Tensor:
+def wrap32(x: torch.Tensor) -> torch.Tensor:
     """int64 -> int32 keeping the low 32 bits (mod 2^32)."""
     return (((x + 2**31) & 0xFFFFFFFF) - 2**31).to(torch.int32)
 
@@ -49,7 +50,7 @@ def unzigzag(z: torch.Tensor) -> torch.Tensor:
 
 def group_cumsum(d: torch.Tensor, base: torch.Tensor) -> torch.Tensor:
     """Inclusive cumsum along each (ng, GROUP) row plus base[g], mod 2^32."""
-    return _wrap32(torch.cumsum(d.to(torch.int64), dim=1) + base.to(torch.int64)[:, None])
+    return wrap32(torch.cumsum(d.to(torch.int64), dim=1) + base.to(torch.int64)[:, None])
 
 
 def gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -73,3 +74,38 @@ def delta_decode(packed: torch.Tensor, anchors: torch.Tensor, bits: int, out_dty
 
 def dict_decode(codes: torch.Tensor, values: torch.Tensor, bits: int, out_dtype: torch.dtype = torch.int32) -> torch.Tensor:
     return gather(values, unpack_lanes(codes, bits)).to(out_dtype)
+
+
+def run_expand(ends_w: torch.Tensor, vals_w: torch.Tensor, ng: int, out_dtype: torch.dtype = torch.int32) -> torch.Tensor:
+    """Tile-form run tables (rows, w_pad) -> (ng, GROUP): at tile position
+    j, the value of run #{ends <= j}, clamped to the table."""
+    rows, w_pad = ends_w.shape
+    width = ng * GROUP // rows
+    j = torch.arange(width, dtype=torch.int32, device=ends_w.device).expand(rows, width).contiguous()
+    r = torch.searchsorted(ends_w, j, right=True).clamp_(max=w_pad - 1)
+    return torch.gather(vals_w, 1, r).reshape(ng, GROUP).to(out_dtype)
+
+
+def cumsum_rows(x: torch.Tensor, out_dtype: torch.dtype = torch.int32) -> torch.Tensor:
+    return group_cumsum(x, torch.zeros(x.shape[0], dtype=torch.int32, device=x.device)).to(out_dtype)
+
+
+def delta2_decode(packed: torch.Tensor, anchors: torch.Tensor, slopes: torch.Tensor, bits: int, out_dtype: torch.dtype = torch.int32) -> torch.Tensor:
+    # |s| < 2^31 and GROUP = 2^15, so both cumsums are exact in int64
+    s = unzigzag(unpack_lanes(packed, bits)).to(torch.int64)
+    cc = torch.cumsum(torch.cumsum(s, dim=1), dim=1)
+    pos1 = torch.arange(1, GROUP + 1, dtype=torch.int64, device=packed.device)
+    v = anchors.to(torch.int64)[:, None] + slopes.to(torch.int64)[:, None] * pos1 + cc
+    return wrap32(v).to(out_dtype)
+
+
+def xordelta_decode(packed: torch.Tensor, anchors: torch.Tensor, bits: int) -> torch.Tensor:
+    """Per-group inclusive prefix XOR, XOR the anchor. torch has no
+    cumulative XOR: 15 log steps x ^= x shifted by 2^k along the row."""
+    x = unpack_lanes(packed, bits)
+    shift = 1
+    while shift < GROUP:
+        y = x.clone()
+        y[:, shift:] ^= x[:, :-shift]
+        x, shift = y, 2 * shift
+    return x ^ anchors[:, None]

@@ -18,10 +18,8 @@ from .format import EncodedColumn
 # Schemes the JAX package decodes that the port does not yet, with the
 # ROADMAP.md queue-1 item that ports each.
 PENDING = {
-    "rle": 6, "rpe": 6,
     "cascade": 7,
-    "patched": 8, "model": 8, "alp": 8, "bitmap": 8, "delta2": 8,
-    "xordelta": 8, "dzbv": 8, "raw": 8,
+    "patched": 8, "model": 8, "alp": 8, "bitmap": 8, "dzbv": 8, "raw": 8,
     "wide": 11, "strdict": 11,
 }
 
@@ -34,7 +32,8 @@ class Codec:
     # Device decoder builder: build(col, out_store) -> fn(streams) returning
     # the (n_pad,) payload tensor; installed by giddy_tpu_torch.kernels.
     decode_device: Callable[..., Any] | None = None
-    # Host-side stream transform run before upload (FOR's per-group refs).
+    # Host-side stream transform run before upload (FOR's per-group refs,
+    # rle/rpe's tile or scatter form).
     prep_streams: Callable[[EncodedColumn], dict] | None = None
     # Whether the builder stores int8/int16 columns at storage width.
     narrow_store: bool = False

@@ -43,6 +43,10 @@ def round_up(x: int, m: int) -> int:
     return cdiv(x, m) * m
 
 
+def next_power_of_2(x: int) -> int:
+    return 1 if x <= 1 else 1 << (x - 1).bit_length()
+
+
 def bits_needed(max_value: int) -> int:
     """Smallest B with max_value < 2**B (B>=1); the NBit width chooser."""
     return max(1, int(max_value).bit_length())

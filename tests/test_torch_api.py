@@ -114,11 +114,11 @@ def test_wrappers_reject_bad_arguments(call, exc):
 
 def test_unported_schemes_dtypes_and_sizes_raise():
     rng = np.random.default_rng(9)
-    rle = gt.encode(gen_column("rle", GROUP, rng), "rle")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        gtt.decode(gtt.from_reference(rle), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        gtt.encode(np.zeros(10, np.int32), "rpe")
+    cascade = gt.encode(gen_column("dict", GROUP, rng), "cascade")
+    with pytest.raises(NotImplementedError, match="item 7"):
+        gtt.decode(gtt.from_reference(cascade), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 7"):
+        gtt.encode(np.zeros(10, np.int32), "cascade")
     with pytest.raises(KeyError, match="not registered"):
         gtt.get("no_such_scheme")
     wide = gt.encode(gen_column("wide", 100, rng), "wide")

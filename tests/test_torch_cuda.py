@@ -12,7 +12,7 @@ import torch
 
 import giddy_tpu_torch as gtt
 from giddy_tpu_torch import kernels
-from giddy_tpu_torch.kernels import dict_, lanes, nbit
+from giddy_tpu_torch.kernels import dict_, lanes, nbit, rle
 from giddy_tpu_torch.util import GROUP
 
 pytestmark = pytest.mark.cuda
@@ -28,18 +28,31 @@ def cuda():
 
 
 def _values(scheme, dtype, rng):
-    if scheme == "delta":
+    if scheme in ("delta", "delta2", "xordelta"):
         v = (np.cumsum(rng.integers(-(2**20), 2**20, N)) + 1_600_000_000).astype(np.int64)
     elif scheme == "dict":
         v = rng.integers(-(2**31), 2**31, 300, dtype=np.int64)[rng.integers(0, 300, N)]
+    elif scheme in ("rle", "rpe"):  # runs of ~50 (tile form)
+        v = rng.integers(0, 2**32, 300, dtype=np.uint64).astype(np.int64)[rng.integers(0, 300, N // 50 + 1)]
+        v = np.repeat(v, 50)[:N]
     else:
         v = rng.integers(0, 2**32, N, dtype=np.uint64).astype(np.int64)
     u = v.astype(np.uint32)  # wraps: every dtype sees its full bit range
     return u.view(np.dtype(dtype)) if dtype in ("int32", "float32") else u.astype(np.dtype(dtype))
 
 
+def _run_values(density, rng, n=N):
+    """Runs of 100-5000 (tile form, small w_pad), of ~20 (16 < w_pad <=
+    128), of ~4 (scatter form), or one run over the column."""
+    if density == "single":
+        return np.full(n, -7, np.int32)
+    lo, hi = {"long": (100, 5000), "mid": (1, 40), "dense": (1, 8)}[density]
+    lengths = rng.integers(lo, hi, n // lo + 1)
+    return np.repeat(rng.integers(-(2**31), 2**31, lengths.shape[0], dtype=np.int64), lengths)[:n].astype(np.int32)
+
+
 @pytest.mark.parametrize("dtype", ["int32", "uint32", "float32", "int16", "uint16", "int8", "uint8"])
-@pytest.mark.parametrize("scheme", ["nbit", "dzbf", "for", "delta", "dict"])
+@pytest.mark.parametrize("scheme", ["nbit", "dzbf", "for", "delta", "dict", "rle", "rpe", "delta2", "xordelta"])
 def test_kernel_matches_plain_and_oracle(cuda, scheme, dtype):
     v = _values(scheme, dtype, np.random.default_rng(5))
     col = gtt.encode(v, scheme)
@@ -65,6 +78,41 @@ def test_dict_shared_and_global_modes(cuda, d):
     col = gtt.encode(v, "dict", dictionary=vocab)
     assert dict_.dict_in_shared(d) == (d <= 2049)  # 256 KiB exceeds any block's shared memory
     np.testing.assert_array_equal(gtt.decode(col, device=cuda).cpu().numpy(), v)
+
+
+@pytest.mark.parametrize("density", ["long", "mid", "dense", "single"])
+@pytest.mark.parametrize("scheme", ["rle", "rpe"])
+def test_run_expansion_forms(cuda, scheme, density):
+    v = _run_values(density, np.random.default_rng(6))
+    col = gtt.encode(v, scheme)
+    streams = gtt.device_streams(col, cuda)
+    assert ("pos" in streams) == (density == "dense")
+    name, args = kernels.kernel_call(col, streams, torch.int32)
+    assert name == ("cumsum_rows" if density == "dense" else "run_expand")
+    got = getattr(kernels.WRAPPERS[name], name)(*args)
+    want = getattr(lanes, name)(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    np.testing.assert_array_equal(gtt.decode(col, device=cuda).cpu().numpy(), v)
+
+
+@pytest.mark.parametrize("n", [N, GROUP, 0])
+@pytest.mark.parametrize("exclusive", [False, True])
+def test_group_prefix_sum(cuda, exclusive, n):
+    x = torch.from_numpy(np.random.default_rng(n).integers(-(2**31), 2**31, n, dtype=np.int64).astype(np.int32))
+    before = kernels.launches()["cumsum_rows"]
+    got = gtt.scan.group_prefix_sum(x.to(cuda), exclusive=exclusive)
+    assert got.is_cuda and kernels.launches()["cumsum_rows"] == before + 1
+    want = gtt.scan.group_prefix_sum(x, exclusive=exclusive)
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+
+
+def test_run_expand_rejects_bad_tables_on_cuda(cuda):
+    tables = torch.zeros((3, 8), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="no run-expand kernel"):
+        rle.run_expand(tables, tables, 1)
+    with pytest.raises(ValueError):
+        rle.run_expand(tables, tables.cpu(), 3)
 
 
 def test_kernel_rejects_tensors_on_two_devices(cuda):
