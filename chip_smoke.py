@@ -2,8 +2,9 @@
 """Smoke run of giddy_tpu_torch on one NVIDIA GPU: builds the CUDA kernels,
 holds each against its plain PyTorch version and the NumPy oracle, drives
 the main paths (single-column ``decode(col, device="cuda")`` at the sizes
-of BASELINE.json configs[0]-[3] plus delta2 and xordelta columns, and
-``scan.group_prefix_sum``), and times them.
+of BASELINE.json configs[0]-[3] plus delta2 and xordelta columns,
+``scan.group_prefix_sum``, the mixed container of configs[4] through
+``decode_columns`` and a cascade (RLE_DICTIONARY) column), and times them.
 
     python3 chip_smoke.py
 
@@ -26,27 +27,73 @@ import torch
 
 import giddy_tpu_torch as gtt
 from giddy_tpu_torch import kernels
-from giddy_tpu_torch.kernels import _build, cumsum, delta, delta2, dict_, for_, lanes, nbit, rle, xordelta
+from giddy_tpu_torch.datagen import gen_column
+from giddy_tpu_torch.kernels import (
+    _build, cascade, cumsum, delta, delta2, dict_, for_, lanes, nbit, patch, rle, xordelta,
+)
+from giddy_tpu_torch.ref.cascade import INNER_SCHEMES
 from giddy_tpu_torch.util import GROUP
 
 N_CHECK = 2**22 + 999  # ragged, many groups: the size that caught the reference's grid bug
 LMP_SOURCE = "giddy_tpu_torch/csrc/lmp_decode.cu"
 RUN_SOURCE = "giddy_tpu_torch/csrc/run_decode.cu"
-# kernel name -> (wrapper, plain version, the Pallas kernel it replaces, source)
+PATCH_SOURCE = "giddy_tpu_torch/csrc/patch_decode.cu"
+# The card's peak rates for the bound (NVIDIA's H100 SXM data sheet):
+# device memory, and 32-bit integer ALU operations, half the 67 TFLOP/s
+# float32 rate (64 INT32 lanes an SM against 128 FP32).
+HBM_BYTES_PER_S = 3.35e12
+INT_OPS_PER_S = 33.5e12
+# kernel name -> (wrapper, plain version, the Pallas kernel it replaces,
+# source, integer operations per value the function needs at the least)
 KERNELS = {
-    "lmp_unpack": (nbit.lmp_unpack, lanes.lmp_unpack, "giddy_tpu/kernels/nbit.py:24", LMP_SOURCE),
-    "for_unpack": (for_.for_unpack, lanes.for_unpack, "giddy_tpu/kernels/for_.py:36", LMP_SOURCE),
-    "delta_decode": (delta.delta_decode, lanes.delta_decode, "giddy_tpu/kernels/delta.py:23", LMP_SOURCE),
-    "dict_decode": (dict_.dict_decode, lanes.dict_decode, "giddy_tpu/kernels/dict_.py:70", LMP_SOURCE),
+    # shift, OR, mask
+    "lmp_unpack": (nbit.lmp_unpack, lanes.lmp_unpack, "giddy_tpu/kernels/nbit.py:24", LMP_SOURCE, 3),
+    "for_unpack": (for_.for_unpack, lanes.for_unpack, "giddy_tpu/kernels/for_.py:36", LMP_SOURCE, 4),
+    # unpack, unzigzag (3), one add of the scan
+    "delta_decode": (delta.delta_decode, lanes.delta_decode, "giddy_tpu/kernels/delta.py:23", LMP_SOURCE, 7),
+    "dict_decode": (dict_.dict_decode, lanes.dict_decode, "giddy_tpu/kernels/dict_.py:70", LMP_SOURCE, 4),
     # one kernel for both TPU run expansions, _chain_call (:153) and _rank_call (:216)
-    "run_expand": (rle.run_expand, lanes.run_expand, "giddy_tpu/kernels/rle.py:153,216", RUN_SOURCE),
-    "cumsum_rows": (cumsum.cumsum_rows, lanes.cumsum_rows, "giddy_tpu/kernels/rle.py:305", RUN_SOURCE),
-    "delta2_decode": (delta2.delta2_decode, lanes.delta2_decode, "giddy_tpu/kernels/delta2.py:27", RUN_SOURCE),
+    "run_expand": (rle.run_expand, lanes.run_expand, "giddy_tpu/kernels/rle.py:153,216", RUN_SOURCE, 1),
+    "cumsum_rows": (cumsum.cumsum_rows, lanes.cumsum_rows, "giddy_tpu/kernels/rle.py:305", RUN_SOURCE, 1),
+    "delta2_decode": (delta2.delta2_decode, lanes.delta2_decode, "giddy_tpu/kernels/delta2.py:27", RUN_SOURCE, 9),
     "xordelta_decode": (xordelta.xordelta_decode, lanes.xordelta_decode, "giddy_tpu/kernels/xordelta.py:18",
-                        RUN_SOURCE),
+                        RUN_SOURCE, 4),
+    "patched_decode": (patch.patched_decode, lanes.patched_decode, "giddy_tpu/kernels/patch.py:34", PATCH_SOURCE, 4),
+    # the LUT stage of K1/K2/K3/K5/K6/K7 (gt::Lut): (inner kernel name, its arguments with the table)
+    "cascade_lut": (cascade.cascade_lut, lambda name, args: getattr(lanes, name)(*args),
+                    "giddy_tpu/kernels/cascade.py:30", "giddy_tpu_torch/csrc/lmp.cuh", 2),
 }
 MAX_ABS_ERR = {name: 0 for name in KERNELS}
 CUDA = torch.device("cuda")
+
+
+def kernel_call(col, streams: dict, store) -> tuple[str, tuple]:
+    """(KERNELS row, wrapper arguments) that decode ``col``: a cascade
+    column is the cascade_lut row, its arguments the inner kernel's."""
+    name, args = kernels.kernel_call(col, streams, store)
+    return ("cascade_lut", (name, args)) if col.scheme == "cascade" else (name, args)
+
+
+def tensors(args) -> list[torch.Tensor]:
+    """Every tensor among (nested) wrapper arguments."""
+    out = []
+    for a in args:
+        if isinstance(a, torch.Tensor):
+            out.append(a)
+        elif isinstance(a, tuple):
+            out.extend(tensors(a))
+    return out
+
+
+def bound(name: str, args: tuple, out: torch.Tensor) -> tuple[float, str]:
+    """(ms, "bytes" or "operations"): the least time the card could take for
+    this call, the larger of its bytes (each input read once, the output
+    written once) over the memory rate and its integer operations over the
+    ALU rate, and which of the two it is."""
+    nbytes = sum(t.numel() * t.element_size() for t in tensors(args)) + out.numel() * out.element_size()
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = KERNELS[name][4] * out.numel() / INT_OPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
 def check(ok: bool, what: str) -> None:
@@ -136,16 +183,18 @@ def check_kernel(label: str, col, v: np.ndarray) -> dict:
     returns the device streams."""
     streams = gtt.device_streams(col, CUDA)
     store = gtt.narrow_store_dtype(col)
-    name, args = kernels.kernel_call(col, streams, store)
+    name, args = kernel_call(col, streams, store)
     wrapper, plain = KERNELS[name][:2]
     got = wrapper(*args)
     compare(label, name, got, plain(*args))
     out = as_numpy(got, col.n, col.dtype)
     check(same_bits(out, gtt.decode_ref(col)), f"{label}: {name} != oracle")
     check(same_bits(out, v), f"{label}: {name} != input")
-    form = f" {','.join(sorted(streams))} {tuple(streams['vals_w'].shape)}" if "vals_w" in streams else (
-        f" pos {tuple(streams['pos'].shape)}" if "pos" in streams else "")
-    print(f"[kernel] {label}: {name}{form} n={col.n} store={str(store)[6:]} bit-exact vs plain, oracle, input")
+    runs = {k.removeprefix("c_"): t for k, t in streams.items()}
+    form = f" vals_w {tuple(runs['vals_w'].shape)}" if "vals_w" in runs else (
+        f" pos {tuple(runs['pos'].shape)}" if "pos" in runs else "")
+    inner = f" over {args[0]}" if name == "cascade_lut" else ""
+    print(f"[kernel] {label}: {name}{inner}{form} n={col.n} store={str(store)[6:]} bit-exact vs plain, oracle, input")
     return streams
 
 
@@ -196,6 +245,72 @@ def scan_checks(rng, n: int) -> None:
         print(f"[kernel] group_prefix_sum exclusive={exclusive}: cumsum_rows n={n} bit-exact vs plain")
 
 
+def patched_column(rng, n: int, dtype: str = "int32", exceptions: bool = True) -> np.ndarray:
+    """4-bit values with ~1% wide exceptions, among them positions 0, n-1
+    and both sides of every group boundary (none when not exceptions)."""
+    v = rng.integers(0, 16, n, dtype=np.int64)
+    if exceptions:
+        edges = np.arange(GROUP, n, GROUP)
+        idx = np.concatenate([rng.choice(n, n // 100, replace=False), [0, n - 1], edges - 1, edges])
+        v[idx] = rng.integers(2**20, 2**31, idx.shape[0])
+    u = v.astype(np.uint32)
+    return u.view(np.dtype(dtype)) if dtype in ("int32", "float32") else u.astype(np.dtype(dtype))
+
+
+def patched_checks(rng, n: int) -> None:
+    """K9: both bases and kinds, narrow stores, no exceptions, n = 0."""
+    v = patched_column(rng, n)
+    for base in ("for", "nbit"):
+        for kind in ("naive", "compressed"):
+            col = gtt.encode(v, "patched", base_scheme=base, kind=kind, frame_len=2 * GROUP)
+            check_kernel(f"patched {base} {kind} count={col.params['count']} bits={col.params['base_params']['bits']}",
+                         col, v)
+    for dtype in ("int8", "int16", "uint16", "float32"):
+        vv = patched_column(rng, n, dtype)
+        check_kernel(f"patched for naive {dtype}", gtt.encode(vv, "patched"), vv)
+        check_kernel(f"patched nbit compressed {dtype}", gtt.encode(vv, "patched", base_scheme="nbit",
+                                                                    kind="compressed"), vv)
+    v = patched_column(rng, n, exceptions=False)
+    for kind in ("naive", "compressed"):
+        col = gtt.encode(v, "patched", kind=kind)
+        check(col.params["count"] == 0, f"patched {kind} without exceptions: count {col.params['count']}")
+        check_kernel(f"patched {kind} count=0", col, v)
+        check_kernel(f"patched {kind} n=0", gtt.encode(v[:0], "patched", kind=kind), v[:0])
+
+
+def cascade_column(rng, d: int, n: int, run: int = 50) -> tuple[np.ndarray, np.ndarray]:
+    """n values of a d-entry vocabulary in runs of ``run``, and the vocabulary."""
+    vocab = rng.permutation(np.arange(d, dtype=np.int64) * 65_537 - 2**31 + 3).astype(np.int32)
+    return vocab[np.repeat(rng.integers(0, d, n // run + 1), run)[:n]], vocab
+
+
+def cascade_checks(rng, n: int) -> None:
+    """The LUT stage: every inner scheme at every dictionary mode (65536
+    entries, 256 KB, is past any block's shared memory: the __ldg mode),
+    both rle forms, narrow stores, n = 0."""
+    for d in (1, 8, 1000, 16384, 65536):
+        v, vocab = cascade_column(rng, d, n)
+        for inner in INNER_SCHEMES:
+            check_kernel(f"cascade {inner} d={d}", gtt.encode(v, "cascade", codes_scheme=inner, dictionary=vocab), v)
+    v, vocab = cascade_column(rng, 1000, n, run=1)
+    for inner in ("rle", "rpe"):
+        s = check_kernel(f"cascade {inner} d=1000 runs of 1", gtt.encode(v, "cascade", codes_scheme=inner), v)
+        check("c_pos" in s, f"cascade {inner} runs of 1 did not reach the scatter form: {list(s)}")
+    for dtype in ("int8", "int16", "uint16", "float32"):
+        u = cascade_column(rng, 300, n)[0].view(np.uint32)
+        vv = u.view(np.float32) if dtype == "float32" else u.astype(np.dtype(dtype))
+        for inner in ("rle", "delta", "for"):
+            check_kernel(f"cascade {inner} {dtype}", gtt.encode(vv, "cascade", codes_scheme=inner), vv)
+    for inner in INNER_SCHEMES:
+        col = gtt.encode(v[:0], "cascade", codes_scheme=inner, dictionary=vocab)
+        check_kernel(f"cascade {inner} n=0 d={col.params['dict_size']}", col, v[:0])
+        empty = gtt.encode(v[:0], "cascade", codes_scheme=inner)  # d = 0: nothing to launch
+        before = kernels.launches()
+        out = gtt.decode(empty, device=CUDA, pad=True)
+        check(kernels.launches() == before and out.shape == (GROUP,) and not out.any(),
+              f"cascade {inner} d=0 launched or gave {out}")
+
+
 def dict_column(rng, d: int, n: int) -> tuple[np.ndarray, np.ndarray]:
     vocab = rng.permutation(np.arange(d, dtype=np.int64) * 65_537 - 2**31 + 12_345).astype(np.int32)
     return vocab[rng.integers(0, d, n)], vocab
@@ -224,6 +339,8 @@ def kernel_checks(n: int = N_CHECK) -> None:
         check_kernel(f"dict d={d} ({mode})", gtt.encode(v, "dict", dictionary=vocab), v)
     run_checks(rng, n)
     scan_checks(rng, n)
+    patched_checks(rng, n)
+    cascade_checks(rng, n)
     base = rng.integers(0, 2**31 - 1, n, dtype=np.int64)
     for dtype in ("int8", "int16", "uint16", "float32"):
         if dtype == "float32":
@@ -285,12 +402,36 @@ def main_columns() -> list:
         ("configs[1] timestamps as delta2 n=2^26", ts, "delta2", {}),
         ("float32 series as xordelta n=2^26", series, "xordelta", {}),
     ]:
-        t0 = time.perf_counter()
-        col = gtt.encode(v, scheme, name=label, **opts)
-        print(f"[encode] {label}: host encode {time.perf_counter() - t0:.2f} s "
-              f"({col.nbytes_decoded / col.nbytes_compressed:.2f}x), params {col.params}")
-        cols.append((label, v, col))
+        cols.append((label, v, encoded(label, v, scheme, **opts)))
     return cols
+
+
+def encoded(label: str, v: np.ndarray, scheme: str, **opts):
+    t0 = time.perf_counter()
+    col = gtt.encode(v, scheme, name=label, **opts)
+    print(f"[encode] {label}: host encode {time.perf_counter() - t0:.2f} s "
+          f"({col.nbytes_decoded / col.nbytes_compressed:.2f}x), params {col.params}")
+    return col
+
+
+def container_columns() -> list:
+    """BASELINE.json configs[4] as bench.py's bench_mixed builds it
+    (bench.py:118-121): datagen.gen_column for delta, dict, rle and patched
+    in that order from one default_rng(0), default options, at 2^26 values
+    a column (1 GiB decoded in all): (input values, encoded column)."""
+    rng = np.random.default_rng(0)
+    out = []
+    for s in ("delta", "dict", "rle", "patched"):
+        v = gen_column(s, 2**26, rng)
+        out.append((v, encoded(f"mix_{s}", v, s)))
+    return out
+
+
+def cascade_main() -> tuple[np.ndarray, object]:
+    """The RLE_DICTIONARY column: datagen's cascade data (d = 8, runs of
+    50-2000), 2^26 values, seed 6, encoded cascade over the default rle."""
+    v = gen_column("cascade", 2**26, np.random.default_rng(6))
+    return v, encoded("cascade rle d=8 n=2^26", v, "cascade")
 
 
 def scan_input() -> torch.Tensor:
@@ -304,12 +445,14 @@ def same_on_card(out: torch.Tensor, v: np.ndarray) -> bool:
     return out.shape == v.shape and torch.equal(out.view(torch.uint8), torch.from_numpy(v.view(np.uint8)).to(CUDA))
 
 
-def main_path(cols: list, x: torch.Tensor) -> dict[str, int]:
+def main_path(cols: list, x: torch.Tensor, container: list, casc: tuple) -> dict[str, int]:
     """Phase 4: each main path -- every column through decode(col,
-    device=cuda), then scan.group_prefix_sum(x) -- with the launch counts
-    set to 0 just before it and read just after, and its output checked
-    against its input (the prefix sum against the plain version on the
-    host). Returns the counts summed over the paths."""
+    device=cuda), scan.group_prefix_sum(x), the configs[4] container
+    through decode_columns(cols, device=cuda) and the cascade column
+    through decode -- with the launch counts set to 0 just before it and
+    read just after, and its output checked against its input (the prefix
+    sum against the plain version on the host). Returns the counts summed
+    over the paths."""
     totals = dict.fromkeys(KERNELS, 0)
 
     def drive(label: str, what: str, fn) -> None:
@@ -332,7 +475,39 @@ def main_path(cols: list, x: torch.Tensor) -> dict[str, int]:
         drive(f"group_prefix_sum n=2^26 exclusive={exclusive}", "scan.group_prefix_sum(x on cuda) vs plain version",
               lambda: torch.equal(gtt.scan.group_prefix_sum(x.to(CUDA), exclusive=exclusive).view(torch.int32),
                                   want_x.to(CUDA)))
+
+    def container_ok() -> bool:
+        outs = gtt.decode_columns([col for _, col in container], device=CUDA)
+        return sorted(outs) == sorted(col.name for _, col in container) and all(
+            same_on_card(outs[col.name], v) for v, col in container)
+
+    drive("configs[4] mixed container 4 x 2^26", "decode_columns(cols, device=cuda) vs inputs", container_ok)
+    v, col = casc
+    drive("cascade rle d=8 n=2^26", "decode(col, device=cuda) vs input", lambda: same_on_card(gtt.decode(col, device=CUDA), v))
     return totals
+
+
+def resident_decoders(container: list) -> tuple[list, list]:
+    """The container's cached decoders and its streams, uploaded."""
+    cols = [col for _, col in container]
+    streams = [gtt.device_streams(col, CUDA) for col in cols]
+    return [gtt.get_decoder(col, gtt.narrow_store_dtype(col)) for col in cols], streams
+
+
+def container_without_sync(container: list) -> None:
+    """Phase 4: the container's decoders, back to back on resident streams
+    under sync debug mode "error", so a host synchronisation between
+    columns raises; then each output against its input."""
+    decoders, streams = resident_decoders(container)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        outs = [dec(s) for dec, s in zip(decoders, streams)]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for (v, col), u in zip(container, outs):
+        check(same_on_card(u[: col.n], v), f"resident {col.name} is wrong")
+    print(f"[main] configs[4] decoders on resident streams under sync debug mode 'error': no host sync, bit-exact")
 
 
 def time_kernel(label: str, smi: str, name: str, args: tuple, nbytes: int, e2e, e2e_what: str, tail: str) -> dict:
@@ -340,7 +515,10 @@ def time_kernel(label: str, smi: str, name: str, args: tuple, nbytes: int, e2e, 
     version at this shape), a same-size copy_, the plain version, and the
     end-to-end call; ``tail`` adds the uploads measured by the caller."""
     wrapper, plain = KERNELS[name][:2]
-    compare(label, name, wrapper(*args), plain(*args))
+    out = wrapper(*args)
+    compare(label, name, out, plain(*args))
+    b_ms, b_by = bound(name, args, out)
+    del out
     k_ms = cuda_ms(lambda: wrapper(*args))
     src = torch.empty(nbytes // 4, dtype=torch.int32, device=CUDA)
     dst = torch.empty_like(src)
@@ -352,16 +530,17 @@ def time_kernel(label: str, smi: str, name: str, args: tuple, nbytes: int, e2e, 
     print(f"[time] {label} on {smi}: kernel {name} {k_ms:.4f} ms = {k_gbs:.1f} GB/s decoded; "
           f"copy_ of the same {nbytes} B {c_ms:.4f} ms = {c_gbs:.1f} GB/s; kernel/copy {k_gbs / c_gbs:.3f}; "
           f"plain PyTorch {p_ms:.4f} ms; end-to-end {e2e_what} {e_ms:.3f} ms; {tail} "
-          f"(medians of 20 / 20 / 10 / 10 / 10 / 10 runs)")
+          f"(medians of 20 / 20 / 10 / 10 / 10 / 10 runs); bound {b_ms:.4f} ms by {b_by}, kernel at "
+          f"{b_ms / k_ms:.3f} of it")
     torch.cuda.empty_cache()
-    return {"ms": k_ms, "plain_ms": p_ms}
+    return {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 
 
 def time_column(label, v, col, smi) -> tuple[str, dict]:
     """Phase 5 for a column: end-to-end decode(col) includes host prep and
     the upload; beside it the upload of the streams alone and of the raw
     column it stands against."""
-    name, args = kernels.kernel_call(col, gtt.device_streams(col, CUDA), gtt.narrow_store_dtype(col))
+    name, args = kernel_call(col, gtt.device_streams(col, CUDA), gtt.narrow_store_dtype(col))
     u_ms = host_ms(lambda: gtt.device_streams(col, CUDA))
     r_ms = host_ms(lambda: torch.from_numpy(v).to(CUDA))
     tail = (f"host prep + H2D of the {col.nbytes_compressed} B of streams alone {u_ms:.3f} ms; "
@@ -375,10 +554,35 @@ def time_scan(x: torch.Tensor, smi: str) -> tuple[str, dict]:
     xc = x.to(CUDA)
     rows = xc.view(-1, GROUP)  # 2^26 is whole groups
     r_ms = host_ms(lambda: x.to(CUDA))
-    return "cumsum_rows", time_kernel(
+    lib_ms = cuda_ms(lambda: torch.cumsum(rows, 1, dtype=torch.int32))
+    timing = time_kernel(
         "group_prefix_sum n=2^26", smi, "cumsum_rows", (rows,), x.numel() * 4,
         lambda: gtt.scan.group_prefix_sum(xc), "group_prefix_sum(x resident)",
-        f"H2D of the raw column {r_ms:.3f} ms")
+        f"H2D of the raw column {r_ms:.3f} ms; library torch.cumsum(rows, 1, dtype=int32) {lib_ms:.4f} ms")
+    return "cumsum_rows", dict(timing, library_ms=lib_ms)
+
+
+def time_container(container: list, smi: str) -> None:
+    """Phase 5 for configs[4]: decode_columns end to end, against the sum
+    of the four single decode calls and the H2D of the four raw columns;
+    the four kernels back to back on resident streams (CUDA events around
+    the whole sequence)."""
+    cols = [col for _, col in container]
+    e_ms = host_ms(lambda: gtt.decode_columns(cols, device=CUDA))
+    singles = [host_ms(lambda c=col: gtt.decode(c, device=CUDA)) for col in cols]
+    u_ms = host_ms(lambda: [gtt.device_streams(col, CUDA) for col in cols])
+    r_ms = host_ms(lambda: [torch.from_numpy(v).to(CUDA) for v, _ in container])
+    decoders, streams = resident_decoders(container)
+    k_ms = cuda_ms(lambda: [dec(s) for dec, s in zip(decoders, streams)])
+    nbytes = sum(col.nbytes_decoded for col in cols)
+    print(f"[time] configs[4] mixed container 4 x 2^26 on {smi}: decode_columns end to end {e_ms:.3f} ms; "
+          f"sum of the four single decode(col) {sum(singles):.3f} ms "
+          f"({', '.join(f'{c.name} {t:.3f}' for c, t in zip(cols, singles))}); host prep + H2D of the "
+          f"{sum(c.nbytes_compressed for c in cols)} B of streams alone {u_ms:.3f} ms; H2D of the four raw "
+          f"columns {r_ms:.3f} ms; the four decoders back to back on resident streams {k_ms:.4f} ms = "
+          f"{nbytes / k_ms / 1e6:.1f} GB/s decoded, {k_ms / e_ms:.4f} of the end-to-end call "
+          f"(medians of 10 host-clock runs, 20 CUDA-event runs)")
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -387,15 +591,22 @@ def main() -> int:
     kernel_checks()
     cols = main_columns()
     x = scan_input()
-    counts = main_path(cols, x)
+    container = container_columns()
+    casc = cascade_main()
+    counts = main_path(cols, x, container, casc)
+    container_without_sync(container)
     timings = dict(time_column(label, v, col, smi) for label, v, col in cols)
     timings.update([time_scan(x, smi)])
+    v, col = container[-1]
+    timings.update([time_column("configs[4] patched n=2^26", v, col, smi)])
+    timings.update([time_column("cascade rle d=8 n=2^26", *casc, smi)])
+    time_container(container, smi)
     for name, count in counts.items():
         check(count >= 1, f"{name} was launched {count} times on the main path")
     rows = [
         {"name": name, "route": "cuda", "source": KERNELS[name][3], "replaces": KERNELS[name][2],
-         "launches": counts[name], "max_abs_err": MAX_ABS_ERR[name],
-         "ms": timings[name]["ms"], "plain_ms": timings[name]["plain_ms"]}
+         "launches": counts[name], "max_abs_err": MAX_ABS_ERR[name], **timings[name],
+         **({"stage_of": "K1/K2/K3/K5/K6/K7"} if name == "cascade_lut" else {})}
         for name in KERNELS
     ]
     print(json.dumps({"kernels": rows}))

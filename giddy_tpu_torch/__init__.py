@@ -4,12 +4,14 @@ Decodes the same encoded columns and containers (FORMAT.md) on an NVIDIA
 GPU with hand-written CUDA kernels (csrc/), or on the CPU with their plain
 PyTorch versions. Imports torch and NumPy, never JAX or giddy_tpu.
 
-Ported so far: single-column decode of nbit, dzbf, for, delta, dict, rle,
-rpe, delta2 and xordelta, and ``scan.group_prefix_sum`` / ``group_reduce``.
+Ported so far: decode of nbit, dzbf, for, delta, dict, rle, rpe, delta2,
+xordelta, patched, raw and cascade, single columns (``decode``) and whole
+containers (``decode_columns``), ``scan.group_prefix_sum`` /
+``group_reduce``, and the synthetic columns of ``datagen``.
 """
 
-from . import scan
-from .api import decode, decode_ref, device_streams, encode, get_decoder, narrow_store_dtype
+from . import datagen, scan
+from .api import decode, decode_columns, decode_ref, device_streams, encode, get_decoder, narrow_store_dtype
 from .format import (
     EncodedColumn,
     container_bytes,
@@ -27,7 +29,9 @@ __all__ = [
     "LANES",
     "SLOTS",
     "container_bytes",
+    "datagen",
     "decode",
+    "decode_columns",
     "decode_ref",
     "device_streams",
     "encode",

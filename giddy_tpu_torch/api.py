@@ -1,7 +1,9 @@
 """Public decode API of the PyTorch port (counterpart of giddy_tpu/api.py).
 
 ``decode(col, device=...)``: registry lookup -> host prep -> upload of the
-streams -> (cached) decoder -> its kernel -> logical-dtype tensor. On a CUDA
+streams -> (cached) decoder -> its kernel -> logical-dtype tensor.
+``decode_columns(cols, device=...)`` does the same for a container's
+columns, all uploads first, then all decoders. On a CUDA
 device the decoder launches the hand-written kernels of csrc/; on the CPU it
 runs their plain PyTorch versions (kernels/lanes.py).
 """
@@ -107,19 +109,44 @@ def _to_logical(u: torch.Tensor, dtype: str) -> torch.Tensor:
     return u.view(logical)
 
 
-def decode(col: EncodedColumn, *, device: torch.device | str, pad: bool = False) -> torch.Tensor:
-    """Decode a column on ``device`` (``"cuda"`` or ``"cpu"``; no default).
-
-    Returns a tensor of the column's logical dtype on that device, of
-    length n, or n_pad (whole groups) when ``pad=True``."""
+def _decode_device(device: torch.device | str) -> torch.device:
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("decode on a CUDA device, but torch sees no CUDA device")
     if device.type not in ("cuda", "cpu"):
         raise ValueError(f"no decoder for device {device}")
+    return device
+
+
+def decode(col: EncodedColumn, *, device: torch.device | str, pad: bool = False) -> torch.Tensor:
+    """Decode a column on ``device`` (``"cuda"`` or ``"cpu"``; no default).
+
+    Returns a tensor of the column's logical dtype on that device, of
+    length n, or n_pad (whole groups) when ``pad=True``."""
+    device = _decode_device(device)
     _check_supported(col)
     if col.n == 0 and not pad:
         return torch.empty(0, dtype=_LOGICAL[col.dtype][1], device=device)
     u = get_decoder(col, narrow_store_dtype(col))(device_streams(col, device))
     out = _to_logical(u, col.dtype)
     return out if pad else out[: col.n]
+
+
+def decode_columns(cols: list[EncodedColumn], *, device: torch.device | str, pad: bool = False) -> dict[str, torch.Tensor]:
+    """Decode a whole container's columns on ``device`` (the mixed column
+    set of BASELINE configs[4]; counterpart of giddy_tpu/api.py:159-182).
+
+    Every column's streams are uploaded first; then every column's cached
+    decoder runs, back to back on the current stream, with no host
+    synchronisation between columns. Results are keyed by column name, a
+    later column of the same name replacing an earlier one."""
+    device = _decode_device(device)
+    for col in cols:
+        _check_supported(col)
+    decoders = [get_decoder(col, narrow_store_dtype(col)) for col in cols]
+    streams = [device_streams(col, device) for col in cols]
+    result = {}
+    for col, decoder, s in zip(cols, decoders, streams):
+        out = _to_logical(decoder(s), col.dtype)
+        result[col.name] = out if pad else out[: col.n]
+    return result

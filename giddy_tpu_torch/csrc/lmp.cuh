@@ -8,14 +8,15 @@
 // it straddles one, and decodes to linear position i * 1024 + c, so a
 // warp's stores of slot i are coalesced too.
 //
-// Also here: the block-row scan every per-GROUP prefix kernel shares, and
-// the host-side argument checks and output-type dispatch of the entry
-// points.
+// Also here: the block-row scan every per-GROUP prefix kernel shares, the
+// fused dictionary stage (Lut), and the host-side argument checks, output-
+// type and table-mode dispatch of the entry points.
 #pragma once
 
 #include <cuda_runtime.h>
 
 #include <climits>
+#include <cstddef>
 #include <cstdint>
 
 namespace gt {
@@ -151,5 +152,97 @@ struct LaneReader {
     return v & mask;
   }
 };
+
+// The fused dictionary stage of cascade decode. Replaces the gather_lut
+// stage that giddy_tpu/kernels/cascade.py:30 passes into its inner kernels
+// (common.py:196-214, lanes.py:124). A kernel templated on Lut<M> maps
+// every value it would store through values[min(code, d - 1)] (K4's clamp
+// for malformed codes) while the code is still 32 bits wide; only the
+// looked-up value is narrowed to the store type. kNone is the plain kernel;
+// kShared reads a copy of the table in the block's dynamic shared memory,
+// kGlobal reads it through the read-only cache.
+enum class LutMode { kNone, kShared, kGlobal };
+
+template <LutMode M>
+struct Lut {
+  const uint32_t* table;
+  uint32_t last;  // d - 1
+
+  // Every thread of the block constructs it once, before any lookup. In
+  // kShared mode the block copies the d entries into smem and waits.
+  __device__ __forceinline__ Lut(const uint32_t* values, uint32_t d, uint32_t* smem) : table(values), last(d - 1u) {
+    if constexpr (M == LutMode::kShared) {
+      for (uint32_t j = threadIdx.x; j < d; j += blockDim.x) smem[j] = __ldg(values + j);
+      __syncthreads();
+      table = smem;
+    }
+  }
+
+  __device__ __forceinline__ uint32_t operator()(uint32_t code) const {
+    if constexpr (M == LutMode::kNone) {
+      return code;
+    } else if constexpr (M == LutMode::kShared) {
+      return table[min(code, last)];
+    } else {
+      return __ldg(table + min(code, last));
+    }
+  }
+};
+
+// The body of K1, K2 and phase 1 of K9: thread c unpacks lane c of group
+// blockIdx.x, adds ref (wrapping; 0 for a plain unpack), maps each value
+// through the table and stores it at T. Loads and stores are warp-
+// coalesced by the LMP layout and each word is read once.
+template <typename T, LutMode M>
+__device__ __forceinline__ void unpack_store_lane(const uint32_t* __restrict__ packed, T* __restrict__ out, int bits,
+                                                  uint32_t ref, const Lut<M>& map) {
+  const size_t g = blockIdx.x;
+  const int c = threadIdx.x;
+  LaneReader r(packed + g * bits * kLanes + c, bits);
+  T* o = out + g * kGroup + c;
+#pragma unroll
+  for (int i = 0; i < kSlots; ++i) o[i * kLanes] = static_cast<T>(map(r.next() + ref));
+}
+
+// Most shared memory one block may opt in to on the current device.
+inline int shared_optin_bytes() {
+  int dev = 0, optin = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) != cudaSuccess) return 0;
+  return optin;
+}
+
+// Lets kernel take `smem` bytes of dynamic shared memory (the opt-in
+// above the 48 KB default).
+template <typename K>
+cudaError_t allow_shared(K kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+}
+
+// Picks the instance of a LUT-templated kernel for one launch. family is
+// {kernel<kNone>, kernel<kShared>, kernel<kGlobal>}. Without a table
+// (lut == nullptr) it is kNone; with a d-entry table it is kShared when 4*d
+// bytes fit beside the kernel's static shared memory in one block (and
+// the kernel is opted in above 48 KB), kGlobal otherwise. *smem is the
+// dynamic shared memory to launch with.
+template <typename K>
+cudaError_t choose_lut(const K (&family)[3], const void* lut, long long d, K* kernel, size_t* smem) {
+  *kernel = family[0];
+  *smem = 0;
+  if (lut == nullptr) return cudaSuccess;
+  if (d < 1 || d > 0xFFFFFFFFLL) return cudaErrorInvalidValue;
+  cudaFuncAttributes attr;
+  const cudaError_t err = cudaFuncGetAttributes(&attr, family[1]);
+  if (err != cudaSuccess) return err;
+  const size_t table = static_cast<size_t>(d) * sizeof(uint32_t);
+  if (attr.sharedSizeBytes + table <= static_cast<size_t>(shared_optin_bytes())) {
+    *kernel = family[1];
+    *smem = table;
+    return allow_shared(family[1], table);
+  }
+  *kernel = family[2];
+  return cudaSuccess;
+}
 
 }  // namespace gt

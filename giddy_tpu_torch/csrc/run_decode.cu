@@ -7,7 +7,9 @@
 // stream it is given, allocates nothing, and
 // returns cudaGetLastError() after the launch, or cudaErrorInvalidValue for
 // arguments it does not take. out_bytes 4/2/1 stores the uint32 payload or
-// its low 16/8 bits. All arithmetic wraps mod 2^32 (FORMAT.md §0).
+// its low 16/8 bits. All arithmetic wraps mod 2^32 (FORMAT.md §0). K5, K6
+// and K7 take an optional table (lut, d), the fused dictionary stage of
+// cascade decode (gt::Lut, lmp.cuh); lut = nullptr launches the plain kernel.
 
 #include <cuda_runtime.h>
 
@@ -38,7 +40,9 @@ constexpr int kRunPadMax = 128;
 // log2(w_pad) probes finds the run at q (libgiddy's per-thread search,
 // SURVEY.md CS-4), and the next three positions step forward from it.
 // Neighbouring threads search one tile for neighbouring j, so probes mostly
-// broadcast. On NVIDIA H100 80GB HBM3, 700.00 W, the vector store took K5
+// broadcast. With a table, the block maps the run values through it while
+// staging them (Lut kGlobal): expansion only selects run values, so this
+// equals mapping the output, at T*w_pad lookups a group instead of 32768. On NVIDIA H100 80GB HBM3, 700.00 W, the vector store took K5
 // from 0.153 ms to 0.105 ms at configs[3] (PERF.md): with one 4-byte store
 // per value the kernel reached only 56% of a plain fill of the same bytes.
 template <typename T>
@@ -63,11 +67,13 @@ struct Quad<uint8_t> {
   }
 };
 
-template <typename T>
+template <typename T, LutMode M>
 __global__ void __launch_bounds__(kLanes)
     run_expand_kernel(const int32_t* __restrict__ ends_w, const uint32_t* __restrict__ vals_w,
-                      T* __restrict__ out, int w_shift, int w_pad) {
+                      T* __restrict__ out, int w_shift, int w_pad, const uint32_t* __restrict__ lut, uint32_t d) {
+  static_assert(M != LutMode::kShared, "K5 maps its run table, with no shared copy of the dictionary");
   extern __shared__ uint32_t tables[];
+  const Lut<M> map(lut, d, nullptr);
   const size_t g = blockIdx.x;
   const int c = threadIdx.x;
   const int entries = (kGroup >> w_shift) * w_pad;
@@ -75,7 +81,7 @@ __global__ void __launch_bounds__(kLanes)
   uint32_t* vals = tables + entries;
   for (int k = c; k < entries; k += kLanes) {
     ends[k] = __ldg(ends_w + g * entries + k);
-    vals[k] = __ldg(vals_w + g * entries + k);
+    vals[k] = map(__ldg(vals_w + g * entries + k));
   }
   __syncthreads();
   const int w_mask = (1 << w_shift) - 1;
@@ -104,11 +110,16 @@ __global__ void __launch_bounds__(kLanes)
 // per-GROUP cumsum after rle/rpe's scatter form, and scan.group_prefix_sum).
 // Bound: device-memory bytes, 4 in and 4 (or 2, 1) out per value. Design:
 // each thread loads its 32 values up front (32 independent loads in
-// flight), then the block-row scan of lmp.cuh runs over them.
-template <typename T>
+// flight), then the block-row scan of lmp.cuh runs over them. With a table
+// (rle/rpe's scatter form under cascade) each sum is mapped after the scan:
+// the scattered jumps are differences of codes, so not before it.
+template <typename T, LutMode M>
 __global__ void __launch_bounds__(kLanes)
-    cumsum_rows_kernel(const uint32_t* __restrict__ in, T* __restrict__ out) {
+    cumsum_rows_kernel(const uint32_t* __restrict__ in, T* __restrict__ out, const uint32_t* __restrict__ lut,
+                       uint32_t d) {
+  extern __shared__ uint32_t lut_smem[];
   __shared__ uint32_t warp_totals[2][32];
+  const Lut<M> map(lut, d, lut_smem);
   const size_t g = blockIdx.x;
   const int c = threadIdx.x;
   const uint32_t* x = in + g * kGroup + c;
@@ -119,7 +130,7 @@ __global__ void __launch_bounds__(kLanes)
   uint32_t carry = 0;
 #pragma unroll
   for (int i = 0; i < kSlots; ++i)
-    o[i * kLanes] = static_cast<T>(block_row_scan<AddScan>(v[i], carry, warp_totals, i));
+    o[i * kLanes] = static_cast<T>(map(block_row_scan<AddScan>(v[i], carry, warp_totals, i)));
 }
 
 // K7. Replaces giddy_tpu/kernels/delta2.py:27 (body :32: unpack, unzigzag,
@@ -129,11 +140,14 @@ __global__ void __launch_bounds__(kLanes)
 // one block-row scan carries the pair of plain prefix sums (PairAddScan of
 // lmp.cuh), one barrier per row as in K3, and the epilogue is
 // anchor + (j+1) * (slope + sum s) - sum k*s, all mod 2^32.
-template <typename T>
+template <typename T, LutMode M>
 __global__ void __launch_bounds__(kLanes)
     delta2_decode_kernel(const uint32_t* __restrict__ packed, const int32_t* __restrict__ anchors,
-                         const int32_t* __restrict__ slopes, T* __restrict__ out, int bits) {
+                         const int32_t* __restrict__ slopes, T* __restrict__ out, int bits,
+                         const uint32_t* __restrict__ lut, uint32_t d) {
+  extern __shared__ uint32_t lut_smem[];
   __shared__ uint2 warp_totals[2][32];
+  const Lut<M> map(lut, d, lut_smem);
   const size_t g = blockIdx.x;
   const int c = threadIdx.x;
   const uint32_t anchor = static_cast<uint32_t>(__ldg(anchors + g));
@@ -145,7 +159,7 @@ __global__ void __launch_bounds__(kLanes)
     const uint32_t s = unzigzag(r.next());
     const uint32_t j = static_cast<uint32_t>(i * kLanes + c);
     const uint2 sums = block_row_scan<PairAddScan>(make_uint2(s, j * s), carry, warp_totals, i);
-    o[i * kLanes] = static_cast<T>(anchor + (j + 1u) * (slope + sums.x) - sums.y);
+    o[i * kLanes] = static_cast<T>(map(anchor + (j + 1u) * (slope + sums.x) - sums.y));
   }
 }
 
@@ -179,42 +193,59 @@ using gt::kLanes;
 extern "C" {
 
 int gt_run_expand(const void* ends_w, const void* vals_w, void* out, long long ng, int w_shift, int w_pad,
-                  int out_bytes, void* stream) {
+                  int out_bytes, const void* lut, long long d, void* stream) {
   if (!gt::valid(ng, 1) || !gt::valid_run_table(w_shift, w_pad)) return cudaErrorInvalidValue;
+  if (lut != nullptr && (d < 1 || d > 0xFFFFFFFFLL)) return cudaErrorInvalidValue;
   const size_t smem = 2 * sizeof(uint32_t) * static_cast<size_t>((gt::kGroup >> w_shift) * w_pad);
   return gt::dispatch_out(out_bytes, [&](auto tag) -> int {
     using T = decltype(tag);
-    if (smem > 48 * 1024) {
-      const cudaError_t err = cudaFuncSetAttribute(gt::run_expand_kernel<T>,
-                                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                                   static_cast<int>(smem));
-      if (err != cudaSuccess) return err;
-    }
-    gt::run_expand_kernel<T><<<static_cast<unsigned>(ng), kLanes, smem, static_cast<cudaStream_t>(stream)>>>(
+    auto kernel = lut == nullptr ? gt::run_expand_kernel<T, gt::LutMode::kNone>
+                                 : gt::run_expand_kernel<T, gt::LutMode::kGlobal>;
+    const cudaError_t err = gt::allow_shared(kernel, smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<static_cast<unsigned>(ng), kLanes, smem, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int32_t*>(ends_w), static_cast<const uint32_t*>(vals_w), static_cast<T*>(out), w_shift,
-        w_pad);
+        w_pad, static_cast<const uint32_t*>(lut), static_cast<uint32_t>(d));
     return cudaGetLastError();
   });
 }
 
-int gt_cumsum_rows(const void* in, void* out, long long ng, int out_bytes, void* stream) {
+int gt_cumsum_rows(const void* in, void* out, long long ng, int out_bytes, const void* lut, long long d,
+                   void* stream) {
   if (!gt::valid(ng, 1)) return cudaErrorInvalidValue;
   return gt::dispatch_out(out_bytes, [&](auto tag) -> int {
     using T = decltype(tag);
-    gt::cumsum_rows_kernel<T><<<static_cast<unsigned>(ng), kLanes, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint32_t*>(in), static_cast<T*>(out));
+    using K = void (*)(const uint32_t*, T*, const uint32_t*, uint32_t);
+    const K family[3] = {gt::cumsum_rows_kernel<T, gt::LutMode::kNone>, gt::cumsum_rows_kernel<T, gt::LutMode::kShared>,
+                         gt::cumsum_rows_kernel<T, gt::LutMode::kGlobal>};
+    K kernel;
+    size_t smem;
+    const cudaError_t err = gt::choose_lut(family, lut, d, &kernel, &smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<static_cast<unsigned>(ng), kLanes, smem, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint32_t*>(in), static_cast<T*>(out), static_cast<const uint32_t*>(lut),
+        static_cast<uint32_t>(d));
     return cudaGetLastError();
   });
 }
 
 int gt_delta2_decode(const void* packed, const void* anchors, const void* slopes, void* out, long long ng, int bits,
-                     int out_bytes, void* stream) {
+                     int out_bytes, const void* lut, long long d, void* stream) {
   if (!gt::valid(ng, bits)) return cudaErrorInvalidValue;
   return gt::dispatch_out(out_bytes, [&](auto tag) -> int {
     using T = decltype(tag);
-    gt::delta2_decode_kernel<T><<<static_cast<unsigned>(ng), kLanes, 0, static_cast<cudaStream_t>(stream)>>>(
+    using K = void (*)(const uint32_t*, const int32_t*, const int32_t*, T*, int, const uint32_t*, uint32_t);
+    const K family[3] = {gt::delta2_decode_kernel<T, gt::LutMode::kNone>,
+                         gt::delta2_decode_kernel<T, gt::LutMode::kShared>,
+                         gt::delta2_decode_kernel<T, gt::LutMode::kGlobal>};
+    K kernel;
+    size_t smem;
+    const cudaError_t err = gt::choose_lut(family, lut, d, &kernel, &smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<static_cast<unsigned>(ng), kLanes, smem, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint32_t*>(packed), static_cast<const int32_t*>(anchors),
-        static_cast<const int32_t*>(slopes), static_cast<T*>(out), bits);
+        static_cast<const int32_t*>(slopes), static_cast<T*>(out), bits, static_cast<const uint32_t*>(lut),
+        static_cast<uint32_t>(d));
     return cudaGetLastError();
   });
 }

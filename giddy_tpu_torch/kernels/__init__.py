@@ -6,27 +6,34 @@ live in ``giddy_tpu_torch/csrc`` and are built at first launch.
 """
 
 from .. import ref as _ref  # noqa: F401  (host codecs must register first)
-from . import cumsum, delta, delta2, dict_, for_, nbit, rle, xordelta  # noqa: F401  (import = registration)
+from . import cascade, cumsum, delta, delta2, dict_, for_, nbit, patch, raw, rle, xordelta  # noqa: F401  (import = registration)
 
 # Every kernel of the decode path -> the module of its wrapper (which
-# holds the wrapper under the kernel's name and ``LAUNCHES``).
+# holds the wrapper under the kernel's name and ``LAUNCHES``). cascade_lut
+# is the fused dictionary stage of K1-K7; its launches are counted both
+# there and by the inner kernel's wrapper.
 WRAPPERS = {
     "lmp_unpack": nbit, "for_unpack": for_, "delta_decode": delta, "dict_decode": dict_,
     "run_expand": rle, "cumsum_rows": cumsum, "delta2_decode": delta2, "xordelta_decode": xordelta,
+    "patched_decode": patch, "cascade_lut": cascade,
 }
-# Schemes that one kernel decodes; rle and rpe take K5 or K6 by stream form.
+# Schemes that one kernel decodes; rle and rpe take K5 or K6 by stream
+# form, cascade its inner scheme's kernel with the table.
 _BY_SCHEME = {
     "nbit": "lmp_unpack", "dzbf": "lmp_unpack", "for": "for_unpack",
     "delta": "delta_decode", "dict": "dict_decode",
-    "delta2": "delta2_decode", "xordelta": "xordelta_decode",
+    "delta2": "delta2_decode", "xordelta": "xordelta_decode", "patched": "patched_decode",
 }
 
 
 def kernel_call(col, streams: dict, out_store) -> tuple:
     """(kernel name, wrapper arguments) of the one kernel that decodes
-    ``col`` from its prepped device streams."""
+    ``col`` from its prepped device streams (the compressed patched kind
+    decodes its positions with K3 first)."""
     if col.scheme in ("rle", "rpe"):
         return rle.kernel_call(col, streams, out_store)
+    if col.scheme == "cascade":
+        return cascade.kernel_call(col, streams, out_store)
     name = _BY_SCHEME[col.scheme]
     return name, WRAPPERS[name].args(col, streams, out_store)
 

@@ -31,15 +31,16 @@ NVCC_FLAGS = [
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
-    "gt_lmp_unpack": [_P, _P, _L, _I, _I, _P],
-    "gt_for_unpack": [_P, _P, _P, _L, _I, _I, _P],
-    "gt_delta_decode": [_P, _P, _P, _L, _I, _I, _P],
+    "gt_lmp_unpack": [_P, _P, _L, _I, _I, _P, _L, _P],
+    "gt_for_unpack": [_P, _P, _P, _L, _I, _I, _P, _L, _P],
+    "gt_delta_decode": [_P, _P, _P, _L, _I, _I, _P, _L, _P],
     "gt_dict_decode": [_P, _P, _P, _L, _I, _L, _I, _P],
     "gt_dict_shared": [_L],
-    "gt_run_expand": [_P, _P, _P, _L, _I, _I, _I, _P],
-    "gt_cumsum_rows": [_P, _P, _L, _I, _P],
-    "gt_delta2_decode": [_P, _P, _P, _P, _L, _I, _I, _P],
+    "gt_run_expand": [_P, _P, _P, _L, _I, _I, _I, _P, _L, _P],
+    "gt_cumsum_rows": [_P, _P, _L, _I, _P, _L, _P],
+    "gt_delta2_decode": [_P, _P, _P, _P, _L, _I, _I, _P, _L, _P],
     "gt_xordelta_decode": [_P, _P, _P, _L, _I, _P],
+    "gt_patched_decode": [_P, _P, _P, _P, _P, _L, _I, _L, _I, _P],
 }
 
 _LIB: ctypes.CDLL | None = None

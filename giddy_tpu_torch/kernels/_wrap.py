@@ -2,7 +2,9 @@
 
 A wrapper takes its plain PyTorch version only when its tensors lie on the
 CPU; on a CUDA tensor it launches its kernel or raises. Any other device,
-dtype, shape or layout that the kernel does not take raises here.
+dtype, shape or layout that the kernel does not take raises here. The
+wrappers of K1-K3 and K5-K7 take an optional ``lut``: the (d,) int32
+dictionary of cascade's fused stage (kernels/cascade.py).
 """
 
 from __future__ import annotations
@@ -57,6 +59,15 @@ def check_side(t: torch.Tensor, length: int | None, name: str, device: torch.dev
         raise ValueError(f"{name} must be contiguous")
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, the packed words on {device}")
+
+
+def lut_args(lut: torch.Tensor | None, device: torch.device) -> tuple:
+    """(pointer, d) of the optional dictionary of a kernel's LUT stage:
+    (None, 0) launches the plain kernel."""
+    if lut is None:
+        return None, 0
+    check_side(lut, None, "lut", device)
+    return lut.data_ptr(), lut.shape[0]
 
 
 def empty_out(ng: int, out_dtype: torch.dtype, device: torch.device) -> torch.Tensor:

@@ -15,17 +15,19 @@ from . import _wrap, lanes
 LAUNCHES = 0
 
 
-def delta_decode(packed: torch.Tensor, anchors: torch.Tensor, bits: int, out_dtype: torch.dtype = torch.int32) -> torch.Tensor:
-    """(ng, bits*1024) zigzag deltas + (ng,) anchors -> (ng, GROUP) of out_dtype."""
+def delta_decode(packed: torch.Tensor, anchors: torch.Tensor, bits: int, out_dtype: torch.dtype = torch.int32, lut: torch.Tensor | None = None) -> torch.Tensor:
+    """(ng, bits*1024) zigzag deltas + (ng,) anchors -> (ng, GROUP) of
+    out_dtype (mapped through ``lut`` when given)."""
     global LAUNCHES
     ng = _wrap.check_packed(packed, bits, out_dtype)
     _wrap.check_side(anchors, ng, "anchors", packed.device)
+    table = _wrap.lut_args(lut, packed.device)
     if packed.device.type == "cpu":
-        return lanes.delta_decode(packed, anchors, bits, out_dtype)
+        return lanes.delta_decode(packed, anchors, bits, out_dtype, lut)
     out = _wrap.empty_out(ng, out_dtype, packed.device)
     _wrap.launch(
         "gt_delta_decode", packed.device, packed.data_ptr(), anchors.data_ptr(), out.data_ptr(),
-        ng, bits, _wrap.OUT_BYTES[out_dtype],
+        ng, bits, _wrap.OUT_BYTES[out_dtype], *table,
     )
     LAUNCHES += 1
     return out

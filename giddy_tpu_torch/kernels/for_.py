@@ -26,17 +26,19 @@ def prep(col: EncodedColumn) -> dict:
     return {"packed": col.streams["packed"], "refs_g": refs_g}
 
 
-def for_unpack(packed: torch.Tensor, refs_g: torch.Tensor, bits: int, out_dtype: torch.dtype = torch.int32) -> torch.Tensor:
-    """LMP unpack plus refs_g[g] (uint32 wrap) -> (ng, GROUP) of out_dtype."""
+def for_unpack(packed: torch.Tensor, refs_g: torch.Tensor, bits: int, out_dtype: torch.dtype = torch.int32, lut: torch.Tensor | None = None) -> torch.Tensor:
+    """LMP unpack plus refs_g[g] (uint32 wrap) -> (ng, GROUP) of out_dtype
+    (mapped through ``lut`` when given)."""
     global LAUNCHES
     ng = _wrap.check_packed(packed, bits, out_dtype)
     _wrap.check_side(refs_g, ng, "refs_g", packed.device)
+    table = _wrap.lut_args(lut, packed.device)
     if packed.device.type == "cpu":
-        return lanes.for_unpack(packed, refs_g, bits, out_dtype)
+        return lanes.for_unpack(packed, refs_g, bits, out_dtype, lut)
     out = _wrap.empty_out(ng, out_dtype, packed.device)
     _wrap.launch(
         "gt_for_unpack", packed.device, packed.data_ptr(), refs_g.data_ptr(), out.data_ptr(),
-        ng, bits, _wrap.OUT_BYTES[out_dtype],
+        ng, bits, _wrap.OUT_BYTES[out_dtype], *table,
     )
     LAUNCHES += 1
     return out

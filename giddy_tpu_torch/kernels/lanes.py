@@ -1,5 +1,6 @@
 """Plain PyTorch versions of the decode kernels (csrc/lmp_decode.cu K1-K4,
-csrc/run_decode.cu K5-K8).
+csrc/run_decode.cu K5-K8, csrc/patch_decode.cu K9), with the fused
+dictionary stage of cascade (``lut``) where the kernel has one.
 
 The counterpart of Pallas interpret mode: the same arithmetic in torch
 ops, at the same signatures as the kernel wrappers. The wrappers take them
@@ -60,43 +61,48 @@ def gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return table[i.clamp_(max=table.shape[0] - 1)]
 
 
-def lmp_unpack(packed: torch.Tensor, bits: int, out_dtype: torch.dtype = torch.int32) -> torch.Tensor:
-    return unpack_lanes(packed, bits).to(out_dtype)
+def lookup(x: torch.Tensor, lut: torch.Tensor | None) -> torch.Tensor:
+    """The LUT stage of cascade decode: lut[x] (clamped), or x without a table."""
+    return x if lut is None else gather(lut, x)
 
 
-def for_unpack(packed: torch.Tensor, refs_g: torch.Tensor, bits: int, out_dtype: torch.dtype = torch.int32) -> torch.Tensor:
-    return (unpack_lanes(packed, bits) + refs_g[:, None]).to(out_dtype)
+def lmp_unpack(packed: torch.Tensor, bits: int, out_dtype: torch.dtype = torch.int32, lut: torch.Tensor | None = None) -> torch.Tensor:
+    return lookup(unpack_lanes(packed, bits), lut).to(out_dtype)
 
 
-def delta_decode(packed: torch.Tensor, anchors: torch.Tensor, bits: int, out_dtype: torch.dtype = torch.int32) -> torch.Tensor:
-    return group_cumsum(unzigzag(unpack_lanes(packed, bits)), anchors).to(out_dtype)
+def for_unpack(packed: torch.Tensor, refs_g: torch.Tensor, bits: int, out_dtype: torch.dtype = torch.int32, lut: torch.Tensor | None = None) -> torch.Tensor:
+    return lookup(unpack_lanes(packed, bits) + refs_g[:, None], lut).to(out_dtype)
+
+
+def delta_decode(packed: torch.Tensor, anchors: torch.Tensor, bits: int, out_dtype: torch.dtype = torch.int32, lut: torch.Tensor | None = None) -> torch.Tensor:
+    return lookup(group_cumsum(unzigzag(unpack_lanes(packed, bits)), anchors), lut).to(out_dtype)
 
 
 def dict_decode(codes: torch.Tensor, values: torch.Tensor, bits: int, out_dtype: torch.dtype = torch.int32) -> torch.Tensor:
-    return gather(values, unpack_lanes(codes, bits)).to(out_dtype)
+    return lmp_unpack(codes, bits, out_dtype, values)
 
 
-def run_expand(ends_w: torch.Tensor, vals_w: torch.Tensor, ng: int, out_dtype: torch.dtype = torch.int32) -> torch.Tensor:
+def run_expand(ends_w: torch.Tensor, vals_w: torch.Tensor, ng: int, out_dtype: torch.dtype = torch.int32, lut: torch.Tensor | None = None) -> torch.Tensor:
     """Tile-form run tables (rows, w_pad) -> (ng, GROUP): at tile position
     j, the value of run #{ends <= j}, clamped to the table."""
     rows, w_pad = ends_w.shape
     width = ng * GROUP // rows
     j = torch.arange(width, dtype=torch.int32, device=ends_w.device).expand(rows, width).contiguous()
     r = torch.searchsorted(ends_w, j, right=True).clamp_(max=w_pad - 1)
-    return torch.gather(vals_w, 1, r).reshape(ng, GROUP).to(out_dtype)
+    return lookup(torch.gather(vals_w, 1, r).reshape(ng, GROUP), lut).to(out_dtype)
 
 
-def cumsum_rows(x: torch.Tensor, out_dtype: torch.dtype = torch.int32) -> torch.Tensor:
-    return group_cumsum(x, torch.zeros(x.shape[0], dtype=torch.int32, device=x.device)).to(out_dtype)
+def cumsum_rows(x: torch.Tensor, out_dtype: torch.dtype = torch.int32, lut: torch.Tensor | None = None) -> torch.Tensor:
+    return lookup(group_cumsum(x, torch.zeros(x.shape[0], dtype=torch.int32, device=x.device)), lut).to(out_dtype)
 
 
-def delta2_decode(packed: torch.Tensor, anchors: torch.Tensor, slopes: torch.Tensor, bits: int, out_dtype: torch.dtype = torch.int32) -> torch.Tensor:
+def delta2_decode(packed: torch.Tensor, anchors: torch.Tensor, slopes: torch.Tensor, bits: int, out_dtype: torch.dtype = torch.int32, lut: torch.Tensor | None = None) -> torch.Tensor:
     # |s| < 2^31 and GROUP = 2^15, so both cumsums are exact in int64
     s = unzigzag(unpack_lanes(packed, bits)).to(torch.int64)
     cc = torch.cumsum(torch.cumsum(s, dim=1), dim=1)
     pos1 = torch.arange(1, GROUP + 1, dtype=torch.int64, device=packed.device)
     v = anchors.to(torch.int64)[:, None] + slopes.to(torch.int64)[:, None] * pos1 + cc
-    return wrap32(v).to(out_dtype)
+    return lookup(wrap32(v), lut).to(out_dtype)
 
 
 def xordelta_decode(packed: torch.Tensor, anchors: torch.Tensor, bits: int) -> torch.Tensor:
@@ -109,3 +115,12 @@ def xordelta_decode(packed: torch.Tensor, anchors: torch.Tensor, bits: int) -> t
         y[:, shift:] ^= x[:, :-shift]
         x, shift = y, 2 * shift
     return x ^ anchors[:, None]
+
+
+def patched_decode(packed: torch.Tensor, refs_g: torch.Tensor | None, pos: torch.Tensor, val: torch.Tensor, bits: int, out_dtype: torch.dtype = torch.int32) -> torch.Tensor:
+    """Base unpack (+ refs_g[g] for a FOR base), then out[pos] = val."""
+    u = unpack_lanes(packed, bits)
+    if refs_g is not None:
+        u = u + refs_g[:, None]
+    u.view(-1)[pos.to(torch.int64)] = val
+    return u.to(out_dtype)

@@ -14,16 +14,18 @@ from . import _wrap, lanes
 LAUNCHES = 0
 
 
-def lmp_unpack(packed: torch.Tensor, bits: int, out_dtype: torch.dtype = torch.int32) -> torch.Tensor:
-    """(ng, bits*1024) int32 LMP words -> (ng, GROUP) values of out_dtype."""
+def lmp_unpack(packed: torch.Tensor, bits: int, out_dtype: torch.dtype = torch.int32, lut: torch.Tensor | None = None) -> torch.Tensor:
+    """(ng, bits*1024) int32 LMP words -> (ng, GROUP) values of out_dtype
+    (mapped through ``lut`` when given)."""
     global LAUNCHES
     ng = _wrap.check_packed(packed, bits, out_dtype)
+    table = _wrap.lut_args(lut, packed.device)
     if packed.device.type == "cpu":
-        return lanes.lmp_unpack(packed, bits, out_dtype)
+        return lanes.lmp_unpack(packed, bits, out_dtype, lut)
     out = _wrap.empty_out(ng, out_dtype, packed.device)
     _wrap.launch(
         "gt_lmp_unpack", packed.device, packed.data_ptr(), out.data_ptr(), ng, bits,
-        _wrap.OUT_BYTES[out_dtype],
+        _wrap.OUT_BYTES[out_dtype], *table,
     )
     LAUNCHES += 1
     return out

@@ -137,8 +137,9 @@ def prep(col: EncodedColumn, *, positions: bool) -> dict:
     return pre if pre is not None else scatter_prep(vals, bounds, positions=positions)
 
 
-def run_expand(ends_w: torch.Tensor, vals_w: torch.Tensor, ng: int, out_dtype: torch.dtype = torch.int32) -> torch.Tensor:
-    """Tile-form run tables (ng*T, w_pad) int32 -> (ng, GROUP) of out_dtype.
+def run_expand(ends_w: torch.Tensor, vals_w: torch.Tensor, ng: int, out_dtype: torch.dtype = torch.int32, lut: torch.Tensor | None = None) -> torch.Tensor:
+    """Tile-form run tables (ng*T, w_pad) int32 -> (ng, GROUP) of out_dtype
+    (the run values mapped through ``lut`` when given).
 
     Group g owns tables g*T .. g*T+T-1, each covering W = GROUP/T positions;
     T (<= 64) and w_pad (<= CHAIN_HARD) are powers of two."""
@@ -155,13 +156,14 @@ def run_expand(ends_w: torch.Tensor, vals_w: torch.Tensor, ng: int, out_dtype: t
         raise ValueError(f"no run-expand kernel for {rows} tables of {w_pad} runs over {ng} groups: "
                          f"wants T = rows/ng a power of two <= {MAX_TILES} and w_pad a power of two "
                          f"<= {CHAIN_HARD}")
+    table = _wrap.lut_args(lut, ends_w.device)
     if ends_w.device.type == "cpu":
-        return lanes.run_expand(ends_w, vals_w, ng, out_dtype)
+        return lanes.run_expand(ends_w, vals_w, ng, out_dtype, lut)
     out = _wrap.empty_out(ng, out_dtype, ends_w.device)
     w_shift = (GROUP // tiles).bit_length() - 1
     _wrap.launch(
         "gt_run_expand", ends_w.device, ends_w.data_ptr(), vals_w.data_ptr(), out.data_ptr(),
-        ng, w_shift, w_pad, _wrap.OUT_BYTES[out_dtype],
+        ng, w_shift, w_pad, _wrap.OUT_BYTES[out_dtype], *table,
     )
     LAUNCHES += 1
     return out

@@ -18,8 +18,7 @@ from .format import EncodedColumn
 # Schemes the JAX package decodes that the port does not yet, with the
 # ROADMAP.md queue-1 item that ports each.
 PENDING = {
-    "cascade": 7,
-    "patched": 8, "model": 8, "alp": 8, "bitmap": 8, "dzbv": 8, "raw": 8,
+    "model": 8, "alp": 8, "bitmap": 8, "dzbv": 8,
     "wide": 11, "strdict": 11,
 }
 

@@ -12,7 +12,7 @@ import torch
 
 import giddy_tpu_torch as gtt
 from giddy_tpu_torch import kernels
-from giddy_tpu_torch.kernels import dict_, lanes, nbit, rle
+from giddy_tpu_torch.kernels import cascade, dict_, lanes, nbit, patch, rle
 from giddy_tpu_torch.util import GROUP
 
 pytestmark = pytest.mark.cuda
@@ -122,3 +122,109 @@ def test_kernel_rejects_tensors_on_two_devices(cuda):
         dict_.dict_decode(streams["codes"], streams["values"].cpu(), col.params["bits"])
     with pytest.raises(TypeError):
         nbit.lmp_unpack(streams["codes"].to(torch.int64), col.params["bits"])
+
+
+def _patched_values(dtype, rng, n=N):
+    """Mostly small values and ~1% wide exceptions, with exceptions at 0,
+    n-1 and on both sides of every group boundary."""
+    v = rng.integers(0, 16, n, dtype=np.int64)
+    idx = np.concatenate([rng.choice(n, max(1, n // 100), replace=False), [0, n - 1],
+                          [p for g in range(1, n // GROUP + 1) for p in (g * GROUP - 1, g * GROUP) if p < n]])
+    v[idx] = rng.integers(2**20, 2**31, idx.shape[0])
+    u = v.astype(np.uint32)
+    return u.view(np.dtype(dtype)) if dtype in ("int32", "float32") else u.astype(np.dtype(dtype))
+
+
+@pytest.mark.parametrize("dtype", ["int32", "float32", "int16", "uint8"])
+@pytest.mark.parametrize("kind", ["naive", "compressed"])
+@pytest.mark.parametrize("base", ["for", "nbit"])
+def test_patched_kernel_matches_plain_and_oracle(cuda, base, kind, dtype):
+    v = _patched_values(dtype, np.random.default_rng(7))
+    col = gtt.encode(v, "patched", base_scheme=base, kind=kind, frame_len=2 * GROUP)
+    assert col.params["count"] > 0
+    store = gtt.narrow_store_dtype(col)
+    name, args = kernels.kernel_call(col, gtt.device_streams(col, cuda), store)
+    assert name == "patched_decode"
+    before = kernels.launches()["patched_decode"]
+    got = patch.patched_decode(*args)
+    assert kernels.launches()["patched_decode"] == before + 1
+    want = lanes.patched_decode(*args)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype == store and torch.equal(got, want)
+    signed = {4: torch.int32, 2: torch.int16, 1: torch.int8}[v.itemsize]
+    out = gtt.decode(col, device=cuda)
+    assert out.view(signed).cpu().numpy().tobytes() == gtt.decode_ref(col).tobytes() == v.tobytes()
+
+
+@pytest.mark.parametrize("n", [GROUP, 1, 0])
+def test_patched_without_exceptions(cuda, n):
+    v = np.arange(n, dtype=np.int32) % 100
+    for kind in ("naive", "compressed"):
+        col = gtt.encode(v, "patched", kind=kind)
+        assert col.params["count"] == 0
+        np.testing.assert_array_equal(gtt.decode(col, device=cuda).cpu().numpy(), v)
+        name, args = kernels.kernel_call(col, gtt.device_streams(col, cuda), torch.int32)
+        assert torch.equal(patch.patched_decode(*args), lanes.patched_decode(*args))
+
+
+def _cascade_values(d, rng, n=N, run=50):
+    vocab = rng.permutation(np.arange(d, dtype=np.int64) * 65_537 - 2**31 + 3).astype(np.int32)
+    codes = np.repeat(rng.integers(0, d, n // run + 1), run)[:n]
+    return vocab[codes], vocab
+
+
+@pytest.mark.parametrize("d", [1, 8, 2049, 65536])
+@pytest.mark.parametrize("inner", ["rle", "rpe", "delta", "delta2", "nbit", "for", "dzbf", "raw"])
+def test_cascade_lut_matches_plain_and_oracle(cuda, inner, d):
+    v, vocab = _cascade_values(d, np.random.default_rng(d))
+    col = gtt.encode(v, "cascade", codes_scheme=inner, dictionary=vocab)
+    name, args = kernels.kernel_call(col, gtt.device_streams(col, cuda), torch.int32)
+    before = kernels.launches()
+    got = cascade.cascade_lut(name, args)
+    after = kernels.launches()
+    assert after["cascade_lut"] == before["cascade_lut"] + 1 and after[name] == before[name] + 1
+    want = getattr(lanes, name)(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    np.testing.assert_array_equal(gtt.decode(col, device=cuda).cpu().numpy(), v)
+
+
+@pytest.mark.parametrize("dtype", ["int16", "uint8", "float32"])
+@pytest.mark.parametrize("run", [1, 50])  # 1: rle/rpe in the scatter form (K6 with the table)
+@pytest.mark.parametrize("inner", ["rle", "rpe", "delta", "delta2", "for"])
+def test_cascade_lut_forms_and_narrow_stores(cuda, inner, run, dtype):
+    rng = np.random.default_rng(run)
+    u = _cascade_values(300, rng, run=run)[0].view(np.uint32)
+    v = u.view(np.float32) if dtype == "float32" else u.astype(np.dtype(dtype))
+    col = gtt.encode(v, "cascade", codes_scheme=inner)
+    streams = gtt.device_streams(col, cuda)
+    if inner in ("rle", "rpe"):
+        assert ("c_pos" in streams) == (run == 1)
+    name, args = kernels.kernel_call(col, streams, gtt.narrow_store_dtype(col))
+    got = cascade.cascade_lut(name, args)
+    assert torch.equal(got, getattr(lanes, name)(*args))
+    signed = {4: torch.int32, 2: torch.int16, 1: torch.int8}[v.itemsize]
+    out = gtt.decode(col, device=cuda)
+    assert out.view(signed).cpu().numpy().tobytes() == v.tobytes()
+
+
+def test_decode_columns_without_host_sync(cuda):
+    rng = np.random.default_rng(0)
+    cols, values = [], {}
+    for s in ("delta", "dict", "rle", "patched", "cascade", "raw"):
+        values[f"mix_{s}"] = v = gtt.datagen.gen_column(s, N, rng)
+        cols.append(gtt.encode(v, s, name=f"mix_{s}"))
+    outs = gtt.decode_columns(cols, device=cuda)
+    assert sorted(outs) == sorted(values)
+    for name, v in values.items():
+        np.testing.assert_array_equal(outs[name].cpu().numpy(), v)
+    streams = [gtt.device_streams(c, cuda) for c in cols]
+    decoders = [gtt.get_decoder(c, gtt.narrow_store_dtype(c)) for c in cols]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        resident = [dec(s) for dec, s in zip(decoders, streams)]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for c, u in zip(cols, resident):
+        np.testing.assert_array_equal(u[: c.n].cpu().numpy(), values[c.name])

@@ -8,8 +8,10 @@ import numpy as np
 import pytest
 
 import giddy_tpu as gt
+import giddy_tpu.datagen as gt_datagen
 import giddy_tpu.util as gt_util
 import giddy_tpu_torch as gtt
+import giddy_tpu_torch.datagen as port_datagen
 import giddy_tpu_torch.util as port_util
 from giddy_tpu_torch.util import GROUP
 
@@ -144,6 +146,23 @@ def test_util_matches_reference():
     for n in (0, 1, GROUP, GROUP + 1):
         assert port_util.num_groups(n) == gt_util.num_groups(n)
     assert (port_util.LANES, port_util.SLOTS, port_util.GROUP) == (gt_util.LANES, gt_util.SLOTS, gt_util.GROUP)
+
+
+@pytest.mark.parametrize("n", [0, 1000, GROUP + 7])
+@pytest.mark.parametrize("hard", [False, True])
+@pytest.mark.parametrize("scheme", gt_datagen.CORE_SCHEMES + ["wide"])
+def test_datagen_matches_reference(scheme, hard, n):
+    """The port's gen_column gives the reference's bytes from the same seed."""
+    got = port_datagen.gen_column(scheme, n, np.random.default_rng(37), hard=hard)
+    want = gt_datagen.gen_column(scheme, n, np.random.default_rng(37), hard=hard)
+    assert got.dtype == want.dtype and got.shape == want.shape == (n,)
+    assert got.tobytes() == want.tobytes()
+
+
+def test_datagen_scheme_list_matches_reference():
+    assert port_datagen.CORE_SCHEMES == gt_datagen.CORE_SCHEMES
+    with pytest.raises(ValueError):
+        port_datagen.gen_column("no_such_scheme", 10, np.random.default_rng(0))
 
 
 @pytest.mark.parametrize("frame_groups", [1, 2, 3])
