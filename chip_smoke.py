@@ -4,7 +4,9 @@ holds each against its plain PyTorch version and the NumPy oracle, drives
 the main paths (single-column ``decode(col, device="cuda")`` at the sizes
 of BASELINE.json configs[0]-[3] plus delta2 and xordelta columns,
 ``scan.group_prefix_sum``, the mixed container of configs[4] through
-``decode_columns`` and a cascade (RLE_DICTIONARY) column), and times them.
+``decode_columns``, a cascade (RLE_DICTIONARY) column, and model (poly2),
+bitmap and alp columns, alone and through ``decode_columns``), and times
+them.
 
     python3 chip_smoke.py
 
@@ -29,7 +31,7 @@ import giddy_tpu_torch as gtt
 from giddy_tpu_torch import kernels
 from giddy_tpu_torch.datagen import gen_column
 from giddy_tpu_torch.kernels import (
-    _build, cascade, cumsum, delta, delta2, dict_, for_, lanes, nbit, patch, rle, xordelta,
+    _build, alp, bitmap, cascade, cumsum, delta, delta2, dict_, for_, lanes, model, nbit, patch, rle, xordelta,
 )
 from giddy_tpu_torch.ref.cascade import INNER_SCHEMES
 from giddy_tpu_torch.util import GROUP
@@ -38,13 +40,15 @@ N_CHECK = 2**22 + 999  # ragged, many groups: the size that caught the reference
 LMP_SOURCE = "giddy_tpu_torch/csrc/lmp_decode.cu"
 RUN_SOURCE = "giddy_tpu_torch/csrc/run_decode.cu"
 PATCH_SOURCE = "giddy_tpu_torch/csrc/patch_decode.cu"
+EPILOGUE_SOURCE = "giddy_tpu_torch/csrc/epilogue_decode.cu"
 # The card's peak rates for the bound (NVIDIA's H100 SXM data sheet):
 # device memory, and 32-bit integer ALU operations, half the 67 TFLOP/s
 # float32 rate (64 INT32 lanes an SM against 128 FP32).
 HBM_BYTES_PER_S = 3.35e12
 INT_OPS_PER_S = 33.5e12
 # kernel name -> (wrapper, plain version, the Pallas kernel it replaces,
-# source, integer operations per value the function needs at the least)
+# source, integer operations per value the function needs at the least, or
+# a function of the wrapper's arguments that gives them)
 KERNELS = {
     # shift, OR, mask
     "lmp_unpack": (nbit.lmp_unpack, lanes.lmp_unpack, "giddy_tpu/kernels/nbit.py:24", LMP_SOURCE, 3),
@@ -62,6 +66,14 @@ KERNELS = {
     # the LUT stage of K1/K2/K3/K5/K6/K7 (gt::Lut): (inner kernel name, its arguments with the table)
     "cascade_lut": (cascade.cascade_lut, lambda name, args: getattr(lanes, name)(*args),
                     "giddy_tpu/kernels/cascade.py:30", "giddy_tpu_torch/csrc/lmp.cuh", 2),
+    # unpack, unzigzag, p and a + b*p (+ c*p*p), the add
+    "model_decode": (model.model_decode, lanes.model_decode, "giddy_tpu/kernels/model.py:56", EPILOGUE_SOURCE,
+                     lambda args: 8 if args[3] is None else 10),
+    # shift, and, multiply-add for each of the d planes
+    "bitmap_decode": (bitmap.bitmap_decode, lanes.bitmap_decode, "giddy_tpu/kernels/bitmap.py:51",
+                      EPILOGUE_SOURCE, lambda args: 3 * args[1].numel()),
+    # two unpacks, the ref add, convert, multiply, unzigzag, the add
+    "alp_decode": (alp.alp_decode, lanes.alp_decode, "giddy_tpu/kernels/alp.py:47", EPILOGUE_SOURCE, 13),
 }
 MAX_ABS_ERR = {name: 0 for name in KERNELS}
 CUDA = torch.device("cuda")
@@ -85,14 +97,19 @@ def tensors(args) -> list[torch.Tensor]:
     return out
 
 
-def bound(name: str, args: tuple, out: torch.Tensor) -> tuple[float, str]:
+def bound(name: str, args: tuple, out: torch.Tensor, in_bytes: int | None = None) -> tuple[float, str]:
     """(ms, "bytes" or "operations"): the least time the card could take for
     this call, the larger of its bytes (each input read once, the output
     written once) over the memory rate and its integer operations over the
-    ALU rate, and which of the two it is."""
-    nbytes = sum(t.numel() * t.element_size() for t in tensors(args)) + out.numel() * out.element_size()
+    ALU rate, and which of the two it is. ``in_bytes``, when given, stands
+    for the arguments' bytes: the input the function needs where the
+    arguments hold padding it does not (see run_bytes)."""
+    if in_bytes is None:
+        in_bytes = sum(t.numel() * t.element_size() for t in tensors(args))
+    nbytes = in_bytes + out.numel() * out.element_size()
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = KERNELS[name][4] * out.numel() / INT_OPS_PER_S * 1e3
+    ops = KERNELS[name][4]
+    by_ops = (ops(args) if callable(ops) else ops) * out.numel() / INT_OPS_PER_S * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
@@ -311,6 +328,96 @@ def cascade_checks(rng, n: int) -> None:
               f"cascade {inner} d=0 launched or gave {out}")
 
 
+def model_checks(rng, n: int) -> None:
+    """K10: linear, poly2 and the per-frame choice at frame_len GROUP and
+    4 GROUP (p0 != 0 in the prep), 32-bit residuals, coefficients at the ends
+    of the int32 range, narrow stores, n = 0."""
+    v = gen_column("model", n, rng)
+    for frame_len in (GROUP, 4 * GROUP):
+        for kind in ("auto", "linear", "poly2"):
+            col = gtt.encode(v, "model", kind=kind, frame_len=frame_len)
+            check_kernel(f"model {kind} frame_len={frame_len // GROUP}G -> {col.params['kind']} "
+                         f"bits={col.params['bits']}", col, v)
+    hard = gen_column("model", n, rng, hard=True)
+    check_kernel("model hard bits=32", gtt.encode(hard, "model", bits=32), hard)
+    col = gtt.encode(v, "model", kind="poly2", frame_len=4 * GROUP)
+    nf = col.streams["coef_a"].shape[0]
+    col.streams.update(coef_a=np.full(nf, 2**31 - 1, np.int32), coef_b=np.full(nf, -(2**31), np.int32),
+                       coef_c=np.full(nf, 2**31 - 7, np.int32))
+    check_kernel("model poly2 wrapping coefficients", col, gtt.decode_ref(col))
+    for dtype in ("int8", "int16", "uint16"):
+        vv = v.astype(np.dtype(dtype))
+        check_kernel(f"model {dtype}", gtt.encode(vv, "model"), vv)
+    check_kernel("model n=0", gtt.encode(v[:0], "model"), v[:0])
+
+
+def bitmap_column(rng, d: int, n: int, dtype: str = "int32") -> np.ndarray:
+    """n values of d distinct random values of dtype."""
+    info = np.iinfo(np.dtype(dtype))
+    vocab = rng.choice(np.arange(info.min, min(info.max + 1, info.min + 2**20), dtype=np.int64), d, replace=False)
+    return vocab.astype(np.dtype(dtype))[rng.integers(0, d, n)]
+
+
+def bitmap_checks(rng, n: int) -> None:
+    """K11 at every d (65 and 1000 are past the reference's switch to an
+    XLA loop; the host packs one plane a value, so they run at 4 GROUP +
+    999), uint8 values, narrow stores, two incident bits, n = 0."""
+    for d, size in ((1, n), (4, n), (12, n), (64, n), (65, 4 * GROUP + 999), (1000, 4 * GROUP + 999)):
+        v = bitmap_column(rng, d, size)
+        check_kernel(f"bitmap d={d}", gtt.encode(v, "bitmap"), v)
+    for dtype in ("uint8", "int8", "int16"):
+        v = bitmap_column(rng, 12, n, dtype)
+        check_kernel(f"bitmap {dtype}", gtt.encode(v, "bitmap"), v)
+    v = bitmap_column(rng, 4, n)
+    col = gtt.encode(v, "bitmap")
+    col.streams["bitmaps"] = col.streams["bitmaps"].copy()
+    col.streams["bitmaps"][1] |= col.streams["bitmaps"][0]  # value 0's positions are incident to value 1 too
+    want = gtt.decode_ref(col)
+    check(not np.array_equal(want, v), "bitmap two incident bits: the oracle did not sum")
+    check_kernel("bitmap two incident bits (sum)", col, want)
+    col = gtt.encode(v[:0], "bitmap")
+    before = kernels.launches()
+    out = gtt.decode(col, device=CUDA, pad=True)
+    check(kernels.launches() == before and out.shape == (GROUP,) and not out.any(), f"bitmap d=0 gave {out}")
+    print("[kernel] bitmap n=0 d=0: no launch, zeros")
+
+
+def alp_salted(rng, n: int) -> np.ndarray:
+    """Two-decimal prices salted with NaN, +-Inf, -0.0, subnormals and
+    values whose v*100 lands at 2^23 - 1, 2^23 and 2^23 + 1, at random
+    positions, at 0 and n-1 and on both sides of every group boundary."""
+    v = np.round(rng.uniform(0, 1000, n), 2).astype(np.float32)
+    special = np.array([np.nan, np.inf, -np.inf, -0.0, (2**23 - 1) / 100, 2**23 / 100, (2**23 + 1) / 100],
+                       np.float32)
+    special = np.concatenate([special, np.array([1, 0x7FFFFF, 0x80000001], np.uint32).view(np.float32)])
+    edges = np.arange(GROUP, n, GROUP)
+    idx = np.concatenate([rng.choice(n, n // 50, replace=False), [0, n - 1], edges - 1, edges])
+    v[idx] = special[rng.integers(0, special.shape[0], idx.shape[0])]
+    return v
+
+
+def alp_checks(rng, n: int) -> None:
+    """K12: prices (no exceptions), random floats (wide corrections, some
+    exceptions), the salted column at the chosen and at forced exponents
+    (at e = 10 nearly every value is an exception), n = 0."""
+    prices = gen_column("alp", n, rng)
+    col = gtt.encode(prices, "alp")
+    check(col.params["count"] == 0, f"alp prices: {col.params}")
+    check_kernel(f"alp prices {col.params}", col, prices)
+    hard = gen_column("alp", n, rng, hard=True)
+    col = gtt.encode(hard, "alp")
+    check_kernel(f"alp random floats {col.params}", col, hard)
+    salted = alp_salted(rng, n)
+    for e in (None, 0, 2, 10):
+        col = gtt.encode(salted, "alp", e=e)
+        check(col.params["count"] > n // 100, f"alp salted e={e}: {col.params}")
+        check_kernel(f"alp salted {col.params}", col, salted)
+    for e in (0, 10):
+        col = gtt.encode(prices, "alp", e=e)
+        check_kernel(f"alp prices {col.params}", col, prices)
+    check_kernel("alp n=0", gtt.encode(prices[:0], "alp"), prices[:0])
+
+
 def dict_column(rng, d: int, n: int) -> tuple[np.ndarray, np.ndarray]:
     vocab = rng.permutation(np.arange(d, dtype=np.int64) * 65_537 - 2**31 + 12_345).astype(np.int32)
     return vocab[rng.integers(0, d, n)], vocab
@@ -341,6 +448,9 @@ def kernel_checks(n: int = N_CHECK) -> None:
     scan_checks(rng, n)
     patched_checks(rng, n)
     cascade_checks(rng, n)
+    model_checks(rng, n)
+    bitmap_checks(rng, n)
+    alp_checks(rng, n)
     base = rng.integers(0, 2**31 - 1, n, dtype=np.int64)
     for dtype in ("int8", "int16", "uint16", "float32"):
         if dtype == "float32":
@@ -406,6 +516,19 @@ def main_columns() -> list:
     return cols
 
 
+def epilogue_columns() -> list:
+    """The model, bitmap and alp columns: datagen's curved ramps (they
+    encode as poly2), d = 4 codes and two-decimal prices, 2^26 values each,
+    seeds 10, 11 and 12: (label, input values, encoded column)."""
+    cols = []
+    for label, scheme, seed in [("model poly2 n=2^26", "model", 10), ("bitmap d=4 n=2^26", "bitmap", 11),
+                                ("alp prices n=2^26", "alp", 12)]:
+        v = gen_column(scheme, 2**26, np.random.default_rng(seed))
+        cols.append((label, v, encoded(label, v, scheme)))
+    check(cols[0][2].params["kind"] == "poly2" and cols[1][2].params["d"] == 4, "model/bitmap main columns")
+    return cols
+
+
 def encoded(label: str, v: np.ndarray, scheme: str, **opts):
     t0 = time.perf_counter()
     col = gtt.encode(v, scheme, name=label, **opts)
@@ -445,14 +568,15 @@ def same_on_card(out: torch.Tensor, v: np.ndarray) -> bool:
     return out.shape == v.shape and torch.equal(out.view(torch.uint8), torch.from_numpy(v.view(np.uint8)).to(CUDA))
 
 
-def main_path(cols: list, x: torch.Tensor, container: list, casc: tuple) -> dict[str, int]:
+def main_path(cols: list, x: torch.Tensor, container: list, casc: tuple, epilogue: list) -> dict[str, int]:
     """Phase 4: each main path -- every column through decode(col,
     device=cuda), scan.group_prefix_sum(x), the configs[4] container
-    through decode_columns(cols, device=cuda) and the cascade column
-    through decode -- with the launch counts set to 0 just before it and
-    read just after, and its output checked against its input (the prefix
-    sum against the plain version on the host). Returns the counts summed
-    over the paths."""
+    through decode_columns(cols, device=cuda), the cascade column through
+    decode, and the model, bitmap and alp columns through decode_columns
+    together -- with the launch counts set to 0 just before it and read
+    just after, and its output checked against its input (the prefix sum
+    against the plain version on the host). Returns the counts summed over
+    the paths."""
     totals = dict.fromkeys(KERNELS, 0)
 
     def drive(label: str, what: str, fn) -> None:
@@ -476,14 +600,17 @@ def main_path(cols: list, x: torch.Tensor, container: list, casc: tuple) -> dict
               lambda: torch.equal(gtt.scan.group_prefix_sum(x.to(CUDA), exclusive=exclusive).view(torch.int32),
                                   want_x.to(CUDA)))
 
-    def container_ok() -> bool:
-        outs = gtt.decode_columns([col for _, col in container], device=CUDA)
-        return sorted(outs) == sorted(col.name for _, col in container) and all(
-            same_on_card(outs[col.name], v) for v, col in container)
+    def container_ok(pairs: list) -> bool:
+        outs = gtt.decode_columns([col for _, col in pairs], device=CUDA)
+        return sorted(outs) == sorted(col.name for _, col in pairs) and all(
+            same_on_card(outs[col.name], v) for v, col in pairs)
 
-    drive("configs[4] mixed container 4 x 2^26", "decode_columns(cols, device=cuda) vs inputs", container_ok)
+    drive("configs[4] mixed container 4 x 2^26", "decode_columns(cols, device=cuda) vs inputs",
+          lambda: container_ok(container))
     v, col = casc
     drive("cascade rle d=8 n=2^26", "decode(col, device=cuda) vs input", lambda: same_on_card(gtt.decode(col, device=CUDA), v))
+    drive("model + bitmap + alp 3 x 2^26", "decode_columns(cols, device=cuda) vs inputs",
+          lambda: container_ok(epilogue))
     return totals
 
 
@@ -494,7 +621,7 @@ def resident_decoders(container: list) -> tuple[list, list]:
     return [gtt.get_decoder(col, gtt.narrow_store_dtype(col)) for col in cols], streams
 
 
-def container_without_sync(container: list) -> None:
+def container_without_sync(label: str, container: list) -> None:
     """Phase 4: the container's decoders, back to back on resident streams
     under sync debug mode "error", so a host synchronisation between
     columns raises; then each output against its input."""
@@ -507,17 +634,19 @@ def container_without_sync(container: list) -> None:
         torch.cuda.set_sync_debug_mode("default")
     for (v, col), u in zip(container, outs):
         check(same_on_card(u[: col.n], v), f"resident {col.name} is wrong")
-    print(f"[main] configs[4] decoders on resident streams under sync debug mode 'error': no host sync, bit-exact")
+    print(f"[main] {label} decoders on resident streams under sync debug mode 'error': no host sync, bit-exact")
 
 
-def time_kernel(label: str, smi: str, name: str, args: tuple, nbytes: int, e2e, e2e_what: str, tail: str) -> dict:
+def time_kernel(label: str, smi: str, name: str, args: tuple, nbytes: int, e2e, e2e_what: str, tail: str,
+                in_bytes: int | None = None) -> dict:
     """Phase 5: the kernel on resident inputs (also held against its plain
     version at this shape), a same-size copy_, the plain version, and the
-    end-to-end call; ``tail`` adds the uploads measured by the caller."""
+    end-to-end call; ``tail`` adds the uploads measured by the caller,
+    ``in_bytes`` goes to bound()."""
     wrapper, plain = KERNELS[name][:2]
     out = wrapper(*args)
     compare(label, name, out, plain(*args))
-    b_ms, b_by = bound(name, args, out)
+    b_ms, b_by = bound(name, args, out, in_bytes)
     del out
     k_ms = cuda_ms(lambda: wrapper(*args))
     src = torch.empty(nbytes // 4, dtype=torch.int32, device=CUDA)
@@ -536,6 +665,18 @@ def time_kernel(label: str, smi: str, name: str, args: tuple, nbytes: int, e2e, 
     return {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 
 
+def run_bytes(col, name: str, args: tuple) -> int | None:
+    """The input a run expansion (K5, or K5 with the LUT stage) needs: each
+    real run's value and end, 4 B each, and a cascade's dictionary. Its
+    tile-form tables repeat runs that span tiles and pad each tile to w_pad,
+    which is prep overhead, not work the function must do. None for any
+    other kernel."""
+    if not (name == "run_expand" or name == "cascade_lut" and args[0] == "run_expand"):
+        return None
+    runs = int(col.streams["c_run_counts" if col.scheme == "cascade" else "run_counts"].sum())
+    return runs * 8 + (col.streams["values"].nbytes if col.scheme == "cascade" else 0)
+
+
 def time_column(label, v, col, smi) -> tuple[str, dict]:
     """Phase 5 for a column: end-to-end decode(col) includes host prep and
     the upload; beside it the upload of the streams alone and of the raw
@@ -543,10 +684,14 @@ def time_column(label, v, col, smi) -> tuple[str, dict]:
     name, args = kernel_call(col, gtt.device_streams(col, CUDA), gtt.narrow_store_dtype(col))
     u_ms = host_ms(lambda: gtt.device_streams(col, CUDA))
     r_ms = host_ms(lambda: torch.from_numpy(v).to(CUDA))
+    in_bytes = run_bytes(col, name, args)
     tail = (f"host prep + H2D of the {col.nbytes_compressed} B of streams alone {u_ms:.3f} ms; "
             f"H2D of the raw column {r_ms:.3f} ms")
+    if in_bytes is not None:
+        tables = sum(t.numel() * t.element_size() for t in tensors(args))
+        tail += f"; bound counts {in_bytes} B of runs, not the {tables} B of tile tables"
     return name, time_kernel(label, smi, name, args, col.nbytes_decoded,
-                             lambda: gtt.decode(col, device=CUDA), "decode(col)", tail)
+                             lambda: gtt.decode(col, device=CUDA), "decode(col)", tail, in_bytes)
 
 
 def time_scan(x: torch.Tensor, smi: str) -> tuple[str, dict]:
@@ -585,6 +730,20 @@ def time_container(container: list, smi: str) -> None:
     torch.cuda.empty_cache()
 
 
+def rank_cell(smi: str) -> None:
+    """Phase 5 for K5 at the cell of the reference's _rank_call (runs of
+    ~20, so 16 < w_pad <= 128): 2^26 values, seed 7. Printed only; the
+    kernels line carries K5 at configs[3]."""
+    v = run_column(np.random.default_rng(7), 2**26, 1, 40, vocab=1000)
+    col = encoded("rle runs ~20 n=2^26 (_rank_call cell)", v, "rle")
+    streams = gtt.device_streams(col, CUDA)
+    check("vals_w" in streams and rle.RANK_MIN < streams["vals_w"].shape[-1] <= rle.CHAIN_HARD,
+          f"the _rank_call cell missed 16 < w_pad <= 128: {[tuple(t.shape) for t in streams.values()]}")
+    w_pad = streams["vals_w"].shape[-1]
+    del streams
+    time_column(f"rle runs ~20 n=2^26 (_rank_call cell, w_pad {w_pad})", v, col, smi)
+
+
 def main() -> int:
     smi = environment()
     build()
@@ -593,14 +752,17 @@ def main() -> int:
     x = scan_input()
     container = container_columns()
     casc = cascade_main()
-    counts = main_path(cols, x, container, casc)
-    container_without_sync(container)
-    timings = dict(time_column(label, v, col, smi) for label, v, col in cols)
+    epilogue = epilogue_columns()
+    counts = main_path(cols + epilogue, x, container, casc, [(v, col) for _, v, col in epilogue])
+    container_without_sync("configs[4]", container)
+    container_without_sync("model + bitmap + alp", [(v, col) for _, v, col in epilogue])
+    timings = dict(time_column(label, v, col, smi) for label, v, col in cols + epilogue)
     timings.update([time_scan(x, smi)])
     v, col = container[-1]
     timings.update([time_column("configs[4] patched n=2^26", v, col, smi)])
     timings.update([time_column("cascade rle d=8 n=2^26", *casc, smi)])
     time_container(container, smi)
+    rank_cell(smi)
     for name, count in counts.items():
         check(count >= 1, f"{name} was launched {count} times on the main path")
     rows = [

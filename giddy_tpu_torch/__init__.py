@@ -5,9 +5,10 @@ GPU with hand-written CUDA kernels (csrc/), or on the CPU with their plain
 PyTorch versions. Imports torch and NumPy, never JAX or giddy_tpu.
 
 Ported so far: decode of nbit, dzbf, for, delta, dict, rle, rpe, delta2,
-xordelta, patched, raw and cascade, single columns (``decode``) and whole
-containers (``decode_columns``), ``scan.group_prefix_sum`` /
-``group_reduce``, and the synthetic columns of ``datagen``.
+xordelta, patched, raw, cascade, model, bitmap and alp, single columns
+(``decode``) and whole containers (``decode_columns``),
+``scan.group_prefix_sum`` / ``group_reduce``, and the synthetic columns of
+``datagen``.
 """
 
 from . import datagen, scan

@@ -9,8 +9,9 @@
 // warp's stores of slot i are coalesced too.
 //
 // Also here: the block-row scan every per-GROUP prefix kernel shares, the
-// fused dictionary stage (Lut), and the host-side argument checks, output-
-// type and table-mode dispatch of the entry points.
+// fused dictionary stage (Lut), the exception phase of K9 and K12
+// (patch_group), and the host-side argument checks, output-type and
+// table-mode dispatch of the entry points.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -202,6 +203,43 @@ __device__ __forceinline__ void unpack_store_lane(const uint32_t* __restrict__ p
   T* o = out + g * kGroup + c;
 #pragma unroll
   for (int i = 0; i < kSlots; ++i) o[i * kLanes] = static_cast<T>(map(r.next() + ref));
+}
+
+// The exception phase of K9 and K12: writes the exceptions of group
+// blockIdx.x, out[pos[j]] = T(val[j]), over the values the block has just
+// stored. pos is strictly ascending, so the group's exceptions are the
+// range [lo, hi) of the stream: threads 0 and 1 binary-search pos for the
+// group's first and one-past-last position and pass lo and hi through
+// shared memory. One __syncthreads() then orders the block's own device-
+// memory writes, so an exception lands after the value it replaces, and
+// the block's threads write the range (a narrow store truncates val). A
+// position outside the group (malformed input) is dropped. Every thread of
+// the block calls it once, after its stores.
+template <typename T>
+__device__ __forceinline__ void patch_group(const int32_t* __restrict__ pos, const uint32_t* __restrict__ val,
+                                            T* __restrict__ out, uint32_t count) {
+  __shared__ uint32_t range[2];
+  if (count == 0) return;
+  const long long first = static_cast<long long>(blockIdx.x) * kGroup;
+  if (threadIdx.x < 2) {
+    const long long key = first + threadIdx.x * kGroup;
+    uint32_t lo = 0, hi = count;  // first j with pos[j] >= key
+    while (lo < hi) {
+      const uint32_t mid = lo + (hi - lo) / 2;
+      if (__ldg(pos + mid) < key) {
+        lo = mid + 1;
+      } else {
+        hi = mid;
+      }
+    }
+    range[threadIdx.x] = lo;
+  }
+  __syncthreads();
+  const uint32_t end = range[1];
+  for (uint32_t j = range[0] + threadIdx.x; j < end; j += kLanes) {
+    const long long p = __ldg(pos + j);
+    if (p >= first && p < first + kGroup) out[p] = static_cast<T>(__ldg(val + j));
+  }
 }
 
 // Most shared memory one block may opt in to on the current device.

@@ -19,16 +19,10 @@ namespace gt {
 // it (:81-92, `u.at[pos].set(val)`).
 // Phase 1 is K2 (kFor) or K1: unpack lane c of the group's base words, add
 // refs_g[g] for a FOR base, store at T (unpack_store_lane, lmp.cuh).
-// Phase 2 writes the group's exceptions over it. The positions pos are
-// strictly ascending (FORMAT.md §1.11), so the group's exceptions are the
-// range [lo, hi) of the stream: threads 0 and 1 binary-search pos for the
-// group's first and one-past-last position and pass lo and hi through
-// shared memory. One __syncthreads() then orders the block's own
-// device-memory writes, so an exception lands after the base value it
-// replaces, and the block's threads write out[pos[j]] = T(val[j]) for j in
-// [lo, hi) (a narrow store truncates val, as patch.py:89-90 does). A
-// position outside the group (malformed input) is dropped. The same kernel
-// serves both patch kinds: the compressed kind's positions come from K3.
+// Phase 2 writes the group's exceptions over it (patch_group, lmp.cuh; the
+// positions are strictly ascending, FORMAT.md §1.11, and a narrow store
+// truncates val, as patch.py:89-90 does). The same kernel serves both
+// patch kinds: the compressed kind's positions come from K3.
 // Bound: device-memory bytes: B/8 read and 4, 2 or 1 written a value, plus
 // 8 bytes an exception.
 template <typename T, bool kFor>
@@ -36,31 +30,9 @@ __global__ void __launch_bounds__(kLanes)
     patched_decode_kernel(const uint32_t* __restrict__ packed, const int32_t* __restrict__ refs_g,
                           const int32_t* __restrict__ pos, const uint32_t* __restrict__ val, T* __restrict__ out,
                           int bits, uint32_t count) {
-  __shared__ uint32_t range[2];
-  const size_t g = blockIdx.x;
-  const uint32_t ref = kFor ? static_cast<uint32_t>(__ldg(refs_g + g)) : 0u;
+  const uint32_t ref = kFor ? static_cast<uint32_t>(__ldg(refs_g + blockIdx.x)) : 0u;
   unpack_store_lane(packed, out, bits, ref, Lut<LutMode::kNone>(nullptr, 0u, nullptr));
-  if (count == 0) return;
-  const long long first = static_cast<long long>(g) * kGroup;
-  if (threadIdx.x < 2) {
-    const long long key = first + threadIdx.x * kGroup;
-    uint32_t lo = 0, hi = count;  // first j with pos[j] >= key
-    while (lo < hi) {
-      const uint32_t mid = lo + (hi - lo) / 2;
-      if (__ldg(pos + mid) < key) {
-        lo = mid + 1;
-      } else {
-        hi = mid;
-      }
-    }
-    range[threadIdx.x] = lo;
-  }
-  __syncthreads();
-  const uint32_t end = range[1];
-  for (uint32_t j = range[0] + threadIdx.x; j < end; j += kLanes) {
-    const long long p = __ldg(pos + j);
-    if (p >= first && p < first + kGroup) out[p] = static_cast<T>(__ldg(val + j));
-  }
+  patch_group(pos, val, out, count);
 }
 
 }  // namespace gt

@@ -30,8 +30,11 @@ def _runs(rng: np.random.Generator, n: int, lo: int, hi: int, pick) -> np.ndarra
     return out
 
 
-def gen_column(scheme: str, n: int, rng: np.random.Generator, *, hard: bool = False) -> np.ndarray:
-    """Data a given scheme compresses well (or, hard=True, adversarially)."""
+def gen_column(scheme: str, n: int, rng: np.random.Generator, *, hard: bool = False,
+               frame_len: int = 32768) -> np.ndarray:
+    """Data a given scheme compresses well (or, hard=True, adversarially).
+    ``frame_len`` is the model column's segment length (the reference's is
+    fixed at GROUP, the default)."""
     if scheme in ("nbit", "dzbf"):
         hi = 2**31 - 1 if hard else 511  # 9-bit case = BASELINE configs[0]
         return rng.integers(0, hi + 1, n, dtype=np.int64).astype(np.int32)
@@ -53,9 +56,10 @@ def gen_column(scheme: str, n: int, rng: np.random.Generator, *, hard: bool = Fa
         steps = rng.integers(0, 16 if not hard else 2**20, n)
         return np.cumsum(steps).astype(np.int32) + np.int32(1_600_000_000)
     if scheme == "model":
-        # piecewise polynomial segments, one per GROUP frame: curvature
-        # where c != 0, plain ramps where c == 0; hard = wide noise
-        fl = 32768
+        # piecewise polynomial segments, one per frame: curvature where
+        # c != 0, plain ramps where c == 0; hard = wide noise. At frame_len
+        # 4·GROUP a curved arc spans 2^32 and wraps.
+        fl = frame_len
         nf = (n + fl - 1) // fl or 1
         c = rng.integers(-1, 2, nf)
         b = rng.integers(-50, 50, nf)

@@ -6,7 +6,7 @@ live in ``giddy_tpu_torch/csrc`` and are built at first launch.
 """
 
 from .. import ref as _ref  # noqa: F401  (host codecs must register first)
-from . import cascade, cumsum, delta, delta2, dict_, for_, nbit, patch, raw, rle, xordelta  # noqa: F401  (import = registration)
+from . import alp, bitmap, cascade, cumsum, delta, delta2, dict_, for_, model, nbit, patch, raw, rle, xordelta  # noqa: F401  (import = registration)
 
 # Every kernel of the decode path -> the module of its wrapper (which
 # holds the wrapper under the kernel's name and ``LAUNCHES``). cascade_lut
@@ -16,6 +16,7 @@ WRAPPERS = {
     "lmp_unpack": nbit, "for_unpack": for_, "delta_decode": delta, "dict_decode": dict_,
     "run_expand": rle, "cumsum_rows": cumsum, "delta2_decode": delta2, "xordelta_decode": xordelta,
     "patched_decode": patch, "cascade_lut": cascade,
+    "model_decode": model, "bitmap_decode": bitmap, "alp_decode": alp,
 }
 # Schemes that one kernel decodes; rle and rpe take K5 or K6 by stream
 # form, cascade its inner scheme's kernel with the table.
@@ -23,6 +24,7 @@ _BY_SCHEME = {
     "nbit": "lmp_unpack", "dzbf": "lmp_unpack", "for": "for_unpack",
     "delta": "delta_decode", "dict": "dict_decode",
     "delta2": "delta2_decode", "xordelta": "xordelta_decode", "patched": "patched_decode",
+    "model": "model_decode", "bitmap": "bitmap_decode", "alp": "alp_decode",
 }
 
 

@@ -22,14 +22,14 @@ import time
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-# No --use_fast_math: the decoders are integer-only, and later float
-# decoders (alp) need IEEE rounding.
+# No --use_fast_math, -ftz or -prec-* flag: alp's decoder (K12) is
+# bit-exact only with IEEE rounding and subnormals kept.
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 ]
 
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _U, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_longlong
 _SIGNATURES = {
     "gt_lmp_unpack": [_P, _P, _L, _I, _I, _P, _L, _P],
     "gt_for_unpack": [_P, _P, _P, _L, _I, _I, _P, _L, _P],
@@ -41,6 +41,9 @@ _SIGNATURES = {
     "gt_delta2_decode": [_P, _P, _P, _P, _L, _I, _I, _P, _L, _P],
     "gt_xordelta_decode": [_P, _P, _P, _L, _I, _P],
     "gt_patched_decode": [_P, _P, _P, _P, _P, _L, _I, _L, _I, _P],
+    "gt_model_decode": [_P, _P, _P, _P, _P, _L, _I, _I, _P],
+    "gt_bitmap_decode": [_P, _P, _P, _L, _L, _I, _P],
+    "gt_alp_decode": [_P, _P, _P, _P, _P, _P, _L, _I, _I, _U, _L, _P],
 }
 
 _LIB: ctypes.CDLL | None = None

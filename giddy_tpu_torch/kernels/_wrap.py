@@ -61,6 +61,19 @@ def check_side(t: torch.Tensor, length: int | None, name: str, device: torch.dev
         raise ValueError(f"{name} is on {t.device}, the packed words on {device}")
 
 
+def check_exceptions(pos: torch.Tensor, val: torch.Tensor, device: torch.device) -> int:
+    """Validate the exceptions of K9 and K12 (positions and values, 1-D
+    int32 of one length on ``device``); returns their count."""
+    for t, name in ((pos, "pos"), (val, "val")):
+        if t.dtype != torch.int32 or t.dim() != 1 or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous 1-D int32 tensor, got {t.dtype} {tuple(t.shape)}")
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, the packed words on {device}")
+    if pos.shape != val.shape:
+        raise ValueError(f"pos {tuple(pos.shape)} and val {tuple(val.shape)} differ in length")
+    return pos.shape[0]
+
+
 def lut_args(lut: torch.Tensor | None, device: torch.device) -> tuple:
     """(pointer, d) of the optional dictionary of a kernel's LUT stage:
     (None, 0) launches the plain kernel."""

@@ -1,5 +1,6 @@
 """Plain PyTorch versions of the decode kernels (csrc/lmp_decode.cu K1-K4,
-csrc/run_decode.cu K5-K8, csrc/patch_decode.cu K9), with the fused
+csrc/run_decode.cu K5-K8, csrc/patch_decode.cu K9, csrc/epilogue_decode.cu
+K10-K12), with the fused
 dictionary stage of cascade (``lut``) where the kernel has one.
 
 The counterpart of Pallas interpret mode: the same arithmetic in torch
@@ -124,3 +125,36 @@ def patched_decode(packed: torch.Tensor, refs_g: torch.Tensor | None, pos: torch
         u = u + refs_g[:, None]
     u.view(-1)[pos.to(torch.int64)] = val
     return u.to(out_dtype)
+
+
+def model_decode(packed: torch.Tensor, a_g: torch.Tensor, b_g: torch.Tensor, c_g: torch.Tensor | None, bits: int, out_dtype: torch.dtype = torch.int32) -> torch.Tensor:
+    """a_g[g] + b_g[g]·p (+ c_g[g]·p²) + unzigzag(residual), p the position
+    within the group, computed in int64 and cut to 32 bits."""
+    # |c·p²| < 2^61 and |b·p| < 2^46: exact in int64, and mod 2^32 the
+    # coefficients' sign does not matter
+    p = torch.arange(GROUP, dtype=torch.int64, device=packed.device)
+    pred = a_g.to(torch.int64)[:, None] + b_g.to(torch.int64)[:, None] * p
+    if c_g is not None:
+        pred = pred + c_g.to(torch.int64)[:, None] * (p * p)
+    return wrap32(pred + unzigzag(unpack_lanes(packed, bits))).to(out_dtype)
+
+
+def bitmap_decode(bitmaps: torch.Tensor, values: torch.Tensor, ng: int, out_dtype: torch.dtype = torch.int32) -> torch.Tensor:
+    """Σ over the d LMP(1) planes of bit · values[d] (a sum, not a select),
+    in int64 and cut to 32 bits."""
+    acc = torch.zeros((ng, GROUP), dtype=torch.int64, device=bitmaps.device)
+    for dd in range(values.shape[0]):
+        acc += unpack_lanes(bitmaps[dd].view(ng, LANES), 1) * values[dd].to(torch.int64)
+    return wrap32(acc).to(out_dtype)
+
+
+def alp_decode(packed: torch.Tensor, corr: torch.Tensor, refs_g: torch.Tensor, patch_pos: torch.Tensor, patch_val: torch.Tensor, bits: int, corr_bits: int, scale_bits: int, count: int) -> torch.Tensor:
+    """bits(f32(unpack + refs_g[g]) × f32(10^-e)) + unzigzag(corr), then
+    out[patch_pos] = patch_val; ``scale_bits`` is f32(10^-e) as its bits."""
+    enc = wrap32(unpack_lanes(packed, bits).to(torch.int64) + refs_g.to(torch.int64)[:, None])
+    scale = wrap32(torch.tensor(scale_bits, dtype=torch.int64, device=packed.device)).view(torch.float32)
+    m = (enc.to(torch.float32) * scale).view(torch.int32)
+    out = wrap32(m.to(torch.int64) + unzigzag(unpack_lanes(corr, corr_bits)))
+    if count:
+        out.view(-1)[patch_pos.to(torch.int64)] = patch_val
+    return out

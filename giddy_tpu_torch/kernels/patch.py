@@ -30,17 +30,6 @@ def prep(col: EncodedColumn) -> dict:
     return streams
 
 
-def _check_exceptions(pos: torch.Tensor, val: torch.Tensor, device: torch.device) -> int:
-    for t, name in ((pos, "pos"), (val, "val")):
-        if t.dtype != torch.int32 or t.dim() != 1 or not t.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous 1-D int32 tensor, got {t.dtype} {tuple(t.shape)}")
-        if t.device != device:
-            raise ValueError(f"{name} is on {t.device}, the packed words on {device}")
-    if pos.shape != val.shape:
-        raise ValueError(f"pos {tuple(pos.shape)} and val {tuple(val.shape)} differ in length")
-    return pos.shape[0]
-
-
 def patched_decode(packed: torch.Tensor, refs_g: torch.Tensor | None, pos: torch.Tensor, val: torch.Tensor, bits: int, out_dtype: torch.dtype = torch.int32) -> torch.Tensor:
     """(ng, bits*1024) base words (+ (ng,) refs_g for a FOR base, None for
     nbit) and the exceptions (pos strictly ascending, val) -> (ng, GROUP)
@@ -49,7 +38,7 @@ def patched_decode(packed: torch.Tensor, refs_g: torch.Tensor | None, pos: torch
     ng = _wrap.check_packed(packed, bits, out_dtype)
     if refs_g is not None:
         _wrap.check_side(refs_g, ng, "refs_g", packed.device)
-    count = _check_exceptions(pos, val, packed.device)
+    count = _wrap.check_exceptions(pos, val, packed.device)
     if packed.device.type == "cpu":
         return lanes.patched_decode(packed, refs_g, pos, val, bits, out_dtype)
     out = _wrap.empty_out(ng, out_dtype, packed.device)

@@ -15,6 +15,8 @@ from giddy_tpu_torch import kernels
 from giddy_tpu_torch.kernels import cascade, dict_, lanes, nbit, patch, rle
 from giddy_tpu_torch.util import GROUP
 
+from test_torch_inputs import bitmap_values, salted_prices
+
 pytestmark = pytest.mark.cuda
 
 N = 3 * GROUP + 17
@@ -228,3 +230,143 @@ def test_decode_columns_without_host_sync(cuda):
         torch.cuda.set_sync_debug_mode("default")
     for c, u in zip(cols, resident):
         np.testing.assert_array_equal(u[: c.n].cpu().numpy(), values[c.name])
+
+
+def _check_epilogue(col, v, cuda):
+    """K10/K11/K12 through kernel_call: the wrapper launches once and equals
+    its plain version on the card; decode equals the oracle and the input."""
+    store = gtt.narrow_store_dtype(col)
+    name, args = kernels.kernel_call(col, gtt.device_streams(col, cuda), store)
+    assert name == {"model": "model_decode", "bitmap": "bitmap_decode", "alp": "alp_decode"}[col.scheme]
+    before = kernels.launches()[name]
+    got = getattr(kernels.WRAPPERS[name], name)(*args)
+    assert kernels.launches()[name] == before + 1
+    want = getattr(lanes, name)(*args)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype == store and torch.equal(got, want)
+    signed = {4: torch.int32, 2: torch.int16, 1: torch.int8}[v.itemsize]
+    out = gtt.decode(col, device=cuda)
+    assert out.is_cuda and out.shape == v.shape
+    assert out.view(signed).cpu().numpy().tobytes() == gtt.decode_ref(col).tobytes() == v.tobytes()
+
+
+@pytest.mark.parametrize("frame_len", [GROUP, 4 * GROUP])
+@pytest.mark.parametrize("kind", ["auto", "linear", "poly2"])
+def test_model_kernel_matches_plain_and_oracle(cuda, kind, frame_len):
+    v = gtt.datagen.gen_column("model", N, np.random.default_rng(frame_len), frame_len=frame_len)
+    _check_epilogue(gtt.encode(v, "model", kind=kind, frame_len=frame_len), v, cuda)
+
+
+@pytest.mark.parametrize("dtype", ["int8", "int16", "uint16", "uint32"])
+def test_model_kernel_stores(cuda, dtype):
+    v = gtt.datagen.gen_column("model", N, np.random.default_rng(11))
+    v = v.view(np.uint32) if dtype == "uint32" else v.astype(np.dtype(dtype))
+    _check_epilogue(gtt.encode(v, "model"), v, cuda)
+
+
+def test_model_kernel_32_bits_and_wrapping_coefficients(cuda):
+    v = gtt.datagen.gen_column("model", N, np.random.default_rng(12), hard=True)
+    _check_epilogue(gtt.encode(v, "model", bits=32), v, cuda)
+    col = gtt.encode(v, "model", kind="poly2", frame_len=4 * GROUP)
+    col.streams.update(coef_a=np.array([2**31 - 1], np.int32), coef_b=np.array([-(2**31)], np.int32),
+                       coef_c=np.array([2**31 - 7], np.int32))
+    _check_epilogue(col, gtt.decode_ref(col), cuda)
+
+
+@pytest.mark.parametrize("d", [1, 4, 12, 64, 65, 1000])
+def test_bitmap_kernel_every_d(cuda, d):
+    v = bitmap_values(d, N if d < 1000 else 4 * GROUP + 999, np.random.default_rng(d))
+    col = gtt.encode(v, "bitmap")
+    assert col.params["d"] == d
+    _check_epilogue(col, v, cuda)
+
+
+@pytest.mark.parametrize("dtype", ["uint8", "int8", "int16"])
+def test_bitmap_kernel_narrow_stores(cuda, dtype):
+    v = bitmap_values(12, N, np.random.default_rng(13), dtype)
+    _check_epilogue(gtt.encode(v, "bitmap"), v, cuda)
+
+
+def test_bitmap_kernel_sums_two_incident_bits(cuda):
+    v = bitmap_values(4, N, np.random.default_rng(14))
+    col = gtt.encode(v, "bitmap")
+    col.streams["bitmaps"] = col.streams["bitmaps"].copy()
+    col.streams["bitmaps"][1] |= col.streams["bitmaps"][0]
+    _check_epilogue(col, gtt.decode_ref(col), cuda)
+
+
+def test_bitmap_empty_column_launches_nothing(cuda):
+    col = gtt.encode(np.zeros(0, np.int32), "bitmap")
+    before = kernels.launches()
+    out = gtt.decode(col, device=cuda, pad=True)
+    assert kernels.launches() == before and out.shape == (GROUP,) and not out.any()
+
+
+def _alp_values(data, rng, n=N):
+    if data == "salted":
+        return salted_prices(n, rng)
+    return gtt.datagen.gen_column("alp", n, rng, hard=data == "hard")
+
+
+@pytest.mark.parametrize("e", [None, 0, 2, 10])
+@pytest.mark.parametrize("data", ["prices", "hard", "salted"])
+def test_alp_kernel_matches_plain_and_oracle(cuda, data, e):
+    v = _alp_values(data, np.random.default_rng(15))
+    col = gtt.encode(v, "alp", e=e)
+    if data == "prices" and e is None:
+        assert col.params["count"] == 0
+    _check_epilogue(col, v, cuda)
+
+
+@pytest.mark.parametrize("scheme", ["model", "alp"])
+def test_epilogue_schemes_at_n_0(cuda, scheme):
+    col = gtt.encode(np.zeros(0, np.float32 if scheme == "alp" else np.int32), scheme)
+    name, args = kernels.kernel_call(col, gtt.device_streams(col, cuda), torch.int32)
+    got = getattr(kernels.WRAPPERS[name], name)(*args)
+    assert torch.equal(got, getattr(lanes, name)(*args))
+    assert gtt.decode(col, device=cuda).shape == (0,)
+
+
+def test_epilogue_wrappers_reject_bad_arguments_on_cuda(cuda):
+    from giddy_tpu_torch.kernels import alp, bitmap, model
+
+    col = gtt.encode(_alp_values("salted", np.random.default_rng(16)), "alp")
+    _, args = kernels.kernel_call(col, gtt.device_streams(col, cuda), torch.int32)
+    with pytest.raises(ValueError, match="refs_g is on cpu"):
+        alp.alp_decode(args[0], args[1], args[2].cpu(), *args[3:])
+    with pytest.raises(ValueError, match="pos is on cpu"):
+        alp.alp_decode(*args[:3], args[3].cpu(), *args[4:])
+    with pytest.raises(ValueError, match="corr is on cpu"):
+        alp.alp_decode(args[0], args[1].cpu(), *args[2:])
+    col = gtt.encode(bitmap_values(4, N, np.random.default_rng(17)), "bitmap")
+    bitmaps, values, ng, _ = kernels.kernel_call(col, gtt.device_streams(col, cuda), torch.int32)[1]
+    with pytest.raises(ValueError, match="values is on cpu"):
+        bitmap.bitmap_decode(bitmaps, values.cpu(), ng)
+    col = gtt.encode(gtt.datagen.gen_column("model", N, np.random.default_rng(18)), "model", kind="poly2")
+    packed, a_g, b_g, c_g, bits, _ = kernels.kernel_call(col, gtt.device_streams(col, cuda), torch.int32)[1]
+    with pytest.raises(ValueError, match="c_g is on cpu"):
+        model.model_decode(packed, a_g, b_g, c_g.cpu(), bits)
+
+
+def test_epilogue_columns_without_host_sync(cuda):
+    rng = np.random.default_rng(19)
+    cols, values = [], {}
+    for s in ("model", "bitmap", "alp"):
+        values[s] = v = gtt.datagen.gen_column(s, N, rng)
+        cols.append(gtt.encode(v, s, name=s))
+    cols[-1] = gtt.encode(_alp_values("salted", rng), "alp", name="alp")  # with exceptions
+    values["alp"] = gtt.decode_ref(cols[-1])
+    assert cols[-1].params["count"] > 0
+    outs = gtt.decode_columns(cols, device=cuda)
+    for name, v in values.items():
+        assert outs[name].cpu().numpy().tobytes() == v.tobytes()
+    streams = [gtt.device_streams(c, cuda) for c in cols]
+    decoders = [gtt.get_decoder(c, gtt.narrow_store_dtype(c)) for c in cols]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        resident = [dec(s) for dec, s in zip(decoders, streams)]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for c, u in zip(cols, resident):
+        assert u[: c.n].cpu().numpy().tobytes() == values[c.name].view(np.int32).tobytes()

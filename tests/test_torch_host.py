@@ -67,15 +67,21 @@ def test_encode_and_oracle_dtypes_match_reference(scheme, dtype):
 
 
 @pytest.mark.parametrize(
-    "scheme,digest_name",
-    [("nbit", "nbit_9bit"), ("dzbf", "dzbf_2b"), ("for", "for_ts"),
-     ("delta", "delta_ts"), ("dict", "dict_lowcard")],
+    "scheme,digest_name,gen",
+    [("nbit", "nbit_9bit", None), ("dzbf", "dzbf_2b", None), ("for", "for_ts", None),
+     ("delta", "delta_ts", None), ("dict", "dict_lowcard", None),
+     ("delta2", "delta2_sampled", None), ("rle", "rle_flags", None), ("rpe", "rpe_flags", None),
+     ("xordelta", "xordelta_sensor", None), ("patched", "patched_for", None), ("raw", "raw_rand", None),
+     ("cascade", "cascade_rledict", None),
+     # model_linear's input is gen_column("delta"), as in tests/test_container.py
+     ("model", "model_linear", "delta"), ("model", "model_poly2", "model"),
+     ("bitmap", "bitmap_4", None), ("alp", "alp_prices", None)],
 )
-def test_golden_container_digests(scheme, digest_name):
+def test_golden_container_digests(scheme, digest_name, gen):
     """The port writes the checked-in golden containers of
-    tests/test_container.py byte for byte."""
+    tests/test_container.py byte for byte (every ported scheme)."""
     rng = np.random.default_rng(20260817)
-    v = gen_column(scheme, GROUP + 100, rng)
+    v = gen_column(gen or scheme, GROUP + 100, rng)
     col = gtt.encode(v, scheme, name=digest_name)
     digest = hashlib.sha256(gtt.container_bytes([col])).hexdigest()
     assert (GOLDEN / f"{digest_name}.sha256").read_text().strip() == digest

@@ -90,6 +90,23 @@ def test_mixed_dtypes_and_empty_columns():
         assert got[name].numpy().tobytes() == np.asarray(want[name]).tobytes() == v.tobytes()
 
 
+def test_model_bitmap_alp_container_matches_jax():
+    """The three epilogue schemes (K10-K12's plain versions) in one
+    container: datagen's model (poly2), bitmap (d = 4) and alp prices."""
+    rng = np.random.default_rng(10)
+    cols, values = [], {}
+    for s in ("model", "bitmap", "alp"):
+        values[f"c_{s}"] = v = gen_column(s, N + 77, rng)
+        cols.append(gt.encode(v, s, name=f"c_{s}"))
+    assert cols[0].params["kind"] == "poly2" and cols[1].params["d"] == 4
+    got = gtt.decode_columns([gtt.from_reference(c) for c in cols], device="cpu")
+    want = gt.decode_columns(cols)
+    assert list(got) == list(want) == list(values)
+    for name, v in values.items():
+        assert got[name].dtype == getattr(torch, str(v.dtype))
+        assert got[name].numpy().tobytes() == np.asarray(want[name]).tobytes() == v.tobytes()
+
+
 def test_device_argument():
     cols = [gtt.encode(np.arange(10, dtype=np.int32), "raw")]
     with pytest.raises(ValueError, match="no decoder for device"):
