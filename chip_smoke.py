@@ -4,9 +4,10 @@ holds each against its plain PyTorch version and the NumPy oracle, drives
 the main paths (single-column ``decode(col, device="cuda")`` at the sizes
 of BASELINE.json configs[0]-[3] plus delta2 and xordelta columns,
 ``scan.group_prefix_sum``, the mixed container of configs[4] through
-``decode_columns``, a cascade (RLE_DICTIONARY) column, and model (poly2),
-bitmap and alp columns, alone and through ``decode_columns``), and times
-them.
+``decode_columns``, a cascade (RLE_DICTIONARY) column, model (poly2),
+bitmap and alp columns, alone and through ``decode_columns``, and a dzbv
+column in each of its three stream forms, and beside configs[4] through
+``decode_columns``), and times them.
 
     python3 chip_smoke.py
 
@@ -18,6 +19,7 @@ last line of standard output is
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -31,21 +33,33 @@ import giddy_tpu_torch as gtt
 from giddy_tpu_torch import kernels
 from giddy_tpu_torch.datagen import gen_column
 from giddy_tpu_torch.kernels import (
-    _build, alp, bitmap, cascade, cumsum, delta, delta2, dict_, for_, lanes, model, nbit, patch, rle, xordelta,
+    _build, alp, bitmap, cascade, cumsum, delta, delta2, dict_, dzbv, for_, lanes, model, nbit, patch, rle, xordelta,
 )
 from giddy_tpu_torch.ref.cascade import INNER_SCHEMES
-from giddy_tpu_torch.util import GROUP
+from giddy_tpu_torch.util import GROUP, num_groups
 
 N_CHECK = 2**22 + 999  # ragged, many groups: the size that caught the reference's grid bug
 LMP_SOURCE = "giddy_tpu_torch/csrc/lmp_decode.cu"
 RUN_SOURCE = "giddy_tpu_torch/csrc/run_decode.cu"
 PATCH_SOURCE = "giddy_tpu_torch/csrc/patch_decode.cu"
 EPILOGUE_SOURCE = "giddy_tpu_torch/csrc/epilogue_decode.cu"
+DZBV_SOURCE = "giddy_tpu_torch/csrc/dzbv_decode.cu"
 # The card's peak rates for the bound (NVIDIA's H100 SXM data sheet):
 # device memory, and 32-bit integer ALU operations, half the 67 TFLOP/s
 # float32 rate (64 INT32 lanes an SM against 128 FP32).
 HBM_BYTES_PER_S = 3.35e12
 INT_OPS_PER_S = 33.5e12
+DZBV_FORMS = {"tile": "dzbv_tile_decode", "group": "dzbv_group_decode", "plane": "dzbv_plane_decode"}
+
+
+def dzbv_ops(args) -> int:
+    """Integer operations a value of a dzbv decode: the unpacks of the width
+    code and of plane 0 (6), and for each plane present the compare, the
+    rank (ballot mask, popcount, add), the byte's address (3), its shift and
+    mask (2) and its shift and OR into the value (2)."""
+    return 6 + 10 * sum(t is not None for t in args[2])
+
+
 # kernel name -> (wrapper, plain version, the Pallas kernel it replaces,
 # source, integer operations per value the function needs at the least, or
 # a function of the wrapper's arguments that gives them)
@@ -74,6 +88,13 @@ KERNELS = {
                       EPILOGUE_SOURCE, lambda args: 3 * args[1].numel()),
     # two unpacks, the ref add, convert, multiply, unzigzag, the add
     "alp_decode": (alp.alp_decode, lanes.alp_decode, "giddy_tpu/kernels/alp.py:47", EPILOGUE_SOURCE, 13),
+    # one kernel template, a kernel for each stream form (K15: count kernel, cumsum, decode)
+    "dzbv_tile_decode": (dzbv.dzbv_tile_decode, lanes.dzbv_tile_decode, "giddy_tpu/kernels/dzbv.py:340",
+                         DZBV_SOURCE, dzbv_ops),
+    "dzbv_group_decode": (dzbv.dzbv_group_decode, lanes.dzbv_group_decode, "giddy_tpu/kernels/dzbv.py:461",
+                          DZBV_SOURCE, dzbv_ops),
+    "dzbv_plane_decode": (dzbv.dzbv_plane_decode, lanes.dzbv_plane_decode, "giddy_tpu/kernels/dzbv.py:512,519",
+                          DZBV_SOURCE, dzbv_ops),
 }
 MAX_ABS_ERR = {name: 0 for name in KERNELS}
 CUDA = torch.device("cuda")
@@ -195,10 +216,10 @@ def build() -> None:
 # -- phase 3 ----------------------------------------------------------------
 
 
-def check_kernel(label: str, col, v: np.ndarray) -> dict:
-    """Kernel vs plain version on the card (bit-exact) vs oracle vs input;
-    returns the device streams."""
-    streams = gtt.device_streams(col, CUDA)
+def check_kernel(label: str, col, v: np.ndarray, host_streams: dict | None = None) -> dict:
+    """Kernel vs plain version on the card (bit-exact) vs oracle vs input, on
+    the prepped streams or on ``host_streams``; returns the device streams."""
+    streams = gtt.device_streams(col, CUDA) if host_streams is None else gtt.upload(host_streams, CUDA)
     store = gtt.narrow_store_dtype(col)
     name, args = kernel_call(col, streams, store)
     wrapper, plain = KERNELS[name][:2]
@@ -210,6 +231,8 @@ def check_kernel(label: str, col, v: np.ndarray) -> dict:
     runs = {k.removeprefix("c_"): t for k, t in streams.items()}
     form = f" vals_w {tuple(runs['vals_w'].shape)}" if "vals_w" in runs else (
         f" pos {tuple(runs['pos'].shape)}" if "pos" in runs else "")
+    if col.scheme == "dzbv":
+        form = " " + dzbv_form(streams)
     inner = f" over {args[0]}" if name == "cascade_lut" else ""
     print(f"[kernel] {label}: {name}{inner}{form} n={col.n} store={str(store)[6:]} bit-exact vs plain, oracle, input")
     return streams
@@ -418,6 +441,70 @@ def alp_checks(rng, n: int) -> None:
     check_kernel("alp n=0", gtt.encode(prices[:0], "alp"), prices[:0])
 
 
+def dzbv_form(streams: dict) -> str:
+    """The stream form of prepped dzbv streams, with its strides or widths."""
+    for prefix, what, unit in (("trow", "tile form s", 64), ("prow", "group-row form w4", 1024)):
+        shape = {k: streams[f"{prefix}{k}"].shape[1] // unit for k in (1, 2, 3) if f"{prefix}{k}" in streams}
+        if shape:
+            return f"{what} {shape}"
+    if any(f"plane{k}" in streams for k in (1, 2, 3)):
+        return "on-disk planes"
+    return "plane 0 only"
+
+
+def dzbv_column(kind: str, n: int, rng, per_tile: int = 16) -> np.ndarray:
+    """int32 values for dzbv: datagen's widths 1-4 (``mixed``), one 4-byte
+    tile at the start of every group (``skewed``: the tile form declines),
+    the first group all 4 bytes wide (``group_skewed``: the group-row form
+    declines too), all < 256, all < 65536, 32-bit values, or exactly
+    ``per_tile`` 4-byte values in every 128-value tile, the rest 1 byte."""
+    if kind == "mixed":
+        return gen_column("dzbv", n, rng)
+    if kind == "full":
+        return rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32).view(np.int32)
+    if kind in ("one_byte", "two_bytes"):
+        return rng.integers(0, 256 if kind == "one_byte" else 65536, n).astype(np.int32)
+    v = rng.integers(0, 256, n).astype(np.uint32)
+    wide = rng.integers(2**24, 2**32, n, dtype=np.uint64).astype(np.uint32)
+    if kind == "skewed":
+        sel = (np.arange(n) % GROUP) < 128
+    elif kind == "group_skewed":
+        sel = np.arange(n) < GROUP
+    else:
+        tiles = -(-n // 128)
+        sel = np.zeros((tiles, 128), bool)
+        np.put_along_axis(sel, np.argsort(rng.random((tiles, 128)), axis=1)[:, :per_tile], True, axis=1)
+        sel = sel.reshape(-1)[:n]
+    return np.where(sel, wide, v).view(np.int32)
+
+
+def dzbv_checks(rng, n: int) -> None:
+    """K13-K15: each kind of column in the prep's form and in all three,
+    forced tile strides that divide 128 and that straddle its windows,
+    narrow stores in every form, n = 0."""
+    for kind, picks in (("mixed", None), ("skewed", "group"), ("group_skewed", "plane"), ("one_byte", "tile"),
+                        ("two_bytes", None), ("full", None)):
+        v = dzbv_column(kind, n, rng)
+        col = gtt.encode(v, "dzbv")
+        name = kernels.kernel_call(col, check_kernel(f"dzbv {kind} (the prep's form)", col, v), torch.int32)[0]
+        check(picks is None or name == DZBV_FORMS[picks], f"dzbv {kind}: the prep gave {name}, not the {picks} form")
+        for form in DZBV_FORMS:
+            check_kernel(f"dzbv {kind} {form}", col, v, dzbv.form_streams(col, form))
+    for per_tile, strides in ((5, (8, 24, 40)), (16, (24, 56, 120)), (100, (104, 120, 128))):
+        v = dzbv_column("per_tile", n, rng, per_tile)
+        col = gtt.encode(v, "dzbv")
+        check_kernel(f"dzbv {per_tile} wide a tile", col, v, dzbv.tile_prep(col, force_s=dict(zip((1, 2, 3), strides))))
+    for dtype in ("int8", "int16", "uint16", "float32"):
+        u = dzbv_column("mixed", n, rng).view(np.uint32)
+        vv = u.view(np.float32) if dtype == "float32" else u.astype(np.dtype(dtype))
+        col = gtt.encode(vv, "dzbv")
+        for form in DZBV_FORMS:
+            check_kernel(f"dzbv {dtype} {form}", col, vv, dzbv.form_streams(col, form))
+    col = gtt.encode(np.zeros(0, np.int32), "dzbv")
+    for form in DZBV_FORMS:
+        check_kernel(f"dzbv n=0 {form}", col, np.zeros(0, np.int32), dzbv.form_streams(col, form))
+
+
 def dict_column(rng, d: int, n: int) -> tuple[np.ndarray, np.ndarray]:
     vocab = rng.permutation(np.arange(d, dtype=np.int64) * 65_537 - 2**31 + 12_345).astype(np.int32)
     return vocab[rng.integers(0, d, n)], vocab
@@ -451,6 +538,7 @@ def kernel_checks(n: int = N_CHECK) -> None:
     model_checks(rng, n)
     bitmap_checks(rng, n)
     alp_checks(rng, n)
+    dzbv_checks(rng, n)
     base = rng.integers(0, 2**31 - 1, n, dtype=np.int64)
     for dtype in ("int8", "int16", "uint16", "float32"):
         if dtype == "float32":
@@ -557,6 +645,13 @@ def cascade_main() -> tuple[np.ndarray, object]:
     return v, encoded("cascade rle d=8 n=2^26", v, "cascade")
 
 
+def dzbv_main() -> tuple[np.ndarray, object]:
+    """The dzbv column: datagen's widths 1-4 bytes, near uniform (planes 1,
+    2, 3 hold ~75, 50, 25% of the values), 2^26 values, seed 13."""
+    v = gen_column("dzbv", 2**26, np.random.default_rng(13))
+    return v, encoded("dzbv n=2^26", v, "dzbv")
+
+
 def scan_input() -> torch.Tensor:
     """The input of the group_prefix_sum path: 2^26 random int32."""
     rng = np.random.default_rng(5)
@@ -568,18 +663,23 @@ def same_on_card(out: torch.Tensor, v: np.ndarray) -> bool:
     return out.shape == v.shape and torch.equal(out.view(torch.uint8), torch.from_numpy(v.view(np.uint8)).to(CUDA))
 
 
-def main_path(cols: list, x: torch.Tensor, container: list, casc: tuple, epilogue: list) -> dict[str, int]:
+def main_path(cols: list, x: torch.Tensor, container: list, casc: tuple, epilogue: list,
+              dz: tuple) -> tuple[dict[str, int], str]:
     """Phase 4: each main path -- every column through decode(col,
     device=cuda), scan.group_prefix_sum(x), the configs[4] container
     through decode_columns(cols, device=cuda), the cascade column through
-    decode, and the model, bitmap and alp columns through decode_columns
-    together -- with the launch counts set to 0 just before it and read
-    just after, and its output checked against its input (the prefix sum
-    against the plain version on the host). Returns the counts summed over
-    the paths."""
+    decode, the model, bitmap and alp columns through decode_columns
+    together, the dzbv column through decode (the prep's form), in the two
+    other forms (the tile and group-row forms through decode of the column
+    with those streams, the on-disk planes through its decoder on the
+    uploaded streams) and beside configs[4] through decode_columns -- with
+    the launch counts set to 0 just before it and read just after, and its
+    output checked against its input (the prefix sum against the plain
+    version on the host). Returns the counts summed over the paths and the
+    dzbv column's prep's form."""
     totals = dict.fromkeys(KERNELS, 0)
 
-    def drive(label: str, what: str, fn) -> None:
+    def drive(label: str, what: str, fn) -> dict[str, int]:
         kernels.reset_launches()
         ok = fn()
         torch.cuda.synchronize()
@@ -589,6 +689,7 @@ def main_path(cols: list, x: torch.Tensor, container: list, casc: tuple, epilogu
         for k, c in launched.items():
             totals[k] += c
         print(f"[main] {label}: {what} bit-exact; launches {launched}")
+        return launched
 
     for label, v, col in cols:
         drive(label, "decode(col, device=cuda) vs input",
@@ -611,7 +712,21 @@ def main_path(cols: list, x: torch.Tensor, container: list, casc: tuple, epilogu
     drive("cascade rle d=8 n=2^26", "decode(col, device=cuda) vs input", lambda: same_on_card(gtt.decode(col, device=CUDA), v))
     drive("model + bitmap + alp 3 x 2^26", "decode_columns(cols, device=cuda) vs inputs",
           lambda: container_ok(epilogue))
-    return totals
+    v, col = dz
+    launched = drive("dzbv n=2^26, the prep's form", "decode(col, device=cuda) vs input",
+                     lambda: same_on_card(gtt.decode(col, device=CUDA), v))
+    picked = next(form for form, name in DZBV_FORMS.items() if launched.get(name))
+    for form in DZBV_FORMS:
+        if form == "plane" and picked != "plane":
+            drive("dzbv n=2^26, on-disk planes", "get_decoder(col)(uploaded col.streams) vs input",
+                  lambda: same_on_card(gtt.get_decoder(col)(gtt.upload(col.streams, CUDA))[: col.n], v))
+        elif form != picked:
+            drive(f"dzbv n=2^26, {form} form", f"decode(col with form_streams(col, {form!r}), device=cuda) vs input",
+                  lambda: same_on_card(gtt.decode(dataclasses.replace(col, streams=dzbv.form_streams(col, form)),
+                                                  device=CUDA), v))
+    drive("configs[4] + dzbv 5 x 2^26", "decode_columns(cols, device=cuda) vs inputs",
+          lambda: container_ok(container + [dz]))
+    return totals, picked
 
 
 def resident_decoders(container: list) -> tuple[list, list]:
@@ -638,11 +753,11 @@ def container_without_sync(label: str, container: list) -> None:
 
 
 def time_kernel(label: str, smi: str, name: str, args: tuple, nbytes: int, e2e, e2e_what: str, tail: str,
-                in_bytes: int | None = None) -> dict:
+                in_bytes: int | None = None, e2e_runs: int = 10) -> dict:
     """Phase 5: the kernel on resident inputs (also held against its plain
     version at this shape), a same-size copy_, the plain version, and the
-    end-to-end call; ``tail`` adds the uploads measured by the caller,
-    ``in_bytes`` goes to bound()."""
+    end-to-end call (median of ``e2e_runs``); ``tail`` adds the uploads
+    measured by the caller, ``in_bytes`` goes to bound()."""
     wrapper, plain = KERNELS[name][:2]
     out = wrapper(*args)
     compare(label, name, out, plain(*args))
@@ -654,12 +769,12 @@ def time_kernel(label: str, smi: str, name: str, args: tuple, nbytes: int, e2e, 
     c_ms = cuda_ms(lambda: dst.copy_(src))
     del src, dst
     p_ms = cuda_ms(lambda: plain(*args), runs=10, warmup=1)
-    e_ms = host_ms(e2e)
+    e_ms = host_ms(e2e, runs=e2e_runs)
     k_gbs, c_gbs = nbytes / k_ms / 1e6, nbytes / c_ms / 1e6
     print(f"[time] {label} on {smi}: kernel {name} {k_ms:.4f} ms = {k_gbs:.1f} GB/s decoded; "
           f"copy_ of the same {nbytes} B {c_ms:.4f} ms = {c_gbs:.1f} GB/s; kernel/copy {k_gbs / c_gbs:.3f}; "
           f"plain PyTorch {p_ms:.4f} ms; end-to-end {e2e_what} {e_ms:.3f} ms; {tail} "
-          f"(medians of 20 / 20 / 10 / 10 / 10 / 10 runs); bound {b_ms:.4f} ms by {b_by}, kernel at "
+          f"(medians of 20 / 20 / 10 / {e2e_runs} runs, the rest of 10 unless stated); bound {b_ms:.4f} ms by {b_by}, kernel at "
           f"{b_ms / k_ms:.3f} of it")
     torch.cuda.empty_cache()
     return {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
@@ -690,8 +805,67 @@ def time_column(label, v, col, smi) -> tuple[str, dict]:
     if in_bytes is not None:
         tables = sum(t.numel() * t.element_size() for t in tensors(args))
         tail += f"; bound counts {in_bytes} B of runs, not the {tables} B of tile tables"
-    return name, time_kernel(label, smi, name, args, col.nbytes_decoded,
-                             lambda: gtt.decode(col, device=CUDA), "decode(col)", tail, in_bytes)
+    timing = time_kernel(label, smi, name, args, col.nbytes_decoded,
+                         lambda: gtt.decode(col, device=CUDA), "decode(col)", tail, in_bytes)
+    if name == "run_expand":
+        timing["library_ms"] = run_library(label, col, args, smi)
+    return name, timing
+
+
+def run_library(label: str, col, args: tuple, smi: str) -> float:
+    """The one PyTorch call that expands runs, torch.repeat_interleave of
+    an rle or rpe column's run values by their lengths, held equal to K5's
+    output and timed (CUDA events, median of 20): ms."""
+    ng, r_pad = num_groups(col.n), col.params["r_pad"]
+    real = np.arange(r_pad)[None, :] < col.streams["run_counts"][:, None]
+    if col.scheme == "rle":
+        ends = col.streams["run_ends"].reshape(ng, r_pad).astype(np.int64)
+        starts = np.concatenate([np.zeros((ng, 1), np.int64), ends[:, :-1]], axis=1)
+    else:
+        starts = col.streams["run_starts"].reshape(ng, r_pad).astype(np.int64)
+        ends = np.concatenate([starts[:, 1:], np.full((ng, 1), GROUP, np.int64)], axis=1)
+    values = torch.from_numpy(col.streams["run_values"].reshape(ng, r_pad)[real]).to(CUDA)
+    lengths = torch.from_numpy((ends - starts)[real]).to(CUDA)
+    expand = lambda: torch.repeat_interleave(values, lengths, output_size=ng * GROUP)  # noqa: E731
+    check(torch.equal(expand(), rle.run_expand(*args).reshape(-1)), f"{label}: repeat_interleave != K5")
+    ms = cuda_ms(expand)
+    print(f"[time] {label} on {smi}: library torch.repeat_interleave(values, lengths, output_size=n_pad) over "
+          f"{values.numel()} runs {ms:.4f} ms (median of 20), equal to K5's output")
+    return ms
+
+
+def time_dzbv(v: np.ndarray, col, picked: str, smi: str) -> dict:
+    """Phase 5 for the dzbv column in each stream form: the form's kernel,
+    its bound from the compressed streams (the re-anchored forms' padding is
+    prep overhead, printed beside it), the host prep into the form alone
+    (median of 3), H2D of the form's streams + kernel, and end to end: the
+    prep's own form through decode(col), the others as prep + H2D + kernel
+    (median of 3), the on-disk planes as H2D + kernel."""
+    decoder = gtt.get_decoder(col)
+    r_ms = host_ms(lambda: torch.from_numpy(v).to(CUDA))
+    timings = {}
+    for form, name in DZBV_FORMS.items():
+        prep_ms = host_ms(lambda: dzbv.form_streams(col, form), runs=3) if form != "plane" else None
+        streams = dzbv.form_streams(col, form)
+        form_bytes = sum(a.nbytes for a in streams.values())
+        up_ms = host_ms(lambda: decoder(gtt.upload(streams, CUDA)))
+        k_name, args = kernels.kernel_call(col, gtt.upload(streams, CUDA), torch.int32)
+        check(k_name == name, f"dzbv {form} form: kernel_call gave {k_name}")
+        if form == picked:
+            e2e, what = (lambda: gtt.decode(col, device=CUDA)), "decode(col), the prep's own form"
+        elif form == "plane":
+            e2e, what = (lambda: decoder(gtt.upload(col.streams, CUDA))), "H2D of the on-disk streams + kernel"
+        else:
+            e2e, what = (lambda: decoder(gtt.upload(dzbv.form_streams(col, form), CUDA))), f"prep into the {form} form + H2D + kernel"
+        prep = f"host prep into the form {prep_ms:.3f} ms (median of 3)" if prep_ms is not None else "no host prep"
+        tail = (f"{prep}; H2D of the {form_bytes} B of streams + kernel {up_ms:.3f} ms; the streams hold "
+                f"{form_bytes - col.nbytes_compressed} B of padding beyond the {col.nbytes_compressed} B compressed; "
+                f"H2D of the raw column {r_ms:.3f} ms")
+        label = f"dzbv n=2^26 {dzbv_form(streams)}{' (the prep picks it)' if form == picked else ''}"
+        timings[name] = time_kernel(label, smi, name, args, col.nbytes_decoded, e2e, what, tail,
+                                    in_bytes=col.nbytes_compressed, e2e_runs=10 if form == "plane" else 3)
+        del args
+    return timings
 
 
 def time_scan(x: torch.Tensor, smi: str) -> tuple[str, dict]:
@@ -753,7 +927,8 @@ def main() -> int:
     container = container_columns()
     casc = cascade_main()
     epilogue = epilogue_columns()
-    counts = main_path(cols + epilogue, x, container, casc, [(v, col) for _, v, col in epilogue])
+    dz = dzbv_main()
+    counts, picked = main_path(cols + epilogue, x, container, casc, [(v, col) for _, v, col in epilogue], dz)
     container_without_sync("configs[4]", container)
     container_without_sync("model + bitmap + alp", [(v, col) for _, v, col in epilogue])
     timings = dict(time_column(label, v, col, smi) for label, v, col in cols + epilogue)
@@ -763,6 +938,7 @@ def main() -> int:
     timings.update([time_column("cascade rle d=8 n=2^26", *casc, smi)])
     time_container(container, smi)
     rank_cell(smi)
+    timings.update(time_dzbv(*dz, picked, smi))
     for name, count in counts.items():
         check(count >= 1, f"{name} was launched {count} times on the main path")
     rows = [

@@ -5,14 +5,14 @@ GPU with hand-written CUDA kernels (csrc/), or on the CPU with their plain
 PyTorch versions. Imports torch and NumPy, never JAX or giddy_tpu.
 
 Ported so far: decode of nbit, dzbf, for, delta, dict, rle, rpe, delta2,
-xordelta, patched, raw, cascade, model, bitmap and alp, single columns
+xordelta, patched, raw, cascade, model, bitmap, alp and dzbv, single columns
 (``decode``) and whole containers (``decode_columns``),
 ``scan.group_prefix_sum`` / ``group_reduce``, and the synthetic columns of
 ``datagen``.
 """
 
 from . import datagen, scan
-from .api import decode, decode_columns, decode_ref, device_streams, encode, get_decoder, narrow_store_dtype
+from .api import decode, decode_columns, decode_ref, device_streams, encode, get_decoder, narrow_store_dtype, upload
 from .format import (
     EncodedColumn,
     container_bytes,
@@ -44,5 +44,6 @@ __all__ = [
     "read_container",
     "scan",
     "schemes",
+    "upload",
     "write_container",
 ]

@@ -88,11 +88,9 @@ def get_decoder(col: EncodedColumn, out_store: torch.dtype = torch.int32):
     return fn
 
 
-def device_streams(col: EncodedColumn, device: torch.device) -> dict[str, torch.Tensor]:
-    """Host prep, then each stream as a tensor on ``device``; uint32 word
-    streams travel as int32 carrying the same bits."""
-    prep = registry.get(col.scheme).prep_streams
-    streams = prep(col) if prep is not None else col.streams
+def upload(streams: dict[str, np.ndarray], device: torch.device | str) -> dict[str, torch.Tensor]:
+    """Each host stream as a tensor on ``device``; uint32 word streams
+    travel as int32 carrying the same bits."""
     out = {}
     for k, v in streams.items():
         v = np.ascontiguousarray(v)
@@ -100,6 +98,12 @@ def device_streams(col: EncodedColumn, device: torch.device) -> dict[str, torch.
             v = v.view(np.int32)
         out[k] = torch.from_numpy(v).to(device)
     return out
+
+
+def device_streams(col: EncodedColumn, device: torch.device | str) -> dict[str, torch.Tensor]:
+    """Host prep, then :func:`upload` of the prepped streams."""
+    prep = registry.get(col.scheme).prep_streams
+    return upload(prep(col) if prep is not None else col.streams, device)
 
 
 def _to_logical(u: torch.Tensor, dtype: str) -> torch.Tensor:

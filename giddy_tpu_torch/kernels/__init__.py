@@ -6,20 +6,22 @@ live in ``giddy_tpu_torch/csrc`` and are built at first launch.
 """
 
 from .. import ref as _ref  # noqa: F401  (host codecs must register first)
-from . import alp, bitmap, cascade, cumsum, delta, delta2, dict_, for_, model, nbit, patch, raw, rle, xordelta  # noqa: F401  (import = registration)
+from . import alp, bitmap, cascade, cumsum, delta, delta2, dict_, dzbv, for_, model, nbit, patch, raw, rle, xordelta  # noqa: F401  (import = registration)
 
 # Every kernel of the decode path -> the module of its wrapper (which
-# holds the wrapper under the kernel's name and ``LAUNCHES``). cascade_lut
-# is the fused dictionary stage of K1-K7; its launches are counted both
-# there and by the inner kernel's wrapper.
+# holds the wrapper under the kernel's name and ``LAUNCHES``, or, for
+# dzbv's three kernels, ``LAUNCHES[name]``). cascade_lut is the fused
+# dictionary stage of K1-K7; its launches are counted both there and by
+# the inner kernel's wrapper.
 WRAPPERS = {
     "lmp_unpack": nbit, "for_unpack": for_, "delta_decode": delta, "dict_decode": dict_,
     "run_expand": rle, "cumsum_rows": cumsum, "delta2_decode": delta2, "xordelta_decode": xordelta,
     "patched_decode": patch, "cascade_lut": cascade,
     "model_decode": model, "bitmap_decode": bitmap, "alp_decode": alp,
+    "dzbv_tile_decode": dzbv, "dzbv_group_decode": dzbv, "dzbv_plane_decode": dzbv,
 }
-# Schemes that one kernel decodes; rle and rpe take K5 or K6 by stream
-# form, cascade its inner scheme's kernel with the table.
+# Schemes that one kernel decodes; rle and rpe take K5 or K6 and dzbv K13,
+# K14 or K15 by stream form, cascade its inner scheme's kernel with the table.
 _BY_SCHEME = {
     "nbit": "lmp_unpack", "dzbf": "lmp_unpack", "for": "for_unpack",
     "delta": "delta_decode", "dict": "dict_decode",
@@ -34,6 +36,8 @@ def kernel_call(col, streams: dict, out_store) -> tuple:
     decodes its positions with K3 first)."""
     if col.scheme in ("rle", "rpe"):
         return rle.kernel_call(col, streams, out_store)
+    if col.scheme == "dzbv":
+        return dzbv.kernel_call(col, streams, out_store)
     if col.scheme == "cascade":
         return cascade.kernel_call(col, streams, out_store)
     name = _BY_SCHEME[col.scheme]
@@ -41,9 +45,13 @@ def kernel_call(col, streams: dict, out_store) -> tuple:
 
 
 def reset_launches() -> None:
-    for mod in WRAPPERS.values():
-        mod.LAUNCHES = 0
+    for name, mod in WRAPPERS.items():
+        if isinstance(mod.LAUNCHES, dict):
+            mod.LAUNCHES[name] = 0
+        else:
+            mod.LAUNCHES = 0
 
 
 def launches() -> dict[str, int]:
-    return {name: mod.LAUNCHES for name, mod in WRAPPERS.items()}
+    return {name: mod.LAUNCHES[name] if isinstance(mod.LAUNCHES, dict) else mod.LAUNCHES
+            for name, mod in WRAPPERS.items()}

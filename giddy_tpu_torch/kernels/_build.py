@@ -44,6 +44,10 @@ _SIGNATURES = {
     "gt_model_decode": [_P, _P, _P, _P, _P, _L, _I, _I, _P],
     "gt_bitmap_decode": [_P, _P, _P, _L, _L, _I, _P],
     "gt_alp_decode": [_P, _P, _P, _P, _P, _P, _L, _I, _I, _U, _L, _P],
+    "gt_dzbv_tile_decode": [_P, _P, _P, _P, _P, _L, _L, _L, _P, _L, _I, _P],
+    "gt_dzbv_group_decode": [_P, _P, _P, _P, _P, _L, _L, _L, _P, _L, _I, _P],
+    "gt_dzbv_plane_counts": [_P, _P, _L, _P],
+    "gt_dzbv_plane_decode": [_P, _P, _P, _P, _P, _L, _L, _L, _P, _P, _L, _I, _P],
 }
 
 _LIB: ctypes.CDLL | None = None

@@ -1,6 +1,6 @@
 """Plain PyTorch versions of the decode kernels (csrc/lmp_decode.cu K1-K4,
 csrc/run_decode.cu K5-K8, csrc/patch_decode.cu K9, csrc/epilogue_decode.cu
-K10-K12), with the fused
+K10-K12, csrc/dzbv_decode.cu K13-K15), with the fused
 dictionary stage of cascade (``lut``) where the kernel has one.
 
 The counterpart of Pallas interpret mode: the same arithmetic in torch
@@ -158,3 +158,70 @@ def alp_decode(packed: torch.Tensor, corr: torch.Tensor, refs_g: torch.Tensor, p
     if count:
         out.view(-1)[patch_pos.to(torch.int64)] = patch_val
     return out
+
+
+def _dzbv_byte_or(out: torch.Tensor, mask: torch.Tensor, byte: torch.Tensor, k: int) -> torch.Tensor:
+    """out | byte << 8k where mask (the values wider than k bytes)."""
+    return out | (torch.where(mask, byte, 0) << (8 * k))
+
+
+def _exclusive_rank(mask: torch.Tensor, dim: int) -> torch.Tensor:
+    """Exclusive count of the set mask entries before each, along dim (int64)."""
+    m = mask.to(torch.int64)
+    return torch.cumsum(m, dim=dim) - m
+
+
+def _t8_bytes(trow: torch.Tensor) -> torch.Tensor:
+    """(ng, 64*s) T8-packed words -> (ng, 256*s) bytes in tile-compacted
+    order: byte q at word (q // 512) * 128 + q % 128, bits 8 * (q // 128 % 4)."""
+    ng, width = trow.shape
+    words = trow.view(ng, width // 128, 1, 128)
+    return torch.cat([_srl(words, 8 * j) & 0xFF for j in range(4)], dim=2).reshape(ng, 4 * width)
+
+
+def dzbv_tile_decode(widths: torch.Tensor, plane0: torch.Tensor, trows: tuple, out_dtype: torch.dtype = torch.int32) -> torch.Tensor:
+    """Plane 0, then for each plane k present the byte at q = t*s_k + (rank
+    of the value among the values of its 128-value tile t with w > k) of the
+    group's trow row (q clamped to the row)."""
+    codes, out = unpack_lanes(widths, 2), unpack_lanes(plane0, 8)
+    ng = codes.shape[0]
+    tile = torch.arange(GROUP, dtype=torch.int64, device=widths.device) >> 7
+    for k, trow in enumerate(trows, 1):
+        if trow is None:
+            continue
+        s = trow.shape[1] // 64
+        mask = codes >= k
+        rank = _exclusive_rank(mask.view(ng, GROUP // 128, 128), 2).view(ng, GROUP)
+        q = (tile * s + rank).clamp_(max=256 * s - 1)
+        out = _dzbv_byte_or(out, mask, torch.gather(_t8_bytes(trow), 1, q), k)
+    return out.to(out_dtype)
+
+
+def dzbv_group_decode(widths: torch.Tensor, plane0: torch.Tensor, prows: tuple, out_dtype: torch.dtype = torch.int32) -> torch.Tensor:
+    """Plane 0, then for each plane k present byte m = (rank of the value
+    among its group's values with w > k) of the group's prow row, LMP(8) of
+    w4_k * 1024 words (zero past them)."""
+    codes, out = unpack_lanes(widths, 2), unpack_lanes(plane0, 8)
+    for k, prow in enumerate(prows, 1):
+        if prow is None:
+            continue
+        mask = codes >= k
+        full = torch.nn.functional.pad(prow, (0, 8 * LANES - prow.shape[1]))
+        byte = torch.gather(unpack_lanes(full, 8), 1, _exclusive_rank(mask, 1))
+        out = _dzbv_byte_or(out, mask, byte, k)
+    return out.to(out_dtype)
+
+
+def dzbv_plane_decode(widths: torch.Tensor, plane0: torch.Tensor, planes: tuple, out_dtype: torch.dtype = torch.int32) -> torch.Tensor:
+    """Plane 0, then for each plane k present byte r = (rank of the value
+    among all the column's values with w > k) of plane k (r clamped to the
+    plane): the reference's global cumsum and take."""
+    codes, out = unpack_lanes(widths, 2), unpack_lanes(plane0, 8)
+    for k, plane in enumerate(planes, 1):
+        if plane is None:
+            continue
+        mask = codes >= k
+        flat = unpack_lanes(plane, 8).reshape(-1)
+        r = _exclusive_rank(mask.reshape(-1), 0).clamp_(max=flat.shape[0] - 1)
+        out = _dzbv_byte_or(out, mask, flat[r].view(mask.shape), k)
+    return out.to(out_dtype)

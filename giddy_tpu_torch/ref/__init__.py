@@ -6,4 +6,4 @@ np.ndarray`` and registers both with :mod:`giddy_tpu_torch.registry`. The
 CPU tests hold them byte for byte to the JAX package's codecs.
 """
 
-from . import alp, bitmap, cascade, delta, delta2, dict_, dzbf, for_, model, nbit, patch, raw, rle, rpe, xordelta  # noqa: F401  (import = registration)
+from . import alp, bitmap, cascade, delta, delta2, dict_, dzbf, dzbv, for_, model, nbit, patch, raw, rle, rpe, xordelta  # noqa: F401  (import = registration)

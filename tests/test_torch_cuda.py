@@ -12,10 +12,10 @@ import torch
 
 import giddy_tpu_torch as gtt
 from giddy_tpu_torch import kernels
-from giddy_tpu_torch.kernels import cascade, dict_, lanes, nbit, patch, rle
+from giddy_tpu_torch.kernels import cascade, dict_, dzbv, lanes, nbit, patch, rle
 from giddy_tpu_torch.util import GROUP
 
-from test_torch_inputs import bitmap_values, salted_prices
+from test_torch_inputs import bitmap_values, dzbv_values, rng_of, salted_prices
 
 pytestmark = pytest.mark.cuda
 
@@ -370,3 +370,80 @@ def test_epilogue_columns_without_host_sync(cuda):
         torch.cuda.set_sync_debug_mode("default")
     for c, u in zip(cols, resident):
         assert u[: c.n].cpu().numpy().tobytes() == values[c.name].view(np.int32).tobytes()
+
+
+DZBV_FORMS = {"tile": "dzbv_tile_decode", "group": "dzbv_group_decode", "plane": "dzbv_plane_decode"}
+
+
+def _check_dzbv(col, streams: dict, v: np.ndarray, cuda) -> str:
+    """K13/K14/K15 on the streams of one form: the wrapper launches once and
+    equals its plain version on the card, and the output the oracle and the
+    input; returns the kernel's name."""
+    store = gtt.narrow_store_dtype(col)
+    name, args = kernels.kernel_call(col, gtt.upload(streams, cuda), store)
+    before = kernels.launches()[name]
+    got = getattr(kernels.WRAPPERS[name], name)(*args)
+    assert kernels.launches()[name] == before + 1
+    want = getattr(lanes, name)(*args)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype == store and torch.equal(got, want)
+    out = got.reshape(-1)[: v.shape[0]].cpu().numpy()
+    assert out.tobytes() == gtt.decode_ref(col).tobytes() == v.tobytes()
+    return name
+
+
+@pytest.mark.parametrize("n", [100, GROUP, N])
+@pytest.mark.parametrize("form", list(DZBV_FORMS))
+def test_dzbv_forms_match_plain_and_oracle(cuda, form, n):
+    v = dzbv_values("mixed", n, rng_of(f"mixed{n}")).view(np.int32)
+    col = gtt.encode(v, "dzbv")
+    assert _check_dzbv(col, dzbv.form_streams(col, form), v, cuda) == DZBV_FORMS[form]
+
+
+@pytest.mark.parametrize("per_tile,strides", [
+    (5, (8, 8, 8)), (5, (24, 40, 120)), (16, (16, 24, 40)), (16, (32, 64, 128)),
+    (50, (56, 88, 104)), (100, (104, 120, 128)), (128, (128, 128, 128)),
+])
+def test_dzbv_forced_tile_strides(cuda, per_tile, strides):
+    v = dzbv_values("per_tile", 2 * GROUP + 5, rng_of(f"tile{per_tile}"), per_tile=per_tile).view(np.int32)
+    col = gtt.encode(v, "dzbv")
+    _check_dzbv(col, dzbv.tile_prep(col, force_s=dict(zip((1, 2, 3), strides))), v, cuda)
+
+
+@pytest.mark.parametrize("kind", ["skewed", "group_skewed", "one_byte", "two_bytes", "full"])
+@pytest.mark.parametrize("form", list(DZBV_FORMS))
+def test_dzbv_skew_and_plane_counts(cuda, form, kind):
+    v = dzbv_values(kind, N, rng_of(kind)).view(np.int32)
+    col = gtt.encode(v, "dzbv")
+    _check_dzbv(col, dzbv.form_streams(col, form), v, cuda)
+
+
+@pytest.mark.parametrize("dtype", ["int8", "uint8", "int16", "uint16", "float32"])
+@pytest.mark.parametrize("form", list(DZBV_FORMS))
+def test_dzbv_narrow_stores(cuda, form, dtype):
+    u = dzbv_values("mixed", N, rng_of(dtype))
+    v = u.view(np.float32) if dtype == "float32" else u.astype(np.dtype(dtype))
+    col = gtt.encode(v, "dzbv")
+    _check_dzbv(col, dzbv.form_streams(col, form), v, cuda)
+
+
+@pytest.mark.parametrize("kind,form", [("mixed", "tile"), ("skewed", "group"), ("group_skewed", "plane")])
+def test_dzbv_decode_takes_the_prep_form(cuda, kind, form):
+    v = dzbv_values(kind, 8 * GROUP if kind == "mixed" else N, rng_of(kind)).view(np.int32)
+    col = gtt.encode(v, "dzbv")
+    before = kernels.launches()[DZBV_FORMS[form]]
+    out = gtt.decode(col, device=cuda)
+    assert kernels.launches()[DZBV_FORMS[form]] == before + 1
+    assert out.is_cuda and out.cpu().numpy().tobytes() == v.tobytes()
+    assert gtt.decode(gtt.encode(v[:0], "dzbv"), device=cuda).shape == (0,)
+
+
+def test_dzbv_wrappers_reject_streams_on_two_devices(cuda):
+    col = gtt.encode(dzbv_values("mixed", N, rng_of("devices")), "dzbv")
+    for form in DZBV_FORMS:
+        up = gtt.upload(dzbv.form_streams(col, form), cuda)
+        name, (widths, plane0, planes, store) = kernels.kernel_call(col, up, torch.int32)
+        with pytest.raises(ValueError):
+            getattr(dzbv, name)(widths, plane0, (planes[0].cpu(), *planes[1:]), store)
+        with pytest.raises(ValueError):
+            getattr(dzbv, name)(widths, plane0.cpu(), planes, store)

@@ -18,7 +18,7 @@ from giddy_tpu_torch.util import GROUP
 from helpers import gen_column
 
 GOLDEN = pathlib.Path(__file__).parent / "golden"
-SCHEMES = ["nbit", "dzbf", "for", "delta", "dict"]
+SCHEMES = ["nbit", "dzbf", "for", "delta", "dict", "dzbv"]
 
 
 def assert_same_column(port, ref):
@@ -29,6 +29,17 @@ def assert_same_column(port, ref):
         p = port.streams[k]
         assert (p.dtype, p.shape) == (s.dtype, s.shape), k
         assert p.tobytes() == s.tobytes(), k
+
+
+def assert_same_streams(got: dict | None, want: dict | None):
+    """Two stream dicts (a host prep's), or two Nones, byte for byte."""
+    assert (got is None) == (want is None)
+    if want is not None:
+        assert sorted(got) == sorted(want)
+        for k, w in want.items():
+            w = np.asarray(w)
+            assert (got[k].dtype, got[k].shape) == (w.dtype, w.shape), k
+            assert got[k].tobytes() == w.tobytes(), k
 
 
 @pytest.mark.parametrize("hard", [False, True])
@@ -75,11 +86,11 @@ def test_encode_and_oracle_dtypes_match_reference(scheme, dtype):
      ("cascade", "cascade_rledict", None),
      # model_linear's input is gen_column("delta"), as in tests/test_container.py
      ("model", "model_linear", "delta"), ("model", "model_poly2", "model"),
-     ("bitmap", "bitmap_4", None), ("alp", "alp_prices", None)],
+     ("bitmap", "bitmap_4", None), ("alp", "alp_prices", None), ("dzbv", "dzbv_mixed", None)],
 )
 def test_golden_container_digests(scheme, digest_name, gen):
     """The port writes the checked-in golden containers of
-    tests/test_container.py byte for byte (every ported scheme)."""
+    tests/test_container.py byte for byte (all 17)."""
     rng = np.random.default_rng(20260817)
     v = gen_column(gen or scheme, GROUP + 100, rng)
     col = gtt.encode(v, scheme, name=digest_name)
@@ -184,3 +195,57 @@ def test_for_prep_matches_reference(frame_groups):
     np.testing.assert_array_equal(got["refs_g"], want["refs_g"].reshape(-1))
     assert got["refs_g"].dtype == np.int32
     np.testing.assert_array_equal(got["packed"], want["packed"])
+
+
+@pytest.mark.parametrize("kind,n", [
+    ("mixed", 100), ("mixed", GROUP), ("mixed", 3 * GROUP + 17), ("mixed", 8 * GROUP), ("skewed", 8 * GROUP),
+    ("skewed", 3 * GROUP + 17), ("group_skewed", 3 * GROUP + 17), ("one_byte", GROUP + 3),
+    ("two_bytes", 2 * GROUP), ("per_tile", 2 * GROUP + 5), ("full", GROUP),
+])
+def test_dzbv_prep_matches_reference(kind, n):
+    """dzbv's host prep, byte for byte against giddy_tpu.kernels.dzbv at its
+    constants: tile_prep and group_prep (the cap's verdict included, and
+    forced), the prep's choice, and the slice-stable stride and row-width
+    choosers on the column's counts."""
+    from giddy_tpu.kernels import dzbv as gt_dzbv
+    from giddy_tpu_torch.kernels import dzbv as port_dzbv
+
+    from test_torch_inputs import dzbv_values, rng_of
+
+    v = dzbv_values(kind, n, rng_of(f"prep-{kind}-{n}"), per_tile=40)
+    ref = gt.encode(v.view(np.int32), "dzbv")
+    col = gtt.from_reference(ref)
+    assert_same_streams(port_dzbv.tile_prep(col), gt_dzbv.tile_prep(ref))
+    assert_same_streams(port_dzbv.group_prep(col), gt_dzbv.group_prep(ref))
+    assert_same_streams(port_dzbv.prep(col), gt_dzbv._prep(ref))
+    tiles = port_dzbv.form_streams(col, "tile")
+    strides = {int(k[-1]): t.shape[1] // 64 for k, t in tiles.items() if k.startswith("trow")}
+    assert_same_streams(tiles, gt_dzbv.tile_prep(ref, force_s=strides))
+    rows = port_dzbv.form_streams(col, "group")
+    w4s = {int(k[-1]): t.shape[1] // 1024 for k, t in rows.items() if k.startswith("prow")}
+    assert_same_streams(rows, gt_dzbv.group_prep(ref, force_w4=w4s))
+    w = (v.astype(np.int64) > np.array([[0xFF], [0xFFFF], [0xFFFFFF]]))
+    pad = -n % GROUP
+    w = np.pad(w, ((0, 0), (0, pad)))
+    tile_counts = {k: w[k - 1].reshape(-1, 128).sum(axis=1) for k in (1, 2, 3)}
+    group_counts = {k: w[k - 1].reshape(-1, GROUP).sum(axis=1) for k in (1, 2, 3)}
+    for ragged in (False, True):
+        assert port_dzbv.global_tile_s(tile_counts, ragged=ragged) == gt_dzbv.global_tile_s(tile_counts, ragged=ragged)
+    assert port_dzbv.global_w4(group_counts) == gt_dzbv.global_w4(group_counts)
+
+
+def test_dzbv_choose_strides_matches_reference():
+    from giddy_tpu.kernels import dzbv as gt_dzbv
+    from giddy_tpu_torch.kernels import dzbv as port_dzbv
+
+    rng = np.random.default_rng(38)
+    for _ in range(300):
+        planes = sorted(rng.choice([1, 2, 3], rng.integers(1, 4), replace=False).tolist())
+        max_cnts = {k: int(rng.integers(0, 129)) for k in planes}
+        means = {k: float(rng.uniform(0, max_cnts[k] / 128)) for k in planes} if rng.random() < 0.8 else None
+        assert port_dzbv.choose_strides(max_cnts, means) == gt_dzbv.choose_strides(max_cnts, means)
+    for s in range(8, 129, 8):
+        assert port_dzbv._straddle_frac(s) == gt_dzbv._straddle_frac(s)
+        assert port_dzbv._stride_for(s - 3) == gt_dzbv._stride_for(s - 3)
+    assert (port_dzbv.PAD_CAP, port_dzbv.TILE, port_dzbv.STRIDE_Q, port_dzbv._KAPPA) == (
+        gt_dzbv.PAD_CAP, gt_dzbv.TILE, gt_dzbv.STRIDE_Q, gt_dzbv._KAPPA)

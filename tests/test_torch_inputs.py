@@ -45,6 +45,40 @@ def bitmap_values(d: int, n: int, rng: np.random.Generator, dtype: str = "int32"
     return vocab.astype(np.dtype(dtype))[rng.integers(0, d, n)]
 
 
+DZBV_KINDS = ["mixed", "skewed", "group_skewed", "one_byte", "two_bytes", "full", "per_tile"]
+
+
+def dzbv_values(kind: str, n: int, rng: np.random.Generator, per_tile: int = 16) -> np.ndarray:
+    """uint32 values for dzbv: ``mixed`` datagen's column (widths 1-4 near
+    uniform); ``skewed`` 1-byte values but one 4-byte tile at the start of
+    every group (the tile form declines); ``group_skewed`` 1-byte values
+    but the first group all 4 bytes wide (the group-row form declines too);
+    ``one_byte`` all < 256 (no plane above 0); ``two_bytes`` all < 65536;
+    ``full`` 32-bit values; ``per_tile`` exactly ``per_tile`` 4-byte values
+    in every 128-value tile, the rest 1 byte."""
+    if kind == "mixed":
+        return gen_column("dzbv", n, rng).view(np.uint32)
+    if kind == "full":
+        return rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32)
+    if kind in ("one_byte", "two_bytes"):
+        return rng.integers(0, 256 if kind == "one_byte" else 65536, n).astype(np.uint32)
+    v = rng.integers(0, 256, n).astype(np.uint32)
+    wide = rng.integers(2**24, 2**32, n, dtype=np.uint64).astype(np.uint32)
+    if kind == "skewed":
+        sel = (np.arange(n) % GROUP) < 128
+    elif kind == "group_skewed":
+        sel = np.arange(n) < GROUP
+    elif kind == "per_tile":
+        tiles = -(-n // 128)
+        order = np.argsort(rng.random((tiles, 128)), axis=1)[:, :per_tile]
+        sel = np.zeros((tiles, 128), bool)
+        np.put_along_axis(sel, order, True, axis=1)
+        sel = sel.reshape(-1)[:n]
+    else:
+        raise ValueError(kind)
+    return np.where(sel, wide, v)
+
+
 def test_salted_prices_hold_every_special_at_the_group_edges():
     n = 2 * GROUP + 999
     v = salted_prices(n, rng_of("salted"))
@@ -85,3 +119,31 @@ def test_model_frames_are_quadratic_plus_noise(frame_len):
         d3 = np.diff(seg, 3)
         d3 = (d3 + 2**31) % 2**32 - 2**31  # differences of a wrapped sequence, taken mod 2^32
         assert np.abs(d3).max() <= 8 * 7
+
+
+def _widths(v: np.ndarray) -> np.ndarray:
+    return 1 + (v > 0xFF).astype(int) + (v > 0xFFFF) + (v > 0xFFFFFF)
+
+
+@pytest.mark.parametrize("kind", DZBV_KINDS)
+def test_dzbv_values_have_the_widths_they_name(kind):
+    n = 3 * GROUP + 17
+    v = dzbv_values(kind, n, rng_of(kind), per_tile=5)
+    w = _widths(v)
+    assert v.dtype == np.uint32 and v.shape == (n,)
+    assert v.tobytes() == dzbv_values(kind, n, rng_of(kind), per_tile=5).tobytes()
+    if kind == "mixed":
+        assert set(np.unique(w)) == {1, 2, 3, 4}
+    elif kind in ("one_byte", "two_bytes"):
+        assert w.max() == (1 if kind == "one_byte" else 2)
+    elif kind == "full":
+        assert (w == 4).mean() > 0.99
+    else:
+        wide = (w == 4).reshape(-1)
+        assert set(np.unique(w)) <= {1, 4}
+        if kind == "skewed":
+            assert np.array_equal(wide, np.arange(n) % GROUP < 128)
+        elif kind == "group_skewed":
+            assert np.array_equal(wide, np.arange(n) < GROUP)
+        else:
+            assert (np.add.reduceat(wide, np.arange(0, n, 128))[: n // 128] == 5).all()

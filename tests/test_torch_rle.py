@@ -19,7 +19,7 @@ from giddy_tpu_torch.kernels import cumsum, rle
 from giddy_tpu_torch.util import GROUP
 
 from helpers import gen_column
-from test_torch_host import assert_same_column
+from test_torch_host import assert_same_column, assert_same_streams
 
 N = 2 * GROUP + 999  # three groups, the last one ragged
 SCHEMES = ["rle", "rpe"]
@@ -46,14 +46,6 @@ def values(density: str, n: int = N) -> np.ndarray:
     if density == "single":
         return np.full(n, -7, np.int32)
     return _runs(rng, n, {"mid": 20, "dense": 4}[density])
-
-
-def assert_same_streams(got: dict, want: dict):
-    assert sorted(got) == sorted(want)
-    for k, w in want.items():
-        w = np.asarray(w)
-        assert (got[k].dtype, got[k].shape) == (w.dtype, w.shape), k
-        assert got[k].tobytes() == w.tobytes(), k
 
 
 @pytest.mark.parametrize("n", [N, GROUP])
