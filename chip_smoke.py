@@ -7,7 +7,10 @@ of BASELINE.json configs[0]-[3] plus delta2 and xordelta columns,
 ``decode_columns``, a cascade (RLE_DICTIONARY) column, model (poly2),
 bitmap and alp columns, alone and through ``decode_columns``, and a dzbv
 column in each of its three stream forms, and beside configs[4] through
-``decode_columns``), and times them.
+``decode_columns``), the scan layer (``query.count_where`` /
+``filter_bitmap`` through the fused filter K16, ``aggregate.sum_`` /
+``min_`` / ``max_`` / ``avg_`` through the fused aggregate K17, nullable
+and dictionary columns, one general-path column), and times them.
 
     python3 chip_smoke.py
 
@@ -30,10 +33,11 @@ import numpy as np
 import torch
 
 import giddy_tpu_torch as gtt
-from giddy_tpu_torch import kernels
+from giddy_tpu_torch import aggregate, kernels, nulls, query
 from giddy_tpu_torch.datagen import gen_column
 from giddy_tpu_torch.kernels import (
-    _build, alp, bitmap, cascade, cumsum, delta, delta2, dict_, dzbv, for_, lanes, model, nbit, patch, rle, xordelta,
+    _build, agg, alp, bitmap, cascade, cumsum, delta, delta2, dict_, dzbv, filter_, for_, lanes, model, nbit, patch,
+    rle, xordelta,
 )
 from giddy_tpu_torch.ref.cascade import INNER_SCHEMES
 from giddy_tpu_torch.util import GROUP, num_groups
@@ -44,12 +48,17 @@ RUN_SOURCE = "giddy_tpu_torch/csrc/run_decode.cu"
 PATCH_SOURCE = "giddy_tpu_torch/csrc/patch_decode.cu"
 EPILOGUE_SOURCE = "giddy_tpu_torch/csrc/epilogue_decode.cu"
 DZBV_SOURCE = "giddy_tpu_torch/csrc/dzbv_decode.cu"
+SCAN_SOURCE = "giddy_tpu_torch/csrc/scan_epilogue.cu"
 # The card's peak rates for the bound (NVIDIA's H100 SXM data sheet):
 # device memory, and 32-bit integer ALU operations, half the 67 TFLOP/s
 # float32 rate (64 INT32 lanes an SM against 128 FP32).
 HBM_BYTES_PER_S = 3.35e12
 INT_OPS_PER_S = 33.5e12
 DZBV_FORMS = {"tile": "dzbv_tile_decode", "group": "dzbv_group_decode", "plane": "dzbv_plane_decode"}
+OPS = ("eq", "ne", "lt", "le", "gt", "ge")
+# K16 and K17 write one word (or one to three partials) a lane: their
+# operations count per value scanned, n_pad, not per word written.
+SCAN_KERNELS = ("filter_fold", "agg_fold")
 
 
 def dzbv_ops(args) -> int:
@@ -95,6 +104,13 @@ KERNELS = {
                           DZBV_SOURCE, dzbv_ops),
     "dzbv_plane_decode": (dzbv.dzbv_plane_decode, lanes.dzbv_plane_decode, "giddy_tpu/kernels/dzbv.py:512,519",
                           DZBV_SOURCE, dzbv_ops),
+    # unpack (3), the ref add, the key (up to 2), the compare, its shift and OR into the word
+    "filter_fold": (filter_.filter_fold, lanes.filter_fold, "giddy_tpu/query.py:72", SCAN_SOURCE, 9),
+    # unpack (3), the ref add, then for the sum the position and validity tests (3), the
+    # select, the sign bit (2) and its count, the add and its carry (2); for min/max the
+    # position test, the key (up to 2) and the min or max
+    "agg_fold": (agg.agg_fold, lanes.agg_fold, "giddy_tpu/aggregate.py:104", SCAN_SOURCE,
+                 lambda args: 14 if args[7] == "sum" else 8),
 }
 MAX_ABS_ERR = {name: 0 for name in KERNELS}
 CUDA = torch.device("cuda")
@@ -118,19 +134,22 @@ def tensors(args) -> list[torch.Tensor]:
     return out
 
 
-def bound(name: str, args: tuple, out: torch.Tensor, in_bytes: int | None = None) -> tuple[float, str]:
+def bound(name: str, args: tuple, out, in_bytes: int | None = None) -> tuple[float, str]:
     """(ms, "bytes" or "operations"): the least time the card could take for
-    this call, the larger of its bytes (each input read once, the output
+    this call, the larger of its bytes (each input read once, each output
     written once) over the memory rate and its integer operations over the
-    ALU rate, and which of the two it is. ``in_bytes``, when given, stands
-    for the arguments' bytes: the input the function needs where the
-    arguments hold padding it does not (see run_bytes)."""
+    ALU rate, and which of the two it is. ``out`` is the output tensor, or
+    K17's tuple of partials. ``in_bytes``, when given, stands for the
+    arguments' bytes: the input the function needs where the arguments
+    hold padding it does not (see run_bytes)."""
+    outs = out if isinstance(out, tuple) else (out,)
     if in_bytes is None:
         in_bytes = sum(t.numel() * t.element_size() for t in tensors(args))
-    nbytes = in_bytes + out.numel() * out.element_size()
+    nbytes = in_bytes + sum(t.numel() * t.element_size() for t in outs)
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     ops = KERNELS[name][4]
-    by_ops = (ops(args) if callable(ops) else ops) * out.numel() / INT_OPS_PER_S * 1e3
+    values = args[0].shape[0] * GROUP if name in SCAN_KERNELS else outs[0].numel()
+    by_ops = (ops(args) if callable(ops) else ops) * values / INT_OPS_PER_S * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
@@ -149,12 +168,16 @@ def same_bits(a: np.ndarray, b: np.ndarray) -> bool:
     return a.shape == b.shape and np.array_equal(a.view(np.uint8), b.view(np.uint8))
 
 
-def compare(label: str, name: str, got: torch.Tensor, want: torch.Tensor) -> None:
-    """Kernel output vs its plain version's: bit-exact, and record the error."""
+def compare(label: str, name: str, got, want) -> None:
+    """Kernel output vs its plain version's (tensors, or K17's tuples of
+    partials): bit-exact, and record the error."""
     torch.cuda.synchronize()
-    check(got.dtype == want.dtype and torch.equal(got, want), f"{label}: {name} != plain version")
-    err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
-    MAX_ABS_ERR[name] = max(MAX_ABS_ERR[name], err)
+    got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+    check(len(got) == len(want), f"{label}: {name} gave {len(got)} outputs, its plain version {len(want)}")
+    for g, w in zip(got, want):
+        check(g.dtype == w.dtype and torch.equal(g, w), f"{label}: {name} != plain version")
+        err = int((g.to(torch.int64) - w.to(torch.int64)).abs().max()) if g.numel() else 0
+        MAX_ABS_ERR[name] = max(MAX_ABS_ERR[name], err)
 
 
 def cuda_ms(fn, runs: int = 20, warmup: int = 3) -> float:
@@ -505,6 +528,140 @@ def dzbv_checks(rng, n: int) -> None:
         check_kernel(f"dzbv n=0 {form}", col, np.zeros(0, np.int32), dzbv.form_streams(col, form))
 
 
+SCAN_DTYPES = ("int32", "uint32", "float32", "int8", "int16", "uint8", "uint16")
+FLOAT_SPECIALS = np.array([np.nan, -np.nan, np.inf, -np.inf, -0.0, 0.0], np.float32)
+
+
+def scan_column(rng, dtype: str, n: int) -> np.ndarray:
+    """n values of dtype for the scan layer: integers over the whole range
+    with both ends and 0 salted in; floats of many magnitudes and both signs
+    with NaN, -NaN, +-Inf, -0.0 and 0.0 salted in, also on both sides of
+    every group boundary."""
+    if dtype == "float32":
+        v = (rng.normal(0, 1, n) * 10.0 ** rng.integers(-3, 6, n)).astype(np.float32)
+        edges = np.arange(GROUP, n, GROUP)
+        idx = np.concatenate([rng.choice(n, n // 100, replace=False), edges - 1, edges])
+        v[idx] = FLOAT_SPECIALS[rng.integers(0, FLOAT_SPECIALS.shape[0], idx.shape[0])]
+        return v
+    info = np.iinfo(np.dtype(dtype))
+    v = rng.integers(info.min, info.max, n, dtype=np.int64, endpoint=True)
+    v[rng.choice(n, 64, replace=False)] = rng.choice([info.min, info.max, 0], 64)
+    return v.astype(np.dtype(dtype))
+
+
+def thresholds(dtype: str, v: np.ndarray) -> list:
+    """Comparison values: one of the column's, the dtype's ends and one past
+    them (the mod-2^32 staging), 2^32 + 5; for floats +-0.0, +-Inf and NaN."""
+    if dtype == "float32":
+        return [float(v[len(v) // 2]), 0.0, -0.0, np.inf, -np.inf, np.nan]
+    info = np.iinfo(np.dtype(dtype))
+    return [int(v[len(v) // 2]), int(info.min), int(info.max), int(info.max) + 1, 2**32 + 5]
+
+
+def scan_keys(v: np.ndarray) -> np.ndarray:
+    """The NumPy oracle's order: integers as int64, float32 in IEEE total
+    order (-NaN < -Inf < ... < -0.0 < +0.0 < ... < +Inf < +NaN)."""
+    if v.dtype.kind != "f":
+        return v.astype(np.int64)
+    b = v.view(np.int32).astype(np.int64)
+    return np.where(b < 0, -(b & 0x7FFFFFFF) - 1, b)
+
+
+def oracle_mask(v: np.ndarray, op: str, value, valid: np.ndarray | None = None) -> np.ndarray:
+    """The predicate on each value in the column's logical dtype, the value
+    staged as the scan stages it (floats as float32, integers mod 2^32 into
+    int32 or uint32); False at null rows."""
+    if v.dtype.kind == "f":
+        c = int(scan_keys(np.array([value], np.float32))[0])
+    else:
+        c = int(value) % 2**32
+        c = c - 2**32 if v.dtype.kind == "i" and c >= 2**31 else c
+    k = scan_keys(v)
+    hit = {"eq": k == c, "ne": k != c, "lt": k < c, "le": k <= c, "gt": k > c, "ge": k >= c}[op]
+    return hit if valid is None else hit & valid
+
+
+def oracle_agg(v: np.ndarray, name: str, valid: np.ndarray | None = None):
+    """sum (exact int; float64 in NumPy's order for floats), min or max (total
+    order for floats) of the non-null values."""
+    v = v if valid is None else v[valid]
+    if name == "sum":
+        return float(np.sum(v, dtype=np.float64)) if v.dtype.kind == "f" else int(v.astype(np.int64).sum())
+    k = scan_keys(v)
+    return v[int(np.argmax(k) if name == "max" else np.argmin(k))].item()
+
+
+def same_value(a, b) -> bool:
+    """Equal aggregates; floats by their float32 bits, so NaN equals NaN."""
+    if isinstance(a, float) or isinstance(b, float):
+        return np.float32(a).view(np.uint32) == np.float32(b).view(np.uint32)
+    return a == b
+
+
+def scan_args(col) -> tuple:
+    """(packed, refs_g, bits, kind, itemsize) of a fused column on the card."""
+    streams = gtt.device_streams(col, CUDA)
+    dt = np.dtype(col.dtype)
+    bits = col.params["bits"] if col.scheme != "dzbf" else 8 * col.params["width"]
+    return streams["packed"], streams.get("refs_g"), bits, dt.kind, dt.itemsize
+
+
+def check_scan_kernels(label: str, col, v: np.ndarray, valid: np.ndarray | None = None) -> None:
+    """K16 at every op and threshold and K17 for sum, min and max against
+    their plain versions on the card (bit-exact, pad bits included), K16's
+    bits against the NumPy oracle's predicate, and count_where, sum_, min_
+    and max_ against the oracle."""
+    packed, refs_g, bits, kind, itemsize = scan_args(col)
+    vw = nulls.valid_words_device(col, CUDA) if valid is not None else None
+    for op in OPS:
+        for value in thresholds(col.dtype, v) if col.n else [0]:
+            key = query._stage_key(col.dtype, value)
+            got = filter_.filter_fold(packed, refs_g, vw, bits, kind, itemsize, op, key)
+            compare(f"{label} {op} {value}", "filter_fold", got, lanes.filter_fold(packed, refs_g, vw, bits, kind,
+                                                                                   itemsize, op, key))
+            want = oracle_mask(v, op, value, valid)
+            hits = lanes.unpack_lanes(got, 1).reshape(-1)[: col.n].bool()
+            check(torch.equal(hits, torch.from_numpy(want).to(CUDA)), f"{label} {op} {value}: filter_fold != oracle")
+            check(query.count_where(col, op, value, device=CUDA) == int(want.sum()),
+                  f"{label} {op} {value}: count_where != oracle")
+    carries = 0
+    for name in ("sum", "min", "max"):
+        w = vw if name == "sum" else None
+        got = agg.agg_fold(packed, refs_g, w, bits, col.n, kind, itemsize, name)
+        compare(f"{label} {name}", "agg_fold", got, lanes.agg_fold(packed, refs_g, w, bits, col.n, kind, itemsize, name))
+        if name == "sum":
+            carries = int((got[1] != 0).sum())
+        if col.n == 0:
+            check(aggregate.sum_(col, device=CUDA) == 0, f"{label}: sum_ of nothing")
+            continue
+        got_value = getattr(aggregate, f"{name}_")(col, device=CUDA)
+        check(same_value(got_value, oracle_agg(v, name, valid)), f"{label}: {name}_ {got_value} != oracle")
+    print(f"[kernel] {label}: filter_fold x {6 * len(thresholds(col.dtype, v)) if col.n else 6}, agg_fold sum/min/max "
+          f"(lanes whose sum carried past 32 bits: {carries}) n={col.n} bits={bits} bit-exact vs plain and oracle")
+
+
+def scan_layer_checks(rng, n: int) -> None:
+    """K16 and K17: nbit, dzbf and for at every logical dtype (narrow
+    payloads sign-extend), all six ops at the dtype's edges and past them,
+    floats with NaN, +-Inf and -0.0 through nbit at 32 bits, full-range
+    values (sums carry past 32 bits), nullable columns, n = 0."""
+    for scheme in ("nbit", "dzbf", "for"):
+        for dtype in SCAN_DTYPES:
+            v = scan_column(rng, dtype, n)
+            col = gtt.encode(v, scheme)
+            if scheme == "nbit" and dtype == "float32":
+                check(col.params["bits"] == 32, f"float32 nbit packs to {col.params}")
+            check_scan_kernels(f"scan {scheme} {dtype}", col, v)
+        v = scan_column(rng, "int32", n)
+        valid = rng.random(n) > 0.1
+        check_scan_kernels(f"scan {scheme} int32 10% nulls", gtt.encode(v, scheme, valid=valid), v, valid)
+        empty = gtt.encode(v[:0], scheme)
+        before = kernels.launches()
+        check(query.count_where(empty, "lt", 0, device=CUDA) == 0 and kernels.launches() == before,
+              f"{scheme} n=0: count_where launched or counted")
+        check_scan_kernels(f"scan {scheme} n=0", empty, v[:0])
+
+
 def dict_column(rng, d: int, n: int) -> tuple[np.ndarray, np.ndarray]:
     vocab = rng.permutation(np.arange(d, dtype=np.int64) * 65_537 - 2**31 + 12_345).astype(np.int32)
     return vocab[rng.integers(0, d, n)], vocab
@@ -539,6 +696,7 @@ def kernel_checks(n: int = N_CHECK) -> None:
     bitmap_checks(rng, n)
     alp_checks(rng, n)
     dzbv_checks(rng, n)
+    scan_layer_checks(rng, n)
     base = rng.integers(0, 2**31 - 1, n, dtype=np.int64)
     for dtype in ("int8", "int16", "uint16", "float32"):
         if dtype == "float32":
@@ -658,13 +816,36 @@ def scan_input() -> torch.Tensor:
     return torch.from_numpy(rng.integers(-(2**31), 2**31, 2**26, dtype=np.int64).astype(np.int32))
 
 
+def scan_columns(cols: list) -> dict:
+    """The scan layer's main-path columns, by role: configs[0] (nbit), the
+    configs[1] timestamps as for and as delta, the same for column with 1%
+    nulls (encoded through encode(..., valid=mask)) and configs[2] (dict),
+    each as (input values, validity or None, encoded column)."""
+    by_label = {label: (v, col) for label, v, col in cols}
+    ts, for_col = by_label["configs[1] for n=2^26"]
+    valid = np.random.default_rng(8).random(ts.shape[0]) >= 0.01
+    t0 = time.perf_counter()
+    nullable = gtt.encode(ts, "for", valid=valid, name="configs[1] for 1% nulls")
+    print(f"[encode] configs[1] for n=2^26 with 1% nulls: host fill + encode {time.perf_counter() - t0:.2f} s, "
+          f"{nulls.null_count(nullable)} nulls")
+    v0, c0 = by_label["configs[0] nbit 9-bit n=2^28"]
+    v2, c2 = by_label["configs[2] dict d=1000 n=2^26"]
+    return {
+        "configs[0] nbit": (v0, None, c0),
+        "configs[1] for": (ts, None, for_col),
+        "configs[1] for 1% nulls": (ts, valid, nullable),
+        "configs[2] dict": (v2, None, c2),
+        "configs[1] delta": (ts, None, by_label["configs[1] delta n=2^26"][1]),
+    }
+
+
 def same_on_card(out: torch.Tensor, v: np.ndarray) -> bool:
     """Bit-equal to the host array v (floats compared as bits)."""
     return out.shape == v.shape and torch.equal(out.view(torch.uint8), torch.from_numpy(v.view(np.uint8)).to(CUDA))
 
 
 def main_path(cols: list, x: torch.Tensor, container: list, casc: tuple, epilogue: list,
-              dz: tuple) -> tuple[dict[str, int], str]:
+              dz: tuple, scan: dict) -> tuple[dict[str, int], str]:
     """Phase 4: each main path -- every column through decode(col,
     device=cuda), scan.group_prefix_sum(x), the configs[4] container
     through decode_columns(cols, device=cuda), the cascade column through
@@ -672,20 +853,22 @@ def main_path(cols: list, x: torch.Tensor, container: list, casc: tuple, epilogu
     together, the dzbv column through decode (the prep's form), in the two
     other forms (the tile and group-row forms through decode of the column
     with those streams, the on-disk planes through its decoder on the
-    uploaded streams) and beside configs[4] through decode_columns -- with
-    the launch counts set to 0 just before it and read just after, and its
-    output checked against its input (the prefix sum against the plain
+    uploaded streams) and beside configs[4] through decode_columns, and the
+    scan layer's entry points on the ``scan`` columns (scan_main_path) --
+    with the launch counts set to 0 just before it and read just after, and
+    its output checked against its input (the prefix sum against the plain
     version on the host). Returns the counts summed over the paths and the
     dzbv column's prep's form."""
     totals = dict.fromkeys(KERNELS, 0)
 
-    def drive(label: str, what: str, fn) -> dict[str, int]:
+    def drive(label: str, what: str, fn, expect: tuple = ()) -> dict[str, int]:
         kernels.reset_launches()
         ok = fn()
         torch.cuda.synchronize()
         launched = {k: c for k, c in kernels.launches().items() if c}
         check(ok, f"{label}: {what} is wrong")
         check(bool(launched), f"{label}: no kernel launched")
+        check(all(launched.get(k) for k in expect), f"{label}: {expect} not all launched: {launched}")
         for k, c in launched.items():
             totals[k] += c
         print(f"[main] {label}: {what} bit-exact; launches {launched}")
@@ -726,7 +909,55 @@ def main_path(cols: list, x: torch.Tensor, container: list, casc: tuple, epilogu
                                                   device=CUDA), v))
     drive("configs[4] + dzbv 5 x 2^26", "decode_columns(cols, device=cuda) vs inputs",
           lambda: container_ok(container + [dz]))
+    scan_main_path(scan, drive)
     return totals, picked
+
+
+def scan_main_path(scan: dict, drive) -> None:
+    """The scan layer's main paths: count_where and filter_bitmap on
+    configs[0] at every op (K16); sum_, min_, max_ and avg_ on configs[0],
+    on configs[1] as for (K17, with refs) and on that column with 1% nulls
+    (K17 with validity words for the sum), and its count_where (K16 with
+    them); count_where on configs[2] through the dict-domain pushdown (K16
+    over the codes) and its sum_ through the code counts (K1); count_where
+    on configs[1] as delta (K3, then the compare in torch ops). Each held
+    against NumPy on the input."""
+    v, _, col = scan["configs[0] nbit"]
+    value = 256
+    for op in OPS:
+        want = int(oracle_mask(v, op, value).sum())
+        drive(f"configs[0] count_where {op} {value}", "query.count_where(col, device=cuda) vs NumPy",
+              lambda: query.count_where(col, op, value, device=CUDA) == want, ("filter_fold",))
+    host = torch.from_numpy(v).to(CUDA)
+    want_words = lanes.pack_hits((host < value).view(-1, GROUP))  # 2^28: whole groups, no pad bits
+    del host
+    drive(f"configs[0] filter_bitmap lt {value}", "query.filter_bitmap(col, device=cuda) vs the input's compare",
+          lambda: torch.equal(query.filter_bitmap(col, "lt", value, device=CUDA), want_words), ("filter_fold",))
+    del want_words
+    for key in ("configs[0] nbit", "configs[1] for", "configs[1] for 1% nulls"):
+        v, valid, col = scan[key]
+        nv = v.shape[0] if valid is None else int(valid.sum())
+        for name in ("sum", "min", "max", "avg"):
+            want = float(oracle_agg(v, "sum", valid)) / nv if name == "avg" else oracle_agg(v, name, valid)
+            drive(f"{key} {name}_", f"aggregate.{name}_(col, device=cuda) vs NumPy",
+                  lambda: getattr(aggregate, f"{name}_")(col, device=CUDA) == want, ("agg_fold",))
+    v, valid, col = scan["configs[1] for 1% nulls"]
+    value = int(v[v.shape[0] // 2])
+    want = int(oracle_mask(v, "lt", value, valid).sum())
+    drive("configs[1] for 1% nulls count_where lt", "query.count_where(col, device=cuda) vs NumPy",
+          lambda: query.count_where(col, "lt", value, device=CUDA) == want, ("filter_fold",))
+    v, _, col = scan["configs[2] dict"]
+    want = int(oracle_mask(v, "lt", 0).sum())
+    drive("configs[2] dict count_where lt 0 (dict-domain pushdown)", "query.count_where(col, device=cuda) vs NumPy",
+          lambda: query.count_where(col, "lt", 0, device=CUDA) == want, ("filter_fold",))
+    want = oracle_agg(v, "sum")
+    drive("configs[2] dict sum_ (code counts)", "aggregate.sum_(col, device=cuda) vs NumPy",
+          lambda: aggregate.sum_(col, device=CUDA) == want, ("lmp_unpack",))
+    v, _, col = scan["configs[1] delta"]
+    value = int(v[v.shape[0] // 3])
+    want = int(oracle_mask(v, "ge", value).sum())
+    drive("configs[1] delta count_where ge (general path)", "query.count_where(col, device=cuda) vs NumPy",
+          lambda: query.count_where(col, "ge", value, device=CUDA) == want, ("delta_decode",))
 
 
 def resident_decoders(container: list) -> tuple[list, list]:
@@ -881,6 +1112,37 @@ def time_scan(x: torch.Tensor, smi: str) -> tuple[str, dict]:
     return "cumsum_rows", dict(timing, library_ms=lib_ms)
 
 
+def time_scan_layer(scan: dict, smi: str) -> dict:
+    """Phase 5 for K16 and K17 at configs[0] on resident packed words: each
+    kernel (also held against its plain version at this shape), its bound,
+    its plain version and count_where / sum_ end to end, beside the unfused
+    route at the same column -- K1's decode, then the compare and the bit
+    pack in torch ops (the general path's), or then a torch sum -- and the
+    raw column's H2D. No single PyTorch call computes either function."""
+    v, _, col = scan["configs[0] nbit"]
+    packed, refs_g, bits, kind, itemsize = scan_args(col)
+    value = 256
+    key = query._stage_key(col.dtype, value)
+    ng = packed.shape[0]
+    r_ms = host_ms(lambda: torch.from_numpy(v).to(CUDA))
+    unfused_filter = cuda_ms(lambda: lanes.pack_hits(
+        query._cmp(nbit.lmp_unpack(packed, bits).view(ng, GROUP), key, "lt", kind, itemsize)))
+    unfused_sum = cuda_ms(lambda: nbit.lmp_unpack(packed, bits).sum(dtype=torch.int64))
+    min_ms = cuda_ms(lambda: agg.agg_fold(packed, refs_g, None, bits, col.n, kind, itemsize, "min"))
+    timings = {"filter_fold": time_kernel(
+        f"configs[0] nbit 9-bit n=2^28 filter lt {value}", smi, "filter_fold",
+        (packed, refs_g, None, bits, kind, itemsize, "lt", key), col.nbytes_decoded,
+        lambda: query.count_where(col, "lt", value, device=CUDA), f"query.count_where(col, 'lt', {value})",
+        f"unfused K1 decode + torch compare and bit pack {unfused_filter:.4f} ms (CUDA events, median of 20); "
+        f"H2D of the raw column {r_ms:.3f} ms")}
+    timings["agg_fold"] = time_kernel(
+        "configs[0] nbit 9-bit n=2^28 sum", smi, "agg_fold", (packed, refs_g, None, bits, col.n, kind, itemsize, "sum"),
+        col.nbytes_decoded, lambda: aggregate.sum_(col, device=CUDA), "aggregate.sum_(col)",
+        f"unfused K1 decode + torch int64 sum {unfused_sum:.4f} ms; K17 min {min_ms:.4f} ms (CUDA events, medians "
+        f"of 20); H2D of the raw column {r_ms:.3f} ms")
+    return timings
+
+
 def time_container(container: list, smi: str) -> None:
     """Phase 5 for configs[4]: decode_columns end to end, against the sum
     of the four single decode calls and the H2D of the four raw columns;
@@ -928,7 +1190,8 @@ def main() -> int:
     casc = cascade_main()
     epilogue = epilogue_columns()
     dz = dzbv_main()
-    counts, picked = main_path(cols + epilogue, x, container, casc, [(v, col) for _, v, col in epilogue], dz)
+    scan = scan_columns(cols)
+    counts, picked = main_path(cols + epilogue, x, container, casc, [(v, col) for _, v, col in epilogue], dz, scan)
     container_without_sync("configs[4]", container)
     container_without_sync("model + bitmap + alp", [(v, col) for _, v, col in epilogue])
     timings = dict(time_column(label, v, col, smi) for label, v, col in cols + epilogue)
@@ -939,6 +1202,7 @@ def main() -> int:
     time_container(container, smi)
     rank_cell(smi)
     timings.update(time_dzbv(*dz, picked, smi))
+    timings.update(time_scan_layer(scan, smi))
     for name, count in counts.items():
         check(count >= 1, f"{name} was launched {count} times on the main path")
     rows = [

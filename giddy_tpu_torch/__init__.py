@@ -7,11 +7,15 @@ PyTorch versions. Imports torch and NumPy, never JAX or giddy_tpu.
 Ported so far: decode of nbit, dzbf, for, delta, dict, rle, rpe, delta2,
 xordelta, patched, raw, cascade, model, bitmap, alp and dzbv, single columns
 (``decode``) and whole containers (``decode_columns``),
-``scan.group_prefix_sum`` / ``group_reduce``, and the synthetic columns of
-``datagen``.
+``scan.group_prefix_sum`` / ``group_reduce``, the synthetic columns of
+``datagen``, nullable
+columns (``nulls``, ``encode(..., valid=mask)``), and the scan layer's
+filters (``query.count_where`` / ``filter_bitmap`` and the bitmap algebra)
+and aggregates (``aggregate.sum_`` / ``min_`` / ``max_`` / ``avg_`` /
+``distinct_count``).
 """
 
-from . import datagen, scan
+from . import aggregate, datagen, nulls, query, scan
 from .api import decode, decode_columns, decode_ref, device_streams, encode, get_decoder, narrow_store_dtype, upload
 from .format import (
     EncodedColumn,
@@ -21,6 +25,7 @@ from .format import (
     read_container,
     write_container,
 )
+from .nulls import count_valid, decode_masked, null_count, valid_mask
 from .registry import get, schemes
 from .util import GROUP, LANES, SLOTS
 
@@ -29,10 +34,13 @@ __all__ = [
     "GROUP",
     "LANES",
     "SLOTS",
+    "aggregate",
     "container_bytes",
+    "count_valid",
     "datagen",
     "decode",
     "decode_columns",
+    "decode_masked",
     "decode_ref",
     "device_streams",
     "encode",
@@ -40,10 +48,14 @@ __all__ = [
     "get",
     "get_decoder",
     "narrow_store_dtype",
+    "null_count",
+    "nulls",
     "open_container",
+    "query",
     "read_container",
     "scan",
     "schemes",
     "upload",
+    "valid_mask",
     "write_container",
 ]

@@ -17,14 +17,9 @@ from . import kernels as _kernels  # noqa: F401  (installs device decoders)
 from . import ref as _ref  # noqa: F401  (installs host codecs)
 from . import registry
 from .format import EncodedColumn
-from .util import GROUP, num_groups
+from .util import check_device_addressable
 
 _DECODER_CACHE: dict[tuple, object] = {}
-
-# A single decode call addresses fewer than 2**31 padded values, as in the
-# reference (giddy_tpu/util.py MAX_DEVICE_ELEMS); larger columns are
-# ROADMAP.md queue 1, item 9.
-MAX_DEVICE_ELEMS = 2**31
 
 # Logical dtype -> (storage dtype the kernels write, dtype the caller sees).
 # Narrow columns store at their own width (the reference's narrow_store);
@@ -40,9 +35,20 @@ _LOGICAL = {
 }
 
 
-def encode(values: np.ndarray, scheme: str, **opts) -> EncodedColumn:
+def encode(values: np.ndarray, scheme: str, *, valid=None, **opts) -> EncodedColumn:
     """Host-side encode with the port's NumPy codecs (byte-identical to
-    ``giddy_tpu.encode`` for the ported schemes)."""
+    ``giddy_tpu.encode`` for the ported schemes).
+
+    ``valid``: optional bool[n] mask (True = non-null) making the column
+    nullable: null slots take the canonical fill (the previous valid
+    value) before encoding, and a ``valid`` LMP(1) stream is attached
+    (nulls.py). ``scheme="auto"`` (the reference's advisor) is not ported."""
+    if valid is not None:
+        from . import nulls
+
+        mask = np.asarray(valid, bool)
+        filled = nulls.fill_nulls(np.asarray(values), mask)
+        return nulls.attach_valid(registry.get(scheme).encode(filled, **opts), mask)
     return registry.get(scheme).encode(values, **opts)
 
 
@@ -56,13 +62,9 @@ def _check_supported(col: EncodedColumn) -> None:
     if col.dtype not in _LOGICAL:
         raise NotImplementedError(
             f"dtype {col.dtype!r} of {col.name!r} is decoded through the 64-bit "
-            "'wide' scheme, not ported yet (ROADMAP.md queue 1, item 11)"
+            "'wide' scheme, not ported yet (ROADMAP.md queue 1, item 4)"
         )
-    if num_groups(col.n) * GROUP >= MAX_DEVICE_ELEMS:
-        raise NotImplementedError(
-            f"{col.name!r} holds {col.n} values, past the 2**31 single-call limit; "
-            "chunked decode is not ported yet (ROADMAP.md queue 1, item 9)"
-        )
+    check_device_addressable(col.n, f"device decode of {col.name!r}")
 
 
 def narrow_store_dtype(col: EncodedColumn) -> torch.dtype:

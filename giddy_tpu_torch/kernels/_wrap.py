@@ -17,6 +17,8 @@ from . import _build
 # Output element types the kernels store, by their width in bytes: the
 # uint32 payload as int32, and the narrow int16 / uint8 stores.
 OUT_BYTES = {torch.int32: 4, torch.int16: 2, torch.uint8: 1}
+# Logical dtype kinds of the scan epilogue, in the kernels' numbering.
+SCAN_KINDS = ("u", "i", "f")
 
 
 def check_out_dtype(out_dtype: torch.dtype) -> None:
@@ -59,6 +61,25 @@ def check_side(t: torch.Tensor, length: int | None, name: str, device: torch.dev
         raise ValueError(f"{name} must be contiguous")
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, the packed words on {device}")
+
+
+def check_scan(kind: str, itemsize: int, refs_g: torch.Tensor | None, valid: torch.Tensor | None, ng: int, device: torch.device) -> None:
+    """Validate the scan epilogue's (K16, K17) logical dtype and its
+    optional per-group refs and (ng, LANES) validity words."""
+    if kind not in SCAN_KINDS or itemsize not in (1, 2, 4):
+        raise ValueError(f"kind must be one of {SCAN_KINDS} and itemsize 1, 2 or 4, got {kind!r}, {itemsize!r}")
+    if refs_g is not None:
+        check_side(refs_g, ng, "refs_g", device)
+    if valid is not None:
+        if check_rows(valid, "valid words", LANES) != ng:
+            raise ValueError(f"valid words hold {valid.shape[0]} groups, the packed words {ng}")
+        if valid.device != device:
+            raise ValueError(f"valid words are on {valid.device}, the packed words on {device}")
+
+
+def ptr(t: torch.Tensor | None) -> int | None:
+    """The device pointer of an optional tensor (None passes NULL)."""
+    return None if t is None else t.data_ptr()
 
 
 def check_exceptions(pos: torch.Tensor, val: torch.Tensor, device: torch.device) -> int:

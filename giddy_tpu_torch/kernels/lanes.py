@@ -1,7 +1,9 @@
 """Plain PyTorch versions of the decode kernels (csrc/lmp_decode.cu K1-K4,
 csrc/run_decode.cu K5-K8, csrc/patch_decode.cu K9, csrc/epilogue_decode.cu
 K10-K12, csrc/dzbv_decode.cu K13-K15), with the fused
-dictionary stage of cascade (``lut``) where the kernel has one.
+dictionary stage of cascade (``lut``) where the kernel has one, and of the
+scan epilogue (csrc/scan_epilogue.cu K16, K17), whose slot math the scan
+layer's general path also runs on decoded values.
 
 The counterpart of Pallas interpret mode: the same arithmetic in torch
 ops, at the same signatures as the kernel wrappers. The wrappers take them
@@ -225,3 +227,75 @@ def dzbv_plane_decode(widths: torch.Tensor, plane0: torch.Tensor, planes: tuple,
         r = _exclusive_rank(mask.reshape(-1), 0).clamp_(max=flat.shape[0] - 1)
         out = _dzbv_byte_or(out, mask, flat[r].view(mask.shape), k)
     return out.to(out_dtype)
+
+
+# -- the scan epilogue: K16 filter_fold, K17 agg_fold -------------------------
+
+CMP = {"eq": torch.eq, "ne": torch.ne, "lt": torch.lt, "le": torch.le, "gt": torch.gt, "ge": torch.ge}
+
+
+def order_key(u: torch.Tensor, kind: str, itemsize: int) -> torch.Tensor:
+    """uint32 payloads -> int32 keys whose signed order is the logical
+    dtype's (giddy_tpu/aggregate.py:33-52 ``_key_map_traced``): narrow
+    signed payloads sign-extended, unsigned ones with the sign bit flipped,
+    floats in IEEE total order (-NaN < -inf < ... < -0.0 < +0.0 < ... < +NaN,
+    query.py:42-48) re-biased to signed. A bijection, so eq/ne and every
+    order compare of query.py's ``_cmp`` hold on the keys."""
+    if kind == "i":
+        k = 32 - 8 * itemsize
+        return (u << k) >> k if k else u
+    if kind == "f":
+        return u ^ ((u >> 31) & 0x7FFFFFFF)
+    return u ^ -(2**31)
+
+
+def pack_hits(hits: torch.Tensor) -> torch.Tensor:
+    """(ng, GROUP) bool -> (ng, LANES) LMP(1) words: bit i of word [g, c] is
+    hits[g, i*LANES + c]. The bits are distinct, so the sum is their OR."""
+    ng = hits.shape[0]
+    shifts = torch.arange(SLOTS, dtype=torch.int32, device=hits.device)[:, None]
+    return (hits.view(ng, SLOTS, LANES).to(torch.int32) << shifts).sum(1, dtype=torch.int32)
+
+
+def filter_fold(packed: torch.Tensor, refs_g: torch.Tensor | None, valid: torch.Tensor | None, bits: int, kind: str, itemsize: int, op: str, key: int) -> torch.Tensor:
+    """Unpack (+ refs_g[g]), compare each value's order key with ``key`` (the
+    staged comparison value, already a key) -> (ng, LANES) LMP(1) words,
+    ANDed with the validity words when given. Pad bits are whatever the
+    compare gives."""
+    u = unpack_lanes(packed, bits)
+    if refs_g is not None:
+        u = u + refs_g[:, None]
+    words = pack_hits(CMP[op](order_key(u, kind, itemsize), key))
+    return words if valid is None else words & valid
+
+
+def slot_fold(u: torch.Tensor, valid: torch.Tensor | None, n: int, kind: str, itemsize: int, agg: str) -> tuple:
+    """The per-(group, lane) partials of giddy_tpu/aggregate.py:70-101
+    ``_slot_fold`` over (ng, GROUP) payloads: values at positions >= n (and,
+    for the sum, rows whose validity bit is 0) drop out. 'sum' -> (lo, hi,
+    neg): the lane's unsigned sum mod 2^32, its carries out, and its count
+    of sign bits (signed kinds); 'min'/'max' -> (key,) of :func:`order_key`,
+    INT_MAX / INT_MIN where no value took part. All (ng, LANES) int32."""
+    ng = u.shape[0]
+    live = torch.arange(ng * GROUP, device=u.device).view(ng, GROUP) < n
+    if agg == "sum":
+        if valid is not None:
+            live &= unpack_lanes(valid, 1).bool()
+        v = torch.where(live, u.to(torch.int64) & 0xFFFFFFFF, 0).view(ng, SLOTS, LANES)
+        s = v.sum(1)  # < 32 * 2^32: the carries are s >> 32
+        if kind == "i":
+            neg = ((v >> (8 * itemsize - 1)) & 1).sum(1).to(torch.int32)
+        else:
+            neg = torch.zeros((ng, LANES), dtype=torch.int32, device=u.device)
+        return wrap32(s), (s >> 32).to(torch.int32), neg
+    init = -(2**31) if agg == "max" else 2**31 - 1
+    keys = torch.where(live, order_key(u, kind, itemsize), init).view(ng, SLOTS, LANES)
+    return (keys.amax(1) if agg == "max" else keys.amin(1),)
+
+
+def agg_fold(packed: torch.Tensor, refs_g: torch.Tensor | None, valid: torch.Tensor | None, bits: int, n: int, kind: str, itemsize: int, agg: str) -> tuple:
+    """Unpack (+ refs_g[g]), then :func:`slot_fold`."""
+    u = unpack_lanes(packed, bits)
+    if refs_g is not None:
+        u = u + refs_g[:, None]
+    return slot_fold(u, valid, n, kind, itemsize, agg)

@@ -17,7 +17,7 @@ from .format import EncodedColumn
 
 # Schemes the JAX package decodes that the port does not yet, with the
 # ROADMAP.md queue-1 item that ports each.
-PENDING = {"wide": 11, "strdict": 11}
+PENDING = {"wide": 4, "strdict": 4}
 
 
 @dataclasses.dataclass

@@ -60,6 +60,28 @@ def num_groups(n: int) -> int:
     return cdiv(max(n, 1), GROUP)
 
 
+# A single device call addresses fewer than 2**31 padded values, as in the
+# reference (giddy_tpu/util.py MAX_DEVICE_ELEMS); larger columns are
+# ROADMAP.md queue 1, item 6.
+MAX_DEVICE_ELEMS = 2**31
+
+NP_CMP = {
+    "eq": np.equal, "ne": np.not_equal, "lt": np.less,
+    "le": np.less_equal, "gt": np.greater, "ge": np.greater_equal,
+}
+
+
+def check_device_addressable(n: int, what: str = "decode") -> None:
+    # strict: n_pad == 2**31 itself is excluded — RLE padding sentinels sit
+    # at n_pad and must stay representable (and sorted) as int32
+    if num_groups(n) * GROUP >= MAX_DEVICE_ELEMS:
+        raise NotImplementedError(
+            f"{what} of {n} elements exceeds the 2**31 single-call device "
+            "addressing limit; chunked decode is not ported yet (ROADMAP.md "
+            "queue 1, item 6)"
+        )
+
+
 def sorted_factorize(values: np.ndarray):
     """(sorted_unique, codes) with np.unique(return_inverse=True) semantics.
 

@@ -115,19 +115,19 @@ def test_wrappers_reject_bad_arguments(call, exc):
 def test_unported_schemes_dtypes_and_sizes_raise():
     rng = np.random.default_rng(9)
     wide = gt.encode(gen_column("wide", 100, rng), "wide")
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="item 4"):
         gtt.decode(gtt.from_reference(wide), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="item 4"):
         gtt.encode(np.zeros(10, np.int64), "wide")
     with pytest.raises(KeyError, match="not registered"):
         gtt.get("no_such_scheme")
     col = gtt.encode(np.zeros(10, np.int32), "nbit")
     col.dtype = "int64"
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="item 4"):
         gtt.decode(col, device="cpu")
     col = gtt.encode(np.zeros(10, np.int32), "nbit")
     col.n = 2**31
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="item 6"):
         gtt.decode(col, device="cpu")
     with pytest.raises(ValueError, match="no decoder for device"):
         gtt.decode(gtt.encode(np.zeros(10, np.int32), "nbit"), device="meta")
@@ -146,6 +146,7 @@ def test_decode_on_cuda_without_gpu_raises(columns):
 def test_import_leaves_jax_out():
     code = (
         "import sys, giddy_tpu_torch, chip_smoke; "
+        "import giddy_tpu_torch.query, giddy_tpu_torch.aggregate, giddy_tpu_torch.nulls, giddy_tpu_torch.groupby; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'giddy_tpu')); "
         "assert not bad, bad"
     )

@@ -11,11 +11,15 @@ import pytest
 import torch
 
 import giddy_tpu_torch as gtt
-from giddy_tpu_torch import kernels
-from giddy_tpu_torch.kernels import cascade, dict_, dzbv, lanes, nbit, patch, rle
-from giddy_tpu_torch.util import GROUP
+from giddy_tpu_torch import aggregate, kernels, nulls, query
+from giddy_tpu_torch.groupby import _codes_device_column
+from giddy_tpu_torch.kernels import agg, cascade, dict_, dzbv, filter_, lanes, nbit, patch, rle
+from giddy_tpu_torch.util import GROUP, np_dtype
 
-from test_torch_inputs import bitmap_values, dzbv_values, rng_of, salted_prices
+from test_torch_inputs import (
+    OPS, SCAN_DTYPES, bitmap_values, dzbv_values, rng_of, salted_prices, scan_thresholds, scan_values, want_agg,
+    want_mask,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -447,3 +451,113 @@ def test_dzbv_wrappers_reject_streams_on_two_devices(cuda):
             getattr(dzbv, name)(widths, plane0, (planes[0].cpu(), *planes[1:]), store)
         with pytest.raises(ValueError):
             getattr(dzbv, name)(widths, plane0.cpu(), planes, store)
+
+
+# -- the scan epilogue: K16 filter_fold, K17 agg_fold ------------------------
+
+SCAN_CASES = [(s, t) for s in ("nbit", "dzbf", "for") for t in SCAN_DTYPES]
+
+
+def _scan_column(scheme: str, dtype: str, nullable: bool, n: int = N):
+    """(values, validity or None, column) of the scan layer's inputs."""
+    rng = rng_of(f"scan/{scheme}/{dtype}/{nullable}/{n}")
+    v = scan_values(dtype, n, rng)
+    valid = rng.random(n) > 0.1 if nullable else None
+    return v, valid, gtt.encode(v, scheme, valid=valid)
+
+
+def _same_value(a, b) -> bool:
+    """Equal aggregates; floats by their float32 bits, so NaN equals NaN."""
+    if isinstance(a, float) or isinstance(b, float):
+        return np.float32(a).view(np.uint32) == np.float32(b).view(np.uint32)
+    return a == b
+
+
+def _scan_args(col, cuda) -> tuple:
+    """(packed, refs_g, bits, kind, itemsize) of a fused column on the card."""
+    streams = gtt.device_streams(col, cuda)
+    dt = np_dtype(col.dtype)
+    bits = col.params["bits"] if col.scheme != "dzbf" else 8 * col.params["width"]
+    return streams["packed"], streams.get("refs_g"), bits, dt.kind, dt.itemsize
+
+
+@pytest.mark.parametrize("nullable", [False, True])
+@pytest.mark.parametrize("scheme,dtype", SCAN_CASES)
+def test_filter_fold_matches_plain_and_oracle(cuda, scheme, dtype, nullable):
+    """K16 at every op and threshold (the dtype's ends, one past them, ±0.0,
+    ±Inf and NaN for floats): the words equal the plain version's bit for
+    bit, pad bits included; count_where equals the oracle's count."""
+    v, valid, col = _scan_column(scheme, dtype, nullable)
+    packed, refs_g, bits, kind, itemsize = _scan_args(col, cuda)
+    vw = nulls.valid_words_device(col, cuda) if nullable else None
+    for op in OPS:
+        for value in scan_thresholds(dtype, v):
+            key = query._stage_key(col.dtype, value)
+            before = kernels.launches()["filter_fold"]
+            got = filter_.filter_fold(packed, refs_g, vw, bits, kind, itemsize, op, key)
+            assert kernels.launches()["filter_fold"] == before + 1
+            want = lanes.filter_fold(packed, refs_g, vw, bits, kind, itemsize, op, key)
+            torch.cuda.synchronize()
+            assert got.is_cuda and got.dtype == torch.int32 and torch.equal(got, want)
+            assert query.count_where(col, op, value, device=cuda) == int(want_mask(v, op, value, valid).sum())
+
+
+@pytest.mark.parametrize("nullable", [False, True])
+@pytest.mark.parametrize("scheme,dtype", SCAN_CASES)
+def test_agg_fold_matches_plain_and_oracle(cuda, scheme, dtype, nullable):
+    """K17's partials equal the plain version's bit for bit (full-range
+    values: every lane's sum carries past 32 bits); sum_, min_ and max_
+    equal the oracle's."""
+    v, valid, col = _scan_column(scheme, dtype, nullable)
+    packed, refs_g, bits, kind, itemsize = _scan_args(col, cuda)
+    for name in ("sum", "min", "max"):
+        vw = nulls.valid_words_device(col, cuda) if nullable and name == "sum" else None
+        before = kernels.launches()["agg_fold"]
+        got = agg.agg_fold(packed, refs_g, vw, bits, col.n, kind, itemsize, name)
+        assert kernels.launches()["agg_fold"] == before + 1
+        want = lanes.agg_fold(packed, refs_g, vw, bits, col.n, kind, itemsize, name)
+        torch.cuda.synchronize()
+        assert len(got) == len(want) and all(g.is_cuda and torch.equal(g, w) for g, w in zip(got, want))
+        assert _same_value(getattr(aggregate, f"{name}_")(col, device=cuda), want_agg(v, name, valid))
+
+
+@pytest.mark.parametrize("scheme", ["delta", "dict", "rle", "cascade", "delta2"])
+@pytest.mark.parametrize("dtype", ["int32", "float32"])
+def test_scan_general_path_on_cuda(cuda, scheme, dtype):
+    """Decode on the card, then the compare and the slot fold in torch ops;
+    dict and cascade filter over their codes, through K16 where the code
+    column is nbit, dzbf or for (dict's always; cascade's rle here)."""
+    rng = rng_of(f"general/{scheme}/{dtype}")
+    v = scan_values(dtype, N, rng)
+    if scheme in ("dict", "cascade", "rle"):
+        v = v[rng.integers(0, 40, N)]
+    col = gtt.encode(v, scheme)
+    for op in OPS:
+        value = v[5].item()
+        kernels.reset_launches()
+        assert query.count_where(col, op, value, device=cuda) == int(want_mask(v, op, value).sum())
+        fused_codes = scheme in ("dict", "cascade") and _codes_device_column(col).scheme in query.FUSED
+        assert (kernels.launches()["filter_fold"] > 0) == fused_codes
+    for name in ("sum", "min", "max"):
+        assert _same_value(getattr(aggregate, f"{name}_")(col, device=cuda), want_agg(v, name))
+
+
+def test_scan_of_an_empty_column_on_cuda(cuda):
+    for scheme in ("nbit", "for", "dict"):
+        col = gtt.encode(np.zeros(0, np.int32), scheme)
+        kernels.reset_launches()
+        assert query.count_where(col, "ge", 0, device=cuda) == 0
+        assert not any(kernels.launches().values())
+        assert aggregate.sum_(col, device=cuda) == 0
+        with pytest.raises(ValueError, match="empty"):
+            aggregate.min_(col, device=cuda)
+
+
+def test_scan_wrappers_reject_tensors_on_two_devices(cuda):
+    col = gtt.encode(np.arange(N, dtype=np.int32), "for")
+    packed, refs_g, bits, kind, itemsize = _scan_args(col, cuda)
+    with pytest.raises(ValueError):
+        filter_.filter_fold(packed, refs_g.cpu(), None, bits, kind, itemsize, "lt", 5)
+    with pytest.raises(ValueError):
+        agg.agg_fold(packed, refs_g, torch.zeros((packed.shape[0], 1024), dtype=torch.int32), bits, col.n, kind,
+                     itemsize, "sum")

@@ -79,6 +79,79 @@ def dzbv_values(kind: str, n: int, rng: np.random.Generator, per_tile: int = 16)
     return np.where(sel, wide, v)
 
 
+SCAN_DTYPES = ["int32", "uint32", "float32", "int8", "int16", "uint8", "uint16"]
+OPS = ["eq", "ne", "lt", "le", "gt", "ge"]
+
+
+def scan_values(dtype: str, n: int, rng: np.random.Generator) -> np.ndarray:
+    """n values of dtype for the scan layer: integers over the dtype's
+    whole range with its two ends and 0 salted in; float32 salted prices
+    (NaN, ±Inf, -0.0, subnormals) with random signs."""
+    if dtype == "float32":
+        return salted_prices(n, rng) * rng.choice(np.array([-1, 1], np.float32), n)
+    info = np.iinfo(np.dtype(dtype))
+    v = rng.integers(info.min, info.max, n, dtype=np.int64, endpoint=True)
+    v[rng.integers(0, max(n, 1), min(n, 30))] = rng.choice([info.min, info.max, 0], min(n, 30))
+    return v.astype(np.dtype(dtype))
+
+
+def scan_thresholds(dtype: str, v: np.ndarray) -> list:
+    """Comparison values: a value of the column, the dtype's ends, one past
+    them (mod-2^32 staging), and for floats ±0.0, ±Inf and NaN."""
+    if dtype == "float32":
+        return [float(v[len(v) // 2]) if len(v) else 1.5, 0.0, -0.0, np.inf, -np.inf, np.nan]
+    info = np.iinfo(np.dtype(dtype))
+    return [int(v[len(v) // 2]) if len(v) else 7, int(info.min), int(info.max), int(info.max) + 1, 2**32 + 5]
+
+
+def scan_key(v: np.ndarray) -> np.ndarray:
+    """Logical values as int64 keys in the scan's order: integers as they
+    are, float32 in IEEE total order (-NaN < -Inf < ... < -0.0 < +0.0 <
+    ... < +Inf < +NaN)."""
+    if v.dtype.kind != "f":
+        return v.astype(np.int64)
+    b = v.astype(np.float32).view(np.int32).astype(np.int64)
+    return np.where(b < 0, -(b & 0x7FFFFFFF) - 1, b)
+
+
+def staged_key(value, dtype: str) -> int:
+    """The comparison value as a scan_key: floats through float32, signed
+    integers wrapped to int32 and unsigned ones to uint32 (mod 2^32)."""
+    if dtype == "float32":
+        return int(scan_key(np.array([value], np.float32))[0])
+    wrapped = int(value) % 2**32
+    return wrapped - 2**32 if np.dtype(dtype).kind == "i" and wrapped >= 2**31 else wrapped
+
+
+def want_mask(v: np.ndarray, op: str, value, valid: np.ndarray | None = None) -> np.ndarray:
+    """bool[n]: the predicate on each value, False at null rows."""
+    k, c = scan_key(v), staged_key(value, v.dtype.name)
+    hit = {"eq": k == c, "ne": k != c, "lt": k < c, "le": k <= c, "gt": k > c, "ge": k >= c}[op]
+    return hit if valid is None else hit & valid
+
+
+def want_agg(v: np.ndarray, agg: str, valid: np.ndarray | None = None):
+    """sum (exact int, or float64 in NumPy's order), min or max (total order
+    for floats) of the non-null values."""
+    if valid is not None:
+        v = v[valid]
+    if agg == "sum":
+        return float(np.sum(v, dtype=np.float64)) if v.dtype.kind == "f" else int(v.astype(np.int64).sum())
+    k = scan_key(v)
+    i = int(np.argmax(k) if agg == "max" else np.argmin(k))
+    return v[i].item() if v.dtype.kind == "f" else int(v[i])
+
+
+def test_scan_oracle_orders_floats_totally():
+    v = np.array([np.nan, -np.nan, -np.inf, np.inf, -0.0, 0.0, -1.5, 1.5], np.float32)
+    order = np.argsort(scan_key(v), kind="stable")
+    assert v[order].view(np.uint32).tolist() == np.array(
+        [-np.nan, -np.inf, -1.5, -0.0, 0.0, 1.5, np.inf, np.nan], np.float32).view(np.uint32).tolist()
+    assert want_mask(v, "eq", -0.0).tolist() == [False] * 4 + [True] + [False] * 3
+    assert staged_key(2**32 + 5, "int32") == 5 and staged_key(-1, "uint8") == 2**32 - 1
+    assert want_agg(np.array([2**31 - 1] * 3, np.int32), "sum") == 3 * (2**31 - 1)
+
+
 def test_salted_prices_hold_every_special_at_the_group_edges():
     n = 2 * GROUP + 999
     v = salted_prices(n, rng_of("salted"))
