@@ -10,7 +10,11 @@ column in each of its three stream forms, and beside configs[4] through
 ``decode_columns``), the scan layer (``query.count_where`` /
 ``filter_bitmap`` through the fused filter K16, ``aggregate.sum_`` /
 ``min_`` / ``max_`` / ``avg_`` through the fused aggregate K17, nullable
-and dictionary columns, one general-path column), and times them.
+and dictionary columns, one general-path column), device encode (the
+configs[0]-[3] columns through ``kernels.encode``: ``encode_nbit_device``,
+``delta_streams_device`` / ``for_streams_device``, ``encode_dict_device``
+and ``encode_rle_device``, the LMP pack K18 under all but the last, each
+held byte for byte to the host encoder's column), and times them.
 
     python3 chip_smoke.py
 
@@ -36,11 +40,12 @@ import giddy_tpu_torch as gtt
 from giddy_tpu_torch import aggregate, kernels, nulls, query
 from giddy_tpu_torch.datagen import gen_column
 from giddy_tpu_torch.kernels import (
-    _build, agg, alp, bitmap, cascade, cumsum, delta, delta2, dict_, dzbv, filter_, for_, lanes, model, nbit, patch,
-    rle, xordelta,
+    _build, agg, alp, bitmap, cascade, cumsum, delta, delta2, dict_, dzbv, encode, filter_, for_, lanes, model, nbit,
+    patch, rle, xordelta,
 )
+from giddy_tpu_torch.ref import lmp as ref_lmp
 from giddy_tpu_torch.ref.cascade import INNER_SCHEMES
-from giddy_tpu_torch.util import GROUP, num_groups
+from giddy_tpu_torch.util import GROUP, num_groups, pad_to_groups, zigzag
 
 N_CHECK = 2**22 + 999  # ragged, many groups: the size that caught the reference's grid bug
 LMP_SOURCE = "giddy_tpu_torch/csrc/lmp_decode.cu"
@@ -49,6 +54,7 @@ PATCH_SOURCE = "giddy_tpu_torch/csrc/patch_decode.cu"
 EPILOGUE_SOURCE = "giddy_tpu_torch/csrc/epilogue_decode.cu"
 DZBV_SOURCE = "giddy_tpu_torch/csrc/dzbv_decode.cu"
 SCAN_SOURCE = "giddy_tpu_torch/csrc/scan_epilogue.cu"
+ENCODE_SOURCE = "giddy_tpu_torch/csrc/encode.cu"
 # The card's peak rates for the bound (NVIDIA's H100 SXM data sheet):
 # device memory, and 32-bit integer ALU operations, half the 67 TFLOP/s
 # float32 rate (64 INT32 lanes an SM against 128 FP32).
@@ -56,9 +62,14 @@ HBM_BYTES_PER_S = 3.35e12
 INT_OPS_PER_S = 33.5e12
 DZBV_FORMS = {"tile": "dzbv_tile_decode", "group": "dzbv_group_decode", "plane": "dzbv_plane_decode"}
 OPS = ("eq", "ne", "lt", "le", "gt", "ge")
-# K16 and K17 write one word (or one to three partials) a lane: their
-# operations count per value scanned, n_pad, not per word written.
-SCAN_KERNELS = ("filter_fold", "agg_fold")
+# K16 and K17 write one word (or one to three partials) a lane, K18 B
+# words a lane: their operations count per value read, n_pad, not per word
+# written.
+PER_INPUT_VALUE = ("filter_fold", "agg_fold", "lmp_pack")
+# K18's operations a value: shift and OR, and a second shift and OR where a
+# slot straddles (3 on average); +1 for the FOR subtract; +6 for delta (the
+# subtract, two compares and a select, the zigzag's shift and XOR).
+PACK_OPS = {"none": 3, "for_sub": 4, "delta_zigzag": 9}
 
 
 def dzbv_ops(args) -> int:
@@ -111,6 +122,8 @@ KERNELS = {
     # position test, the key (up to 2) and the min or max
     "agg_fold": (agg.agg_fold, lanes.agg_fold, "giddy_tpu/aggregate.py:104", SCAN_SOURCE,
                  lambda args: 14 if args[7] == "sum" else 8),
+    "lmp_pack": (encode.lmp_pack, lanes.lmp_pack, "giddy_tpu/kernels/encode.py:45", ENCODE_SOURCE,
+                 lambda args: PACK_OPS[args[2]]),
 }
 MAX_ABS_ERR = {name: 0 for name in KERNELS}
 CUDA = torch.device("cuda")
@@ -148,7 +161,7 @@ def bound(name: str, args: tuple, out, in_bytes: int | None = None) -> tuple[flo
     nbytes = in_bytes + sum(t.numel() * t.element_size() for t in outs)
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     ops = KERNELS[name][4]
-    values = args[0].shape[0] * GROUP if name in SCAN_KERNELS else outs[0].numel()
+    values = args[0].shape[0] * GROUP if name in PER_INPUT_VALUE else outs[0].numel()
     by_ops = (ops(args) if callable(ops) else ops) * values / INT_OPS_PER_S * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
@@ -662,6 +675,129 @@ def scan_layer_checks(rng, n: int) -> None:
         check_scan_kernels(f"scan {scheme} n=0", empty, v[:0])
 
 
+def same_column(got, want) -> bool:
+    """Two EncodedColumns alike: name, scheme, dtype, n, params, and every
+    stream's dtype, shape and bytes."""
+    return ((got.name, got.scheme, got.dtype, got.n, got.params) == (want.name, want.scheme, want.dtype, want.n,
+                                                                    want.params)
+            and sorted(got.streams) == sorted(want.streams)
+            and all(got.streams[k].dtype == w.dtype and same_bits(got.streams[k], w) for k, w in want.streams.items()))
+
+
+def to_card(a: np.ndarray) -> torch.Tensor:
+    """A 1-D array of 4-byte payloads as an int32 tensor on the card."""
+    return torch.from_numpy(np.ascontiguousarray(a).view(np.int32)).to(CUDA)
+
+
+def frame_pad(v: np.ndarray, frame_len: int) -> np.ndarray:
+    """A 4-byte column's payloads padded to whole frames with the last
+    value, as the host FOR encoder pads (ref/for_.py): for_streams_device's
+    input."""
+    u = v.view(np.uint32)
+    nf = -(-num_groups(u.shape[0]) * GROUP // frame_len)
+    out = np.full(nf * frame_len, u[-1] if u.shape[0] else 0, np.uint32)
+    out[: u.shape[0]] = u
+    return out
+
+
+def pack_check(label: str, u: np.ndarray, bits: int, want: np.ndarray, prologue: str = "none",
+               refs: np.ndarray | None = None, n: int | None = None, frame_len: int = GROUP) -> None:
+    """K18 on the payloads u (whole groups) against its plain version on
+    the card and against ref.lmp.lmp_pack of ``want``, the payloads after
+    the prologue computed in NumPy, bit for bit."""
+    args = (to_card(u).view(-1, GROUP), bits, prologue, None if refs is None else to_card(refs), n, frame_len)
+    got = encode.lmp_pack(*args)
+    compare(label, "lmp_pack", got, lanes.lmp_pack(*args))
+    check(same_bits(got.cpu().numpy().view(np.uint32), ref_lmp.lmp_pack(want, bits)), f"{label}: != ref.lmp.lmp_pack")
+
+
+def for_values(rng, n: int) -> np.ndarray:
+    """int32 values within 2048 of the sign boundary on both sides: their
+    unsigned frame min is not the signed one."""
+    return (2**31 - 2048 + rng.integers(0, 4096, n)).astype(np.uint32).view(np.int32)
+
+
+def wrapping_walk(rng, n: int) -> np.ndarray:
+    """An int32 walk whose steps span all of int32: it wraps both ways."""
+    return np.cumsum(rng.integers(-(2**31), 2**31, n, dtype=np.int64)).astype(np.uint32).view(np.int32)
+
+
+def pack_checks(rng, n: int) -> None:
+    """K18 at every width with no prologue, the FOR subtract at frame_len
+    GROUP and 2 GROUP, the delta zigzag on a walk that crosses the int32
+    wrap and on small steps, each at n, 1 and 0 values."""
+    for bits in range(1, 33):
+        u = pad_to_groups(rng.integers(0, 2**bits, n, dtype=np.uint64).astype(np.uint32))
+        pack_check(f"lmp_pack B={bits}", u, bits, u)
+    for size in (n, 1, 0):
+        for frame_len in (GROUP, 2 * GROUP):
+            u = frame_pad(for_values(rng, size), frame_len)
+            refs = u.reshape(-1, frame_len).min(axis=1)
+            offs = u - np.repeat(refs, frame_len)
+            bits = max(1, int(offs.max()).bit_length())
+            pack_check(f"lmp_pack for_sub frame_len={frame_len // GROUP}G n={size} B={bits}", u, bits, offs,
+                       "for_sub", refs, frame_len=frame_len)
+        for name, v in (("wrapping walk", wrapping_walk(rng, size)),
+                        ("timestamps", (np.cumsum(rng.integers(0, 8, size)) + 1_600_000_000).astype(np.int32))):
+            u = pad_to_groups(v.view(np.uint32))
+            d = np.zeros(u.shape[0], np.int32)
+            d[1:size] = np.diff(v.view(np.uint32)).view(np.int32)
+            z = zigzag(d)
+            bits = max(1, int(z.max()).bit_length())
+            pack_check(f"lmp_pack delta_zigzag {name} n={size} B={bits}", u, bits, z, "delta_zigzag", n=size)
+    print(f"[kernel] lmp_pack: B = 1..32, for_sub at frame_len 1G and 2G, delta_zigzag on a wrapping walk and "
+          f"timestamps, n = {n}, 1, 0: bit-exact vs plain and ref.lmp.lmp_pack")
+
+
+def encoder_checks(rng, n: int) -> None:
+    """Each device encoder against the host encoder (the same column, byte
+    for byte) at n, 1 and 0 values, and each device-encoded column decoded
+    on the card back to its input: nbit at five dtypes, FOR at frame_len
+    GROUP and 2 GROUP (the device packs every group of the frame-padded
+    values; the host's rows are the first), delta on a wrapping walk, dict
+    with negative, >= 2^31, float (-0.0, NaN) and 65536-entry vocabularies,
+    rle from runs of 100-5000 down to runs of 1."""
+    for size in (n, 1, 0):
+        for dtype in ("int8", "int16", "uint16", "int32", "float32"):
+            dt = np.dtype(dtype)
+            v = rng.integers(0, 2 ** (8 * dt.itemsize), size, dtype=np.uint64).astype(f"uint{8 * dt.itemsize}").view(dt)
+            encoder_check(f"encode_nbit_device {dtype} n={size}", v, encode.encode_nbit_device(v, bits=8 * dt.itemsize),
+                          gtt.encode(v, "nbit", bits=8 * dt.itemsize))
+        v = for_values(rng, size)
+        for frame_len in (GROUP, 2 * GROUP):
+            host = gtt.encode(v, "for", frame_len=frame_len)
+            packed, refs = encode.for_streams_device(to_card(frame_pad(v, frame_len)), host.params["bits"], frame_len)
+            ng = host.streams["packed"].shape[0]
+            col = dataclasses.replace(host, streams={"packed": packed[:ng].cpu().numpy().view(np.uint32),
+                                                     "refs": refs.cpu().numpy()})
+            encoder_check(f"for_streams_device frame_len={frame_len // GROUP}G n={size} ({packed.shape[0]} rows)",
+                          v, col, host)
+        v = wrapping_walk(rng, size)
+        host = gtt.encode(v, "delta")
+        packed, anchors = encode.delta_streams_device(to_card(pad_to_groups(v.view(np.uint32))), host.params["bits"],
+                                                      n=size)
+        col = dataclasses.replace(host, streams={"packed": packed.cpu().numpy().view(np.uint32),
+                                                 "anchors": anchors.cpu().numpy()})
+        encoder_check(f"delta_streams_device wrapping walk n={size}", v, col, host)
+        vocab = np.arange(65536, dtype=np.int64) * 65_537 - 2**31 + 99
+        for label, v in (("negative", np.array([-(2**31), 2**31 - 1, -1, 0, -70, 55], np.int32)),
+                         ("u32 >= 2^31", np.array([0, 2**31 - 1, 2**31, 2**32 - 1, 3_000_000_000], np.uint32)),
+                         ("float32", np.array([-0.0, 0.0, np.nan, -np.nan, np.inf, -2.25], np.float32)),
+                         ("int8", np.array([-128, 127, -1, 0, 5], np.int8)),
+                         ("d=65536", vocab.astype(np.int32))):
+            v = v[rng.integers(0, v.shape[0], size)]
+            encoder_check(f"encode_dict_device {label} n={size}", v, encode.encode_dict_device(v), gtt.encode(v, "dict"))
+        for label, v in (("runs 100-5000", run_column(rng, size, 100, 5000)), ("runs 1-8", run_column(rng, size, 1, 8)),
+                         ("runs of 1", np.arange(size, dtype=np.int32)), ("one run", np.full(size, -7, np.int32))):
+            encoder_check(f"encode_rle_device {label} n={size}", v, encode.encode_rle_device(v), gtt.encode(v, "rle"))
+    print("[kernel] device encoders: every column byte-identical to the host encoder's and decoded to its input")
+
+
+def encoder_check(label: str, v: np.ndarray, col, host) -> None:
+    check(same_column(col, host), f"{label}: device-encoded column != the host encoder's")
+    check(same_on_card(gtt.decode(col, device=CUDA), v), f"{label}: decode of the device-encoded column != input")
+
+
 def dict_column(rng, d: int, n: int) -> tuple[np.ndarray, np.ndarray]:
     vocab = rng.permutation(np.arange(d, dtype=np.int64) * 65_537 - 2**31 + 12_345).astype(np.int32)
     return vocab[rng.integers(0, d, n)], vocab
@@ -697,6 +833,8 @@ def kernel_checks(n: int = N_CHECK) -> None:
     alp_checks(rng, n)
     dzbv_checks(rng, n)
     scan_layer_checks(rng, n)
+    pack_checks(rng, n)
+    encoder_checks(rng, n)
     base = rng.integers(0, 2**31 - 1, n, dtype=np.int64)
     for dtype in ("int8", "int16", "uint16", "float32"):
         if dtype == "float32":
@@ -775,10 +913,14 @@ def epilogue_columns() -> list:
     return cols
 
 
+HOST_ENCODE_S: dict[str, float] = {}  # label -> seconds of its host encode
+
+
 def encoded(label: str, v: np.ndarray, scheme: str, **opts):
     t0 = time.perf_counter()
     col = gtt.encode(v, scheme, name=label, **opts)
-    print(f"[encode] {label}: host encode {time.perf_counter() - t0:.2f} s "
+    HOST_ENCODE_S[label] = time.perf_counter() - t0
+    print(f"[encode] {label}: host encode {HOST_ENCODE_S[label]:.2f} s "
           f"({col.nbytes_decoded / col.nbytes_compressed:.2f}x), params {col.params}")
     return col
 
@@ -910,6 +1052,7 @@ def main_path(cols: list, x: torch.Tensor, container: list, casc: tuple, epilogu
     drive("configs[4] + dzbv 5 x 2^26", "decode_columns(cols, device=cuda) vs inputs",
           lambda: container_ok(container + [dz]))
     scan_main_path(scan, drive)
+    encode_main_path({label: (v, col) for label, v, col in cols}, drive)
     return totals, picked
 
 
@@ -960,6 +1103,61 @@ def scan_main_path(scan: dict, drive) -> None:
           lambda: query.count_where(col, "ge", value, device=CUDA) == want, ("delta_decode",))
 
 
+ENCODE_CELLS = {
+    "nbit": "configs[0] nbit 9-bit n=2^28", "delta": "configs[1] delta n=2^26", "for": "configs[1] for n=2^26",
+    "dict": "configs[2] dict d=1000 n=2^26", "rle": "configs[3] rle n=2^26",
+}
+
+
+def device_encoders(by_label: dict) -> dict:
+    """For each device encoder, (label, input values, host-encoded column,
+    fn): fn() device-encodes the input end to end -- host pad, H2D, the
+    device work, D2H of the streams -- into a column like the host one
+    (delta and FOR through their stream functions, at the host column's
+    bits and frame_len)."""
+    out = {}
+    for scheme, label in ENCODE_CELLS.items():
+        v, host = by_label[label]
+        if scheme == "nbit":
+            fn = lambda v=v, host=host: encode.encode_nbit_device(v, bits=host.params["bits"], name=host.name)  # noqa: E731
+        elif scheme == "delta":
+            def fn(v=v, host=host):
+                packed, anchors = encode.delta_streams_device(to_card(pad_to_groups(v.view(np.uint32))),
+                                                              host.params["bits"], n=v.shape[0])
+                return dataclasses.replace(host, streams={"packed": packed.cpu().numpy().view(np.uint32),
+                                                          "anchors": anchors.cpu().numpy()})
+        elif scheme == "for":
+            def fn(v=v, host=host):
+                packed, refs = encode.for_streams_device(to_card(frame_pad(v, host.params["frame_len"])),
+                                                         host.params["bits"], host.params["frame_len"])
+                ng = host.streams["packed"].shape[0]
+                return dataclasses.replace(host, streams={"packed": packed[:ng].cpu().numpy().view(np.uint32),
+                                                          "refs": refs.cpu().numpy()})
+        elif scheme == "dict":
+            fn = lambda v=v, host=host: encode.encode_dict_device(v, name=host.name)  # noqa: E731
+        else:
+            fn = lambda v=v, host=host: encode.encode_rle_device(v, name=host.name)  # noqa: E731
+        out[scheme] = (label, v, host, fn)
+    return out
+
+
+def encode_main_path(by_label: dict, drive) -> None:
+    """Device encode of the configs[0]-[3] columns (ENCODE_CELLS), each
+    column held byte for byte to the host encoder's; K18 packs all but
+    rle's, whose run tables are torch ops only, so its column is also
+    decoded on the card and held to the input."""
+    for scheme, (label, v, host, fn) in device_encoders(by_label).items():
+        if scheme == "rle":
+            def rle_ok(fn=fn, host=host, v=v) -> bool:
+                col = fn()
+                return same_column(col, host) and same_on_card(gtt.decode(col, device=CUDA), v)
+
+            drive(f"{label} encode_rle_device", "the host encoder's column, then decode(col, device=cuda) vs input",
+                  rle_ok)
+        else:
+            drive(f"{label} device encode", "the host encoder's column", lambda: same_column(fn(), host), ("lmp_pack",))
+
+
 def resident_decoders(container: list) -> tuple[list, list]:
     """The container's cached decoders and its streams, uploaded."""
     cols = [col for _, col in container]
@@ -1002,7 +1200,8 @@ def time_kernel(label: str, smi: str, name: str, args: tuple, nbytes: int, e2e, 
     p_ms = cuda_ms(lambda: plain(*args), runs=10, warmup=1)
     e_ms = host_ms(e2e, runs=e2e_runs)
     k_gbs, c_gbs = nbytes / k_ms / 1e6, nbytes / c_ms / 1e6
-    print(f"[time] {label} on {smi}: kernel {name} {k_ms:.4f} ms = {k_gbs:.1f} GB/s decoded; "
+    print(f"[time] {label} on {smi}: kernel {name} {k_ms:.4f} ms = {k_gbs:.1f} GB/s "
+          f"{'encoded' if name == 'lmp_pack' else 'decoded'}; "
           f"copy_ of the same {nbytes} B {c_ms:.4f} ms = {c_gbs:.1f} GB/s; kernel/copy {k_gbs / c_gbs:.3f}; "
           f"plain PyTorch {p_ms:.4f} ms; end-to-end {e2e_what} {e_ms:.3f} ms; {tail} "
           f"(medians of 20 / 20 / 10 / {e2e_runs} runs, the rest of 10 unless stated); bound {b_ms:.4f} ms by {b_by}, kernel at "
@@ -1143,6 +1342,53 @@ def time_scan_layer(scan: dict, smi: str) -> dict:
     return timings
 
 
+def pack_args(scheme: str, v: np.ndarray, host) -> tuple:
+    """K18's arguments at a device-encode cell, on the card: the padded
+    payloads (frame-padded for FOR, with the unsigned per-frame min as
+    refs), or for dict the host column's codes unpacked."""
+    bits = host.params["bits"]
+    if scheme == "dict":
+        ng = host.streams["codes"].shape[0]
+        return lanes.unpack_lanes(to_card(host.streams["codes"].reshape(-1)).view(ng, -1), bits), bits, "none", None, None, GROUP
+    if scheme == "for":
+        frame_len = host.params["frame_len"]
+        x = to_card(frame_pad(v, frame_len))
+        refs = (x.view(-1, frame_len) ^ encode.INT_MIN).amin(1) ^ encode.INT_MIN
+        return x.view(-1, GROUP), bits, "for_sub", refs, None, frame_len
+    x = to_card(pad_to_groups(v.view(np.uint32))).view(-1, GROUP)
+    return (x, bits, "delta_zigzag", None, v.shape[0], GROUP) if scheme == "delta" else (x, bits, "none", None, None, GROUP)
+
+
+def time_encode(by_label: dict, smi: str) -> dict:
+    """Phase 5 for device encode: K18 at configs[0] (no prologue), at
+    configs[1] as delta and as FOR, and over configs[2]'s dictionary codes,
+    on resident inputs (also held against its plain version there), each
+    beside its device encoder end to end (host pad, H2D, device work, D2H
+    of the streams; median of 10), the D2H of the packed words alone (and
+    FOR's frame pad alone), the host encode of the same column and the raw
+    column's H2D; rle's device encode end to end alone (no K18).
+    Returns configs[0]'s K18 timing, the kernels line's row."""
+    timings = {}
+    for scheme, (label, v, host, fn) in device_encoders(by_label).items():
+        r_ms = host_ms(lambda: torch.from_numpy(v).to(CUDA))
+        tail = f"host encode of the column {HOST_ENCODE_S[label]:.3f} s ([encode]); H2D of the raw column {r_ms:.3f} ms"
+        if scheme == "rle":
+            e_ms = host_ms(fn)
+            print(f"[time] {label} on {smi}: device encode end to end, encode_rle_device(v) {e_ms:.3f} ms (run tables "
+                  f"in torch ops, no K18); {tail} (medians of 10)")
+            continue
+        args = pack_args(scheme, v, host)
+        words = encode.lmp_pack(*args)
+        tail += f"; D2H of the {words.numel() * 4} B of packed words alone {host_ms(lambda: words.cpu()):.3f} ms"
+        del words
+        if scheme == "for":
+            tail += f"; host frame pad alone {host_ms(lambda: frame_pad(v, host.params['frame_len'])):.3f} ms"
+        timing = time_kernel(f"{label} device encode {scheme}", smi, "lmp_pack", args, host.nbytes_decoded, fn,
+                             f"device encode ({scheme})", tail)
+        timings.setdefault("lmp_pack", timing)  # configs[0], the first
+    return timings
+
+
 def time_container(container: list, smi: str) -> None:
     """Phase 5 for configs[4]: decode_columns end to end, against the sum
     of the four single decode calls and the H2D of the four raw columns;
@@ -1203,6 +1449,7 @@ def main() -> int:
     rank_cell(smi)
     timings.update(time_dzbv(*dz, picked, smi))
     timings.update(time_scan_layer(scan, smi))
+    timings.update(time_encode({label: (v, col) for label, v, col in cols}, smi))
     for name, count in counts.items():
         check(count >= 1, f"{name} was launched {count} times on the main path")
     rows = [

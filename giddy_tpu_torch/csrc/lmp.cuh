@@ -1,4 +1,5 @@
-// Lane-major packed-group (LMP) reading on the device (FORMAT.md §0.1).
+// Lane-major packed-group (LMP) reading and writing on the device (FORMAT.md
+// §0.1).
 //
 // A group holds GROUP = 32 * 1024 values. Lane c of the group is CUDA thread
 // c of the block that decodes it. The lane's B-bit values live in B words at
@@ -8,7 +9,8 @@
 // it straddles one, and decodes to linear position i * 1024 + c, so a
 // warp's stores of slot i are coalesced too.
 //
-// Also here: the block-row scan every per-GROUP prefix kernel shares, the
+// LaneWriter is the inverse, for the pack of device encode (K18). Also
+// here: the block-row scan every per-GROUP prefix kernel shares, the
 // fused dictionary stage (Lut), the exception phase of K9 and K12
 // (patch_group), and the host-side argument checks, output-type and
 // table-mode dispatch of the entry points.
@@ -151,6 +153,35 @@ struct LaneReader {
       s = end;
     }
     return v & mask;
+  }
+};
+
+// Writes the 32 slots of one lane in order, the inverse of LaneReader: slot
+// i is ORed into the word at the bit offset (w0, s) = divmod(i * B, 32),
+// as v << s into word w0 and, where it straddles, v >> (32 - s) into word
+// w0 + 1 (giddy_tpu/kernels/encode.py:28-42 pack_lanes_to). Each finished
+// word is stored once, at words[w * kLanes], so a warp's stores of word w
+// coalesce. B is a template argument: with put() called for i = 0..31 in
+// a fully unrolled loop every offset is a constant. Values are not masked
+// to B bits, as in the reference, so an out-of-range value spills into the
+// bits after its slot the same way on both. s + B > 32 forces s >= 1, so
+// no shift is by 32.
+template <int B>
+struct LaneWriter {
+  static_assert(B >= 1 && B <= 32, "LMP width");
+  uint32_t* words;  // the lane's word 0; word w is words[w * kLanes]
+  uint32_t cur = 0u;  // the word being filled
+
+  __device__ __forceinline__ explicit LaneWriter(uint32_t* lane_words) : words(lane_words) {}
+
+  __device__ __forceinline__ void put(int i, uint32_t v) {
+    const int w0 = (i * B) >> 5;
+    const int s = (i * B) & 31;
+    cur |= v << s;
+    if (s + B >= 32) {  // the slot fills word w0; slot 31 always ends word B - 1
+      words[static_cast<size_t>(w0) * kLanes] = cur;
+      cur = s + B > 32 ? v >> (32 - s) : 0u;
+    }
   }
 };
 

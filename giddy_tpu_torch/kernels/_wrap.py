@@ -49,6 +49,30 @@ def check_packed(packed: torch.Tensor, bits: int, out_dtype: torch.dtype) -> int
     return check_rows(packed, "packed words", bits * LANES)
 
 
+# The value transforms K18 can fuse in front of the pack, in the kernel's
+# numbering (csrc/encode.cu Prologue).
+PROLOGUES = ("none", "for_sub", "delta_zigzag")
+
+
+def check_pack(values: torch.Tensor, bits: int, prologue: str, refs: torch.Tensor | None, frame_len: int) -> int:
+    """Validate K18's (ng, GROUP) int32 values, width, prologue and, for
+    ``for_sub``, the (frames,) int32 references of frame_len-value frames;
+    returns ng."""
+    if not isinstance(bits, int) or not 1 <= bits <= 32:
+        raise ValueError(f"bits must be an int in [1, 32], got {bits!r}")
+    if prologue not in PROLOGUES:
+        raise ValueError(f"prologue must be one of {PROLOGUES}, got {prologue!r}")
+    if not isinstance(frame_len, int) or frame_len < GROUP or frame_len % GROUP or frame_len // GROUP > 2**31 - 1:
+        raise ValueError(f"frame_len must be a positive multiple of GROUP={GROUP}, got {frame_len!r}")
+    ng = check_rows(values, "values", GROUP)
+    if prologue == "for_sub":
+        if refs is None:
+            raise ValueError("the for_sub prologue needs refs")
+        gpf = frame_len // GROUP
+        check_side(refs, -(-ng // gpf), "refs", values.device)
+    return ng
+
+
 def check_side(t: torch.Tensor, length: int | None, name: str, device: torch.device) -> None:
     """Validate a 1-D int32 side stream (refs, anchors, dictionary) of
     ``length`` values, or of at least one when ``length`` is None."""

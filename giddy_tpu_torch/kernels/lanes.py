@@ -3,7 +3,8 @@ csrc/run_decode.cu K5-K8, csrc/patch_decode.cu K9, csrc/epilogue_decode.cu
 K10-K12, csrc/dzbv_decode.cu K13-K15), with the fused
 dictionary stage of cascade (``lut``) where the kernel has one, and of the
 scan epilogue (csrc/scan_epilogue.cu K16, K17), whose slot math the scan
-layer's general path also runs on decoded values.
+layer's general path also runs on decoded values, and of device encode's
+pack (csrc/encode.cu K18).
 
 The counterpart of Pallas interpret mode: the same arithmetic in torch
 ops, at the same signatures as the kernel wrappers. The wrappers take them
@@ -299,3 +300,48 @@ def agg_fold(packed: torch.Tensor, refs_g: torch.Tensor | None, valid: torch.Ten
     if refs_g is not None:
         u = u + refs_g[:, None]
     return slot_fold(u, valid, n, kind, itemsize, agg)
+
+
+# -- device encode: K18 lmp_pack ---------------------------------------------
+
+
+def pack_lanes(v: torch.Tensor, bits: int) -> torch.Tensor:
+    """LMP pack, the inverse of :func:`unpack_lanes`: (ng, GROUP) values ->
+    (ng, bits*LANES) words, slot i ORed in at (w0, s) = divmod(i*bits, 32)
+    (giddy_tpu/kernels/encode.py:28-42). Values are not masked to ``bits``,
+    as in the reference: an out-of-range value spills the same way."""
+    ng = v.shape[0]
+    slots = v.reshape(ng, SLOTS, LANES)
+    words = torch.zeros((ng, bits, LANES), dtype=torch.int32, device=v.device)
+    for i in range(SLOTS):
+        w0, s = divmod(i * bits, 32)
+        words[:, w0] |= slots[:, i] << s
+        if s + bits > 32:
+            words[:, w0 + 1] |= _srl(slots[:, i], 32 - s)
+    return words.reshape(ng, bits * LANES)
+
+
+def zigzag(d: torch.Tensor) -> torch.Tensor:
+    """Signed int32 -> unsigned zigzag bits (FORMAT.md §0.2). ``d >> 31`` is
+    the arithmetic shift here (0 or -1), so it takes the place of the
+    reference's ``-(d >> 31)`` on uint32."""
+    return (d << 1) ^ (d >> 31)
+
+
+def lmp_pack(values: torch.Tensor, bits: int, prologue: str = "none", refs: torch.Tensor | None = None, n: int | None = None, frame_len: int = GROUP) -> torch.Tensor:
+    """The value transform, then :func:`pack_lanes`: ``for_sub`` subtracts
+    refs[g // (frame_len // GROUP)] from group g (mod 2^32);
+    ``delta_zigzag`` packs zigzag(v[j] - v[j-1]), 0 at j == 0 and j >= n
+    (giddy_tpu/kernels/encode.py:77-90, :104-109)."""
+    ng = values.shape[0]
+    v = values
+    if prologue == "for_sub":
+        g = torch.arange(ng, device=values.device) // (frame_len // GROUP)
+        v = v - refs[g][:, None]
+    elif prologue == "delta_zigzag":
+        flat = v.reshape(-1)
+        j = torch.arange(flat.shape[0], device=values.device)
+        n = flat.shape[0] if n is None else n
+        d = torch.where((j == 0) | (j >= n), 0, flat - torch.roll(flat, 1))
+        v = zigzag(d).reshape(ng, GROUP)
+    return pack_lanes(v, bits)

@@ -13,12 +13,13 @@ import torch
 import giddy_tpu_torch as gtt
 from giddy_tpu_torch import aggregate, kernels, nulls, query
 from giddy_tpu_torch.groupby import _codes_device_column
-from giddy_tpu_torch.kernels import agg, cascade, dict_, dzbv, filter_, lanes, nbit, patch, rle
-from giddy_tpu_torch.util import GROUP, np_dtype
+from giddy_tpu_torch.kernels import agg, cascade, dict_, dzbv, encode, filter_, lanes, nbit, patch, rle
+from giddy_tpu_torch.ref import lmp as ref_lmp
+from giddy_tpu_torch.util import GROUP, np_dtype, pad_to_groups
 
 from test_torch_inputs import (
-    OPS, SCAN_DTYPES, bitmap_values, dzbv_values, rng_of, salted_prices, scan_thresholds, scan_values, want_agg,
-    want_mask,
+    DICT_KINDS, OPS, SCAN_DTYPES, assert_same_column, bitmap_values, dict_values, dzbv_values, for_values, rng_of,
+    salted_prices, scan_thresholds, scan_values, want_agg, want_mask, wrapping_walk,
 )
 
 pytestmark = pytest.mark.cuda
@@ -561,3 +562,107 @@ def test_scan_wrappers_reject_tensors_on_two_devices(cuda):
     with pytest.raises(ValueError):
         agg.agg_fold(packed, refs_g, torch.zeros((packed.shape[0], 1024), dtype=torch.int32), bits, col.n, kind,
                      itemsize, "sum")
+
+
+# -- device encode: K18 lmp_pack and the encoders around it ------------------
+
+PACK_CASES = [("none", GROUP), ("for_sub", GROUP), ("for_sub", 2 * GROUP), ("delta_zigzag", GROUP)]
+
+
+@pytest.mark.parametrize("prologue,frame_len", PACK_CASES)
+@pytest.mark.parametrize("bits", range(1, 33))
+def test_lmp_pack_matches_plain(cuda, bits, prologue, frame_len):
+    """K18 at every width and prologue against its plain version (and the
+    NumPy packer for ``none``), on values of the width, the FOR references
+    at both ends of the range, a ragged delta length."""
+    rng = rng_of(f"pack/{bits}/{prologue}/{frame_len}")
+    u = rng.integers(0, 2**bits, 4 * GROUP, dtype=np.uint64).astype(np.uint32)
+    values = torch.from_numpy(u.view(np.int32)).to(cuda).view(4, GROUP)
+    refs = None
+    if prologue == "for_sub":
+        refs = torch.tensor([-(2**31), 2**31 - 1, 5, -1][: 4 // (frame_len // GROUP)], dtype=torch.int32, device=cuda)
+    before = kernels.launches()["lmp_pack"]
+    got = encode.lmp_pack(values, bits, prologue, refs, N, frame_len)
+    assert kernels.launches()["lmp_pack"] == before + 1
+    want = lanes.lmp_pack(values, bits, prologue, refs, N, frame_len)
+    torch.cuda.synchronize()
+    assert got.is_cuda and got.shape == (4, bits * 1024) and torch.equal(got, want)
+    if prologue == "none":
+        assert got.cpu().numpy().view(np.uint32).tobytes() == ref_lmp.lmp_pack(u, bits).tobytes()
+
+
+def _decodes_on_cuda(col, v: np.ndarray, cuda) -> None:
+    assert gtt.decode(col, device=cuda).cpu().numpy().tobytes() == v.tobytes()
+
+
+@pytest.mark.parametrize("n", [0, 1, N])
+@pytest.mark.parametrize("dtype", ["int8", "int16", "uint16", "int32", "float32"])
+def test_encode_nbit_device_on_cuda(cuda, dtype, n):
+    dt = np.dtype(dtype)
+    u = rng_of(f"nbit/{dtype}/{n}").integers(0, 2 ** (8 * dt.itemsize), n, dtype=np.uint64)
+    v = u.astype(np.dtype(f"uint{8 * dt.itemsize}")).view(dt)
+    kernels.reset_launches()
+    col = encode.encode_nbit_device(v, bits=8 * dt.itemsize, name="c")
+    assert kernels.launches()["lmp_pack"] == 1
+    assert_same_column(col, gtt.encode(v, "nbit", bits=8 * dt.itemsize, name="c"))
+    _decodes_on_cuda(col, v, cuda)
+
+
+@pytest.mark.parametrize("frame_len", [GROUP, 2 * GROUP])
+def test_for_streams_device_on_cuda(cuda, frame_len):
+    v = for_values(N, rng_of(f"for/{frame_len}"))
+    host = gtt.encode(v, "for", frame_len=frame_len)
+    u = pad_to_groups(v.view(np.uint32), fill=int(v.view(np.uint32)[-1]))
+    nf = -(-u.shape[0] // frame_len)
+    u = np.concatenate([u, np.full(nf * frame_len - u.shape[0], u[-1], np.uint32)])
+    packed, refs = encode.for_streams_device(torch.from_numpy(u.view(np.int32)).to(cuda), host.params["bits"], frame_len)
+    ng = host.streams["packed"].shape[0]
+    assert packed.is_cuda and packed.shape[0] == nf * frame_len // GROUP
+    assert packed[:ng].cpu().numpy().view(np.uint32).tobytes() == host.streams["packed"].tobytes()
+    assert refs.cpu().numpy().tobytes() == host.streams["refs"].tobytes()
+
+
+@pytest.mark.parametrize("data", ["wrapping walk", "timestamps"])
+def test_delta_streams_device_on_cuda(cuda, data):
+    n = 3 * GROUP + 11
+    rng = rng_of(f"delta/{data}")
+    v = wrapping_walk(n, rng) if data == "wrapping walk" else (np.cumsum(rng.integers(0, 8, n)) + 1_600_000_000).astype(np.int32)
+    host = gtt.encode(v, "delta")
+    u = torch.from_numpy(pad_to_groups(v.view(np.uint32)).view(np.int32)).to(cuda)
+    packed, anchors = encode.delta_streams_device(u, host.params["bits"], n=n)
+    assert packed.cpu().numpy().view(np.uint32).tobytes() == host.streams["packed"].tobytes()
+    assert anchors.cpu().numpy().tobytes() == host.streams["anchors"].tobytes()
+
+
+@pytest.mark.parametrize("case", ["long", "distinct", "equal", "one", "empty"])
+def test_encode_rle_device_on_cuda(cuda, case):
+    rng = rng_of(f"rle/{case}")
+    v = {"long": _run_values("long", rng), "distinct": np.arange(N, dtype=np.int32), "equal": np.full(N, -7, np.int32),
+         "one": np.array([5], np.int32), "empty": np.zeros(0, np.int32)}[case]
+    col = encode.encode_rle_device(v, name="c")
+    assert_same_column(col, gtt.encode(v, "rle", name="c"))
+    _decodes_on_cuda(col, v, cuda)
+
+
+@pytest.mark.parametrize("kind", DICT_KINDS)
+def test_encode_dict_device_on_cuda(cuda, kind):
+    v = dict_values(kind, N, rng_of(f"dict/{kind}"))
+    kernels.reset_launches()
+    col = encode.encode_dict_device(v, name="c")
+    assert kernels.launches()["lmp_pack"] == 1
+    assert_same_column(col, gtt.encode(v, "dict", name="c"))
+    _decodes_on_cuda(col, v, cuda)
+    empty = v[:0]
+    kernels.reset_launches()
+    assert_same_column(encode.encode_dict_device(empty, name="c"), gtt.encode(empty, "dict", name="c"))
+    assert not any(kernels.launches().values())
+
+
+def test_lmp_pack_rejects_bad_arguments_on_cuda(cuda):
+    values = torch.zeros((2, GROUP), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        encode.lmp_pack(values, 9, "for_sub", refs=torch.zeros(2, dtype=torch.int32))  # refs on the CPU
+    with pytest.raises(ValueError):
+        encode.lmp_pack(values, 33)
+    with pytest.raises(ValueError):
+        encode.lmp_pack(values[:, 1:], 9)

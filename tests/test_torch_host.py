@@ -17,18 +17,10 @@ from giddy_tpu_torch.util import GROUP
 
 from helpers import gen_column
 
+from test_torch_inputs import assert_same_column
+
 GOLDEN = pathlib.Path(__file__).parent / "golden"
 SCHEMES = ["nbit", "dzbf", "for", "delta", "dict", "dzbv"]
-
-
-def assert_same_column(port, ref):
-    assert (port.name, port.scheme, port.dtype, port.n) == (ref.name, ref.scheme, ref.dtype, ref.n)
-    assert port.params == ref.params
-    assert sorted(port.streams) == sorted(ref.streams)
-    for k, s in ref.streams.items():
-        p = port.streams[k]
-        assert (p.dtype, p.shape) == (s.dtype, s.shape), k
-        assert p.tobytes() == s.tobytes(), k
 
 
 def assert_same_streams(got: dict | None, want: dict | None):

@@ -142,6 +142,53 @@ def want_agg(v: np.ndarray, agg: str, valid: np.ndarray | None = None):
     return v[i].item() if v.dtype.kind == "f" else int(v[i])
 
 
+def assert_same_column(port, ref):
+    """Two EncodedColumns alike: name, scheme, dtype, n, params, and every
+    stream's dtype, shape and bytes."""
+    assert (port.name, port.scheme, port.dtype, port.n) == (ref.name, ref.scheme, ref.dtype, ref.n)
+    assert port.params == ref.params
+    assert sorted(port.streams) == sorted(ref.streams)
+    for k, s in ref.streams.items():
+        p = port.streams[k]
+        assert (p.dtype, p.shape) == (s.dtype, s.shape), k
+        assert p.tobytes() == s.tobytes(), k
+
+
+def wrapping_walk(n: int, rng: np.random.Generator) -> np.ndarray:
+    """An int32 random walk whose steps span the whole int32 range, so it
+    wraps past both ends and its deltas take both signs at full width."""
+    steps = rng.integers(-(2**31), 2**31, n, dtype=np.int64)
+    steps[rng.integers(0, max(n, 1), min(n, 8))] = -(2**31)  # the largest negative step
+    return np.cumsum(steps).astype(np.uint32).view(np.int32)
+
+
+def for_values(n: int, rng: np.random.Generator) -> np.ndarray:
+    """int32 values within 4096 of the int32 sign boundary on both sides:
+    as uint32 payloads they sit at 2^31 - 2048 .. 2^31 + 2047, so the
+    unsigned frame min is not the signed one."""
+    return (2**31 - 2048 + rng.integers(0, 4096, n)).astype(np.uint32).view(np.int32)
+
+
+DICT_KINDS = ["negative", "u32_high", "floats", "int8", "int16"]
+
+
+def dict_values(kind: str, n: int, rng: np.random.Generator) -> np.ndarray:
+    """n values from a small vocabulary: ``negative`` int32 with both ends
+    and negatives; ``u32_high`` uint32 on both sides of 2^31; ``floats``
+    float32 with -0.0, 0.0, NaN, -NaN and ±Inf; ``int8``/``int16`` signed
+    narrow values (their payloads zero-extend)."""
+    if kind == "negative":
+        vocab = np.array([-(2**31), 2**31 - 1, -1, 0, 1, -70, 55, -123_456_789], np.int32)
+    elif kind == "u32_high":
+        vocab = np.array([0, 1, 2**31 - 1, 2**31, 2**31 + 5, 2**32 - 1, 3_000_000_000], np.uint32)
+    elif kind == "floats":
+        vocab = np.array([-0.0, 0.0, np.nan, -np.nan, np.inf, -np.inf, 1.5, -2.25], np.float32)
+    else:
+        info = np.iinfo(np.dtype(kind))
+        vocab = np.array([info.min, info.max, -1, 0, 1, -7], np.dtype(kind))
+    return vocab[rng.integers(0, vocab.shape[0], n)]
+
+
 def test_scan_oracle_orders_floats_totally():
     v = np.array([np.nan, -np.nan, -np.inf, np.inf, -0.0, 0.0, -1.5, 1.5], np.float32)
     order = np.argsort(scan_key(v), kind="stable")
@@ -220,3 +267,21 @@ def test_dzbv_values_have_the_widths_they_name(kind):
             assert np.array_equal(wide, np.arange(n) < GROUP)
         else:
             assert (np.add.reduceat(wide, np.arange(0, n, 128))[: n // 128] == 5).all()
+
+
+def test_wrapping_walk_crosses_the_int32_wrap():
+    v = wrapping_walk(3 * GROUP + 11, rng_of("walk"))
+    d = np.diff(v.astype(np.int64))
+    assert v.dtype == np.int32 and (d > 2**31 - 1).any() and (d < -(2**31)).any()
+
+
+@pytest.mark.parametrize("kind", DICT_KINDS)
+def test_dict_values_hold_their_edge_values(kind):
+    v = dict_values(kind, 4 * GROUP, rng_of(kind))
+    u = v.view(np.uint32) if v.itemsize == 4 else v.astype(np.int64)
+    if kind == "floats":
+        assert {0x80000000, 0x00000000, 0x7FC00000, 0xFFC00000} <= set(np.unique(u).tolist())
+    elif kind == "u32_high":
+        assert u.min() < 2**31 <= u.max()
+    else:
+        assert v.min() < 0 < v.max()
