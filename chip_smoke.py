@@ -10,7 +10,8 @@ column in each of its three stream forms, and beside configs[4] through
 ``decode_columns``), the scan layer (``query.count_where`` /
 ``filter_bitmap`` through the fused filter K16, ``aggregate.sum_`` /
 ``min_`` / ``max_`` / ``avg_`` through the fused aggregate K17, nullable
-and dictionary columns, one general-path column), device encode (the
+and dictionary columns, one general-path column; K16 and K17 also held
+against their plain versions at every packed width), device encode (the
 configs[0]-[3] columns through ``kernels.encode``: ``encode_nbit_device``,
 ``delta_streams_device`` / ``for_streams_device``, ``encode_dict_device``
 and ``encode_rle_device``, the LMP pack K18 under all but the last, each
@@ -193,10 +194,15 @@ def compare(label: str, name: str, got, want) -> None:
         MAX_ABS_ERR[name] = max(MAX_ABS_ERR[name], err)
 
 
-def cuda_ms(fn, runs: int = 20, warmup: int = 3) -> float:
-    """Median of ``runs`` CUDA-event timings of fn(), after warm-up."""
+def cuda_ms(fn, runs: int = 20, warmup: int = 3, queued: bool = False) -> float:
+    """Median of ``runs`` CUDA-event timings of fn(), after warm-up.
+    ``queued`` puts a ~10 ms sleep kernel first, so that every run is
+    queued before the card reaches it: for a kernel shorter than the
+    host's time to launch it, that gap then stays out of the events."""
     for _ in range(warmup):
         fn()
+    if queued:
+        torch.cuda._sleep(20_000_000)
     pairs = []
     for _ in range(runs):
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -653,11 +659,51 @@ def check_scan_kernels(label: str, col, v: np.ndarray, valid: np.ndarray | None 
           f"(lanes whose sum carried past 32 bits: {carries}) n={col.n} bits={bits} bit-exact vs plain and oracle")
 
 
+def card_words(rng, shape: tuple) -> torch.Tensor:
+    """Random uint32 words as int32 on the card."""
+    return torch.from_numpy(rng.integers(0, 2**32, shape, dtype=np.uint64).astype(np.uint32).view(np.int32)).to(CUDA)
+
+
+def fold_width_checks(rng) -> None:
+    """K16 and K17 against their plain versions at every B from 1 to 32, on
+    random packed words: one group, and more tiles than the persistent grid
+    has blocks (not a multiple of it); n = ng * GROUP - 5; with and without
+    FOR refs and validity words; K16 at each kind with lt against a random
+    key and eq against the first value, K17 sum, min and max."""
+    sms = torch.cuda.get_device_properties(CUDA).multi_processor_count
+    launches = 0
+    for bits in range(1, 33):
+        for ng in (1, sms + 3):
+            n = ng * GROUP - 5
+            packed = card_words(rng, (ng, bits * 1024))
+            first = lanes.lmp_unpack(packed[:1], bits).reshape(-1)[:1]
+            for refs_g in (None, card_words(rng, (ng,))):
+                u0 = first if refs_g is None else lanes.wrap32(first.to(torch.int64) + refs_g[:1])
+                for vw in (None, card_words(rng, (ng, 1024))):
+                    label = f"fold B={bits} ng={ng} refs={refs_g is not None} valid={vw is not None}"
+                    for kind, itemsize in (("u", 4), ("i", 2), ("f", 4)):
+                        keys = {"lt": int(rng.integers(-(2**31), 2**31)),
+                                "eq": int(lanes.order_key(u0, kind, itemsize)[0])}
+                        for op, key in keys.items():
+                            compare(f"{label} {kind} {op}", "filter_fold",
+                                    filter_.filter_fold(packed, refs_g, vw, bits, kind, itemsize, op, key),
+                                    lanes.filter_fold(packed, refs_g, vw, bits, kind, itemsize, op, key))
+                        for name in ("sum", "min", "max"):
+                            w = vw if name == "sum" else None
+                            compare(f"{label} {kind} {name}", "agg_fold",
+                                    agg.agg_fold(packed, refs_g, w, bits, n, kind, itemsize, name),
+                                    lanes.agg_fold(packed, refs_g, w, bits, n, kind, itemsize, name))
+                        launches += 5
+    print(f"[kernel] filter_fold and agg_fold at B=1..32, ng=1 and {sms + 3} (n = ng*GROUP-5), with and without "
+          f"refs and validity words: {launches} launches bit-exact vs plain")
+
+
 def scan_layer_checks(rng, n: int) -> None:
     """K16 and K17: nbit, dzbf and for at every logical dtype (narrow
     payloads sign-extend), all six ops at the dtype's edges and past them,
     floats with NaN, +-Inf and -0.0 through nbit at 32 bits, full-range
-    values (sums carry past 32 bits), nullable columns, n = 0."""
+    values (sums carry past 32 bits), nullable columns, n = 0; then every
+    width on random words (fold_width_checks)."""
     for scheme in ("nbit", "dzbf", "for"):
         for dtype in SCAN_DTYPES:
             v = scan_column(rng, dtype, n)
@@ -673,6 +719,7 @@ def scan_layer_checks(rng, n: int) -> None:
         check(query.count_where(empty, "lt", 0, device=CUDA) == 0 and kernels.launches() == before,
               f"{scheme} n=0: count_where launched or counted")
         check_scan_kernels(f"scan {scheme} n=0", empty, v[:0])
+    fold_width_checks(np.random.default_rng(88))  # its own seed: the later phases' data stays as it was
 
 
 def same_column(got, want) -> bool:
@@ -1311,8 +1358,24 @@ def time_scan(x: torch.Tensor, smi: str) -> tuple[str, dict]:
     return "cumsum_rows", dict(timing, library_ms=lib_ms)
 
 
+def time_fold(label: str, smi: str, name: str, args: tuple) -> float:
+    """K16 or K17 on resident inputs beside its bound, held against its
+    plain version at this shape first; prints and returns its ms."""
+    wrapper, plain = KERNELS[name][:2]
+    out = wrapper(*args)
+    compare(label, name, out, plain(*args))
+    b_ms, b_by = bound(name, args, out)
+    del out
+    k_ms = cuda_ms(lambda: wrapper(*args), queued=True)
+    print(f"[time] {label} on {smi}: kernel {name} {k_ms:.4f} ms (CUDA events, median of 20 queued runs); bound {b_ms:.4f} ms "
+          f"by {b_by}, kernel at {b_ms / k_ms:.3f} of it")
+    return k_ms
+
+
 def time_scan_layer(scan: dict, smi: str) -> dict:
-    """Phase 5 for K16 and K17 at configs[0] on resident packed words: each
+    """Phase 5 for K16 and K17 at configs[0] on resident packed words (and,
+    printed with their bounds, K17 min there, both at the configs[1] FOR
+    column and K17 sum on its 1%-null twin): each
     kernel (also held against its plain version at this shape), its bound,
     its plain version and count_where / sum_ end to end, beside the unfused
     route at the same column -- K1's decode, then the compare and the bit
@@ -1327,7 +1390,18 @@ def time_scan_layer(scan: dict, smi: str) -> dict:
     unfused_filter = cuda_ms(lambda: lanes.pack_hits(
         query._cmp(nbit.lmp_unpack(packed, bits).view(ng, GROUP), key, "lt", kind, itemsize)))
     unfused_sum = cuda_ms(lambda: nbit.lmp_unpack(packed, bits).sum(dtype=torch.int64))
-    min_ms = cuda_ms(lambda: agg.agg_fold(packed, refs_g, None, bits, col.n, kind, itemsize, "min"))
+    min_ms = time_fold("configs[0] nbit 9-bit n=2^28 min", smi, "agg_fold",
+                       (packed, refs_g, None, bits, col.n, kind, itemsize, "min"))
+    for cell in ("configs[1] for", "configs[1] for 1% nulls"):
+        fv, fvalid, fcol = scan[cell]
+        fpacked, frefs, fbits, fkind, fsize = scan_args(fcol)
+        vw = nulls.valid_words_device(fcol, CUDA) if fvalid is not None else None
+        fkey = query._stage_key(fcol.dtype, int(fv[fv.shape[0] // 2]))
+        label = f"{cell} {fbits}-bit n=2^26"
+        if vw is None:
+            time_fold(f"{label} filter lt", smi, "filter_fold", (fpacked, frefs, None, fbits, fkind, fsize, "lt", fkey))
+        time_fold(f"{label} sum", smi, "agg_fold", (fpacked, frefs, vw, fbits, fcol.n, fkind, fsize, "sum"))
+        del fpacked, frefs, vw
     timings = {"filter_fold": time_kernel(
         f"configs[0] nbit 9-bit n=2^28 filter lt {value}", smi, "filter_fold",
         (packed, refs_g, None, bits, kind, itemsize, "lt", key), col.nbytes_decoded,

@@ -156,6 +156,51 @@ struct LaneReader {
   }
 };
 
+// Lanes of a tile of K16 and K17 (csrc/scan_epilogue.cu): the tile of a
+// group's packed words that a block stages in shared memory.
+constexpr int kTileLanes = 256;
+
+// Where the 32 slots of an LMP(B) lane lie in its words, the same for
+// every lane: slot i is bits [s, s + B) of word w0 and, where it
+// straddles, the low bits of word w0 + 1, with (w0, s) = divmod(i * B,
+// 32). Built on the host (lane_slots) and passed as a kernel argument, so
+// each entry is a uniform operand of the slot's instructions.
+struct LaneSlots {
+  uint32_t lo[kSlots];     // byte offset of word w0 in a tile lane: w0 * kTileLanes * 4
+  uint32_t hi[kSlots];     // of word w0 + 1 where slot i straddles, else of w0 again
+  uint32_t shift[kSlots];  // s
+  uint32_t mask;           // the low B bits
+};
+
+inline LaneSlots lane_slots(int bits) {
+  LaneSlots t{};
+  for (int i = 0; i < kSlots; ++i) {
+    const int o = i * bits, w = o >> 5, s = o & 31;
+    t.lo[i] = static_cast<uint32_t>(w * kTileLanes * 4);
+    t.hi[i] = static_cast<uint32_t>((s + bits > 32 ? w + 1 : w) * kTileLanes * 4);
+    t.shift[i] = static_cast<uint32_t>(s);
+  }
+  t.mask = bits == 32 ? 0xFFFFFFFFu : (1u << bits) - 1u;
+  return t;
+}
+
+// Reads slot i of one lane of a tile staged in shared memory, word w of
+// the lane at words[w * kTileLanes] (K16, K17): two loads (word w0 twice
+// where the slot does not straddle), a funnel shift and the mask. Every
+// offset is a kernel argument, uniform across the warp, so the vector
+// pipes do no offset arithmetic and take no branch; LaneReader's walk
+// carries its bit offset in a register and branches at every slot.
+struct SmemLaneReader {
+  const unsigned char* words;  // the lane's word 0, in shared memory
+  const LaneSlots& at;
+
+  __device__ __forceinline__ uint32_t slot(int i) const {
+    const uint32_t lo = *reinterpret_cast<const uint32_t*>(words + at.lo[i]);
+    const uint32_t hi = *reinterpret_cast<const uint32_t*>(words + at.hi[i]);
+    return __funnelshift_r(lo, hi, at.shift[i]) & at.mask;
+  }
+};
+
 // Writes the 32 slots of one lane in order, the inverse of LaneReader: slot
 // i is ORed into the word at the bit offset (w0, s) = divmod(i * B, 32),
 // as v << s into word w0 and, where it straddles, v >> (32 - s) into word

@@ -1,11 +1,11 @@
 // The scan layer's two fused kernels of giddy_tpu_torch: the filter (K16)
 // and the aggregate (K17) that read a packed column (nbit, dzbf, for) and
 // never write its decoded form. Plain C interface, bound with ctypes by
-// giddy_tpu_torch/kernels/_build.py. Both run one block of 1024 threads per
-// GROUP (grid = number of groups); thread c reads lane c of the group
-// through gt::LaneReader, as K1 and K2 do, adds the group's frame
-// reference (FOR; 0 otherwise) with a uint32 wrap, and folds the lane's 32
-// values in registers.
+// giddy_tpu_torch/kernels/_build.py. Both stage tiles of packed words in
+// shared memory with bulk async copies and fold them there (walk_tiles
+// below); thread c of a tile reads its lane through gt::SmemLaneReader,
+// adds the group's frame reference (FOR; 0 otherwise) with a uint32 wrap,
+// and folds the lane's 32 values in registers.
 //
 // Comparisons and min/max run on an order key (order_key below, the
 // counterpart of giddy_tpu/aggregate.py:33-52 _key_map_traced): an int32
@@ -14,8 +14,9 @@
 // _cmp (narrow sign-extension, IEEE total order for floats) hold on keys.
 //
 // Every entry point launches on the stream it is given, allocates nothing,
-// and returns cudaGetLastError() after the launch (0 on success), or
-// cudaErrorInvalidValue for arguments it does not take.
+// and returns cudaGetLastError() after the launch (0 on success), the
+// error of a refused shared-memory opt-in, or cudaErrorInvalidValue for
+// arguments it does not take.
 
 #include <cuda_runtime.h>
 
@@ -32,14 +33,22 @@ enum class Kind { kUnsigned = 0, kSigned = 1, kFloat = 2 };
 enum class Op { kEq = 0, kNe = 1, kLt = 2, kLe = 3, kGt = 4, kGe = 5 };
 enum class Agg { kSum = 0, kMin = 1, kMax = 2 };
 
-// shift = 32 - 8 * itemsize: a narrow signed payload is stored zero-
-// extended, so the shift pair sign-extends it. A float key flips the
-// magnitude bits of negatives (IEEE total order, re-biased to signed); an
-// unsigned key flips the sign bit.
-template <Kind K>
-__device__ __forceinline__ int32_t order_key(uint32_t u, int shift) {
+// sext is the prmt selector that sign-extends a payload of the logical
+// dtype's width (sext_selector): a narrow signed payload is stored zero-
+// extended. A float key flips the magnitude bits of negatives (IEEE total
+// order, re-biased to signed); an unsigned key flips the sign bit.
+__device__ __forceinline__ uint32_t sext_selector(int width) {
+  // result bytes: 0 (and 1) as they are, then the sign of the top payload byte
+  return width == 8 ? 0x8880u : width == 16 ? 0x9910u : 0x3210u;
+}
+
+template <Kind K, bool kNarrow>
+__device__ __forceinline__ int32_t order_key(uint32_t u, uint32_t sext) {
   if constexpr (K == Kind::kSigned) {
-    return static_cast<int32_t>(u << shift) >> shift;
+    if constexpr (!kNarrow) return static_cast<int32_t>(u);
+    uint32_t r;
+    asm("prmt.b32 %0, %1, 0, %2;" : "=r"(r) : "r"(u), "r"(sext));
+    return static_cast<int32_t>(r);
   } else if constexpr (K == Kind::kFloat) {
     const int32_t s = static_cast<int32_t>(u);
     return s ^ ((s >> 31) & 0x7FFFFFFF);
@@ -48,14 +57,159 @@ __device__ __forceinline__ int32_t order_key(uint32_t u, int shift) {
   }
 }
 
+// Calls f(std::bool_constant<narrow>), narrow when a signed payload is
+// narrower than 32 bits (sign-extended for its key, its sign bit below
+// bit 31). The kernels branch on it once, before the walk, so the slot
+// loops of a 32-bit column carry no sign extension.
+template <Kind K, typename F>
+__device__ __forceinline__ void by_width(int width, F&& f) {
+  if (K == Kind::kSigned && width < 32) {
+    f(std::bool_constant<K == Kind::kSigned>{});
+  } else {
+    f(std::false_type{});
+  }
+}
+
+// word | bit where a <op> b: a compare into a predicate and a predicated
+// OR (the compiler's select-then-OR is one instruction more a slot).
 template <Op O>
-__device__ __forceinline__ bool holds(int32_t a, int32_t b) {
-  if constexpr (O == Op::kEq) return a == b;
-  if constexpr (O == Op::kNe) return a != b;
-  if constexpr (O == Op::kLt) return a < b;
-  if constexpr (O == Op::kLe) return a <= b;
-  if constexpr (O == Op::kGt) return a > b;
-  return a >= b;
+__device__ __forceinline__ uint32_t or_if(uint32_t word, int32_t a, int32_t b, uint32_t bit) {
+#define GT_OR_IF(CMP)                                                                                    \
+  asm("{\n\t.reg .pred p;\n\tsetp." CMP ".s32 p, %1, %2;\n\t@p or.b32 %0, %0, %3;\n\t}" \
+      : "+r"(word)                                                                                       \
+      : "r"(a), "r"(b), "r"(bit))
+  if constexpr (O == Op::kEq) GT_OR_IF("eq");
+  if constexpr (O == Op::kNe) GT_OR_IF("ne");
+  if constexpr (O == Op::kLt) GT_OR_IF("lt");
+  if constexpr (O == Op::kLe) GT_OR_IF("le");
+  if constexpr (O == Op::kGt) GT_OR_IF("gt");
+  if constexpr (O == Op::kGe) GT_OR_IF("ge");
+#undef GT_OR_IF
+  return word;
+}
+
+// The staged walk of K16 and K17. A tile is one group's packed words for
+// kTileLanes lanes: lane c's word w lies at g * bits * kLanes + w * kLanes
+// + c, so the tile of lanes [j * 256, j * 256 + 256) is `bits` contiguous
+// 1 KB pieces, 4 KB apart, plus the group's 1 KB of validity words for
+// those lanes when the column is nullable. In shared memory the tile is
+// dense: word w of the tile's lane c at w * kTileLanes + c, validity word
+// at bits * kTileLanes + c, so a warp reads 32 consecutive words, one a
+// bank.
+//
+// Each block is persistent: it walks tiles t = blockIdx.x + k * gridDim.x,
+// tile t being lanes (t % 4) * 256 of group t / 4, through a ring of
+// `stages` tiles in dynamic shared memory with one mbarrier a stage. Warp
+// 0 issues the pieces of local tile k + stages - 1 (one 1 KB
+// cp.async.bulk a lane, the barrier expecting their bytes) before the
+// block waits for tile k, so stages - 1 tiles of every block are in
+// flight while it folds one (>= 16 KB an SM at every B; the wrapper picks
+// stages and grid, kernels/_wrap.scan_plan). The bulk copy, not cp.async
+// in 16-byte pieces: one instruction moves a piece, and the barrier counts
+// its bytes, so no thread waits on a copy group. The __syncthreads() after
+// each fold frees the stage that the next iteration refills. The frame
+// reference of the next tile is loaded into a register a tile ahead.
+constexpr int kTilesPerGroup = kLanes / kTileLanes;
+constexpr int kPieceBytes = kTileLanes * 4;
+constexpr int kBarrierBytes = 128;  // the stages' mbarriers, ahead of the ring
+constexpr int kMaxStages = kBarrierBytes / 8;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void barrier_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(bar)) : "memory");
+}
+
+__device__ __forceinline__ void barrier_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(bar)), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void barrier_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+// bytes (a multiple of 16) from device memory to shared memory, both
+// 16-byte aligned; completes on bar's transaction count.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(bytes), "r"(smem_addr(bar))
+               : "memory");
+}
+
+// Every thread of the block calls it once. fold(g, lane, tile, ref) folds
+// the thread's lane of the staged tile (tile points at its word 0 of the
+// stage; validity words, when staged, at tile[bits * kTileLanes]).
+template <typename Fold>
+__device__ __forceinline__ void walk_tiles(const uint32_t* __restrict__ packed, const int32_t* __restrict__ refs_g,
+                                           const uint32_t* __restrict__ valid, long long ng, int bits, int stages,
+                                           Fold&& fold) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
+  uint32_t* ring = reinterpret_cast<uint32_t*>(smem + kBarrierBytes);
+  const int pieces = bits + (valid != nullptr);
+  const int stage_words = pieces * kTileLanes;
+  const long long tiles = ng * kTilesPerGroup;
+  const long long first = blockIdx.x, step = gridDim.x;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) barrier_init(bars + s);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  // warp 0: the tile t into stage s
+  const auto issue = [&](long long t, int s) {
+    const long long g = t / kTilesPerGroup;
+    const int j = static_cast<int>(t % kTilesPerGroup) * kTileLanes;
+    uint64_t* bar = bars + s;
+    uint32_t* dst = ring + s * stage_words;
+    const int lane = threadIdx.x;
+    if (lane == 0) barrier_expect(bar, static_cast<uint32_t>(pieces) * kPieceBytes);
+    __syncwarp();
+    for (int w = lane; w < pieces; w += 32) {
+      const uint32_t* src =
+          w < bits ? packed + (g * bits + w) * kLanes + j : valid + g * kLanes + j;  // w == bits: validity
+      bulk_load(dst + w * kTileLanes, src, kPieceBytes, bar);
+    }
+  };
+  const auto ref_of = [&](long long t) -> uint32_t {
+    return refs_g != nullptr && t < tiles ? static_cast<uint32_t>(__ldg(refs_g + t / kTilesPerGroup)) : 0u;
+  };
+  // Tile t = first + k * step is this block's tile k; ahead = its tile k +
+  // stages - 1, in stage fill. No division in the loop: the stage and the
+  // barrier's phase parity advance with k.
+  long long ahead = first;
+  for (int s = 0; s < stages - 1; ++s, ahead += step) {
+    if (threadIdx.x < 32 && ahead < tiles) issue(ahead, s);
+  }
+  int stage = 0, fill = stages - 1;
+  uint32_t parity = 0;
+  uint32_t ref_next = ref_of(first);
+  for (long long t = first; t < tiles; t += step, ahead += step) {
+    if (threadIdx.x < 32 && ahead < tiles) issue(ahead, fill);
+    const uint32_t ref = ref_next;
+    ref_next = ref_of(t + step);
+    barrier_wait(bars + stage, parity);
+    fold(t / kTilesPerGroup, static_cast<int>(t % kTilesPerGroup) * kTileLanes + static_cast<int>(threadIdx.x),
+         ring + stage * stage_words + threadIdx.x, ref);
+    __syncthreads();
+    fill = stage;  // the stage just freed takes the next tile ahead
+    if (++stage == stages) {
+      stage = 0;
+      parity ^= 1u;
+    }
+  }
 }
 
 // K16. Replaces the Pallas kernel at giddy_tpu/query.py:72
@@ -64,30 +218,48 @@ __device__ __forceinline__ bool holds(int32_t a, int32_t b) {
 // out: bit i of word [g, c] = pred(value at g * GROUP + i * 1024 + c).
 // Bound: device-memory bytes. A value reads B/8 bytes of packed words and
 // writes 1 bit; at configs[0] (9 bits, 2^28 values) that is 302 MB in and
-// 33.5 MB out, ~0.10 ms at 3.35 TB/s. The operations (unpack 3, ref add,
-// key 1-2, compare, shift, OR) stay well under the bytes' time. Design:
-// thread c ORs hit << i into one register word and stores it once, a
-// coalesced 4-byte store per lane (1/32 of a decode's bytes); each packed
-// word is read once (LaneReader). key is the staged comparison value's
-// order key, a kernel argument: no tensor is read for it. The optional
-// validity words (nullable columns) are ANDed in before the store, so a
-// nullable scan is one launch. Pad bits past n are whatever the compare
-// gives, as in the reference. Op and Kind are template arguments, so the
-// slot loop has no branch on them.
+// 33.5 MB out, 0.1002 ms at 3.35 TB/s.
+// The first design (one block of 1024 threads a group, each lane walked by
+// gt::LaneReader from device memory) ran at 0.46 of that bound. One load
+// in flight a warp (~1.1 MB on the card, where HBM needs ~2 MB) was the
+// suspect, but staging alone did not move it: the same LaneReader walk
+// over tiles staged as below ran no faster. What bounded it was the fold's
+// integer instructions, ~17 a slot (the walk's offset arithmetic and
+// branch, the mask, the ref add, the key's shifts, a compare, a select and
+// an OR), against 16 integer lanes in each of an SM's four schedulers.
+// This design stages tiles through walk_tiles and cuts a slot to ~10
+// instructions: gt::SmemLaneReader takes every offset from a kernel
+// argument (two shared-memory loads, a funnel shift, the mask), the ref add
+// runs on the multiply-add pipe, a 32-bit signed key needs no sign
+// extension (by_width), and the hit is a compare and a predicated OR.
+// Measured (scripts/fold_ab_torch.py; H100 SXM at 700 W): 0.1295 ms at
+// configs[0], 0.77 of the bound, against the first design's 0.2189; the
+// two loads a slot (64 KB of shared-memory reads a 9 KB tile) and the
+// integer pipe are now both near their rates. Thread c stores its word
+// once, a coalesced 4-byte store. key is the staged comparison value's
+// order key, a kernel argument. The optional validity words (nullable
+// columns) are staged with the tile and ANDed in before the store. Pad
+// bits past n are whatever the compare gives, as in the reference. Op and
+// Kind are template arguments, so the slot loop has no branch on them.
 template <Kind K, Op O>
-__global__ void __launch_bounds__(kLanes)
+__global__ void __launch_bounds__(kTileLanes, 4)
     filter_fold_kernel(const uint32_t* __restrict__ packed, const int32_t* __restrict__ refs_g,
-                       const uint32_t* __restrict__ valid, uint32_t* __restrict__ out, int bits, int shift,
-                       int32_t key) {
-  const size_t g = blockIdx.x;
-  const int c = threadIdx.x;
-  const uint32_t ref = refs_g != nullptr ? static_cast<uint32_t>(__ldg(refs_g + g)) : 0u;
-  LaneReader r(packed + g * bits * kLanes + c, bits);
-  uint32_t word = 0;
+                       const uint32_t* __restrict__ valid, uint32_t* __restrict__ out, long long ng, int bits,
+                       int stages, int width, int32_t key, __grid_constant__ const LaneSlots slots) {
+  const uint32_t sext = sext_selector(width);
+  by_width<K>(width, [&](auto narrow) {
+    constexpr bool kNarrow = decltype(narrow)::value;
+    walk_tiles(packed, refs_g, valid, ng, bits, stages, [&](long long g, int lane, const uint32_t* tile, uint32_t ref) {
+      const SmemLaneReader r{reinterpret_cast<const unsigned char*>(tile), slots};
+      uint32_t word = 0;
 #pragma unroll
-  for (int i = 0; i < kSlots; ++i) word |= static_cast<uint32_t>(holds<O>(order_key<K>(r.next() + ref, shift), key)) << i;
-  if (valid != nullptr) word &= __ldg(valid + g * kLanes + c);
-  out[g * kLanes + c] = word;
+      for (int i = 0; i < kSlots; ++i) {
+        word = or_if<O>(word, order_key<K, kNarrow>(r.slot(i) + ref, sext), key, 1u << i);
+      }
+      if (valid != nullptr) word &= tile[bits * kTileLanes];
+      out[g * kLanes + lane] = word;
+    });
+  });
 }
 
 // K17. Replaces the Pallas kernel at giddy_tpu/aggregate.py:104
@@ -100,51 +272,82 @@ __global__ void __launch_bounds__(kLanes)
 // no validity: the canonical fill repeats valid values only).
 // Bound: device-memory bytes. A value reads B/8 bytes; the partials are
 // 3 x 4 B a lane for the sum (at configs[0] 302 MB in, 3 x 33.5 MB out,
-// ~0.12 ms at 3.35 TB/s), 4 B a lane for min/max. Design: the same lane
-// walk as K16, the accumulators in registers, one coalesced store of each
-// partial per lane. The host finishes the exact sum in 64-bit integers;
-// folding lanes further inside the block is left for a later change.
+// 0.1202 ms at 3.35 TB/s), 4 B a lane for min/max. The first design, K16's
+// lane walk from device memory, ran at 0.40 of it, bound like K16's by its
+// integer instructions. This one is K16's staged walk and slot reader,
+// with the sum in one 64-bit register (lo and its carries) and the slot
+// tests (position < n, validity) skipped by warps whose lanes take every
+// slot. Measured (scripts/fold_ab_torch.py; H100 SXM at 700 W): sum
+// 0.1524 ms at configs[0], 0.79 of the bound (first design 0.3004), min
+// 0.1302 (0.2437). One coalesced store of each partial per lane. The host
+// finishes the exact sum in 64-bit integers; folding the lanes further
+// inside the block, which would cut the 100 MB of sum partials, changes
+// what the kernel returns and is left for a later change (ROADMAP, queue
+// 1 item 10).
 template <Kind K, Agg A>
-__global__ void __launch_bounds__(kLanes)
+__global__ void __launch_bounds__(kTileLanes, 4)
     agg_fold_kernel(const uint32_t* __restrict__ packed, const int32_t* __restrict__ refs_g,
                     const uint32_t* __restrict__ valid, uint32_t* __restrict__ out0, uint32_t* __restrict__ out1,
-                    uint32_t* __restrict__ out2, int bits, int width, long long n) {
-  const size_t g = blockIdx.x;
-  const int c = threadIdx.x;
-  const uint32_t ref = refs_g != nullptr ? static_cast<uint32_t>(__ldg(refs_g + g)) : 0u;
-  LaneReader r(packed + g * bits * kLanes + c, bits);
-  // position of slot i: first + i * kLanes; every slot of a full group is < n
-  const long long first = static_cast<long long>(g) * kGroup + c;
-  if constexpr (A == Agg::kSum) {
-    const uint32_t vw = valid != nullptr ? __ldg(valid + g * kLanes + c) : 0xFFFFFFFFu;
-    uint32_t lo = 0, hi = 0, neg = 0;
+                    uint32_t* __restrict__ out2, long long ng, int bits, int stages, int width, long long n,
+                    __grid_constant__ const LaneSlots slots) {
+  const uint32_t sext = sext_selector(width);
+  by_width<K>(width, [&](auto narrow) {
+    [[maybe_unused]] constexpr bool kNarrow = decltype(narrow)::value;
+    walk_tiles(packed, refs_g, valid, ng, bits, stages, [&](long long g, int lane, const uint32_t* tile, uint32_t ref) {
+      const SmemLaneReader r{reinterpret_cast<const unsigned char*>(tile), slots};
+      // slot i sits at position g * GROUP + i * kLanes + lane: the lane's
+      // first `live` slots are < n (all 32 in every group but the last)
+      const long long rest = n - (g * kGroup + lane);
+      const int live = rest <= 0 ? 0 : rest >= kGroup ? kSlots : static_cast<int>((rest + kLanes - 1) / kLanes);
+      const size_t o = g * kLanes + lane;
+      if constexpr (A == Agg::kSum) {
+        uint32_t take = live == kSlots ? 0xFFFFFFFFu : (1u << live) - 1u;
+        if (valid != nullptr) take &= tile[bits * kTileLanes];
+        unsigned long long sum = 0;  // lo: the sum mod 2^32, hi: its carries out
+        uint32_t neg = 0;
+        const auto fold = [&](auto every) {
 #pragma unroll
-    for (int i = 0; i < kSlots; ++i) {
-      uint32_t v = r.next() + ref;
-      const bool live = first + i * kLanes < n && ((vw >> i) & 1u);
-      v = live ? v : 0u;
-      if constexpr (K == Kind::kSigned) neg += (v >> (width - 1)) & 1u;
-      const uint32_t lo2 = lo + v;
-      hi += lo2 < lo ? 1u : 0u;  // carry out
-      lo = lo2;
-    }
-    out0[g * kLanes + c] = lo;
-    out1[g * kLanes + c] = hi;
-    out2[g * kLanes + c] = neg;
-  } else {
-    int32_t acc = A == Agg::kMax ? INT_MIN : INT_MAX;
+          for (int i = 0; i < kSlots; ++i) {
+            const uint32_t x = r.slot(i) + ref;
+            const uint32_t v = decltype(every)::value || (take >> i) & 1u ? x : 0u;
+            if constexpr (K == Kind::kSigned) neg += kNarrow ? (v >> (width - 1)) & 1u : v >> 31;
+            sum += v;
+          }
+        };
+        // a warp whose lanes take every slot (no nulls, not the last group)
+        // tests no slot; the same for min and max below
+        if (__all_sync(kFullMask, take == 0xFFFFFFFFu)) {
+          fold(std::true_type{});
+        } else {
+          fold(std::false_type{});
+        }
+        out0[o] = static_cast<uint32_t>(sum);
+        out1[o] = static_cast<uint32_t>(sum >> 32);
+        out2[o] = neg;
+      } else {
+        int32_t acc = A == Agg::kMax ? INT_MIN : INT_MAX;
+        const auto fold = [&](auto every) {
 #pragma unroll
-    for (int i = 0; i < kSlots; ++i) {
-      const int32_t k = order_key<K>(r.next() + ref, 32 - width);
-      if (first + i * kLanes < n) acc = A == Agg::kMax ? max(acc, k) : min(acc, k);
-    }
-    out0[g * kLanes + c] = static_cast<uint32_t>(acc);
-  }
+          for (int i = 0; i < kSlots; ++i) {
+            const int32_t k = order_key<K, kNarrow>(r.slot(i) + ref, sext);
+            if (decltype(every)::value || i < live) acc = A == Agg::kMax ? max(acc, k) : min(acc, k);
+          }
+        };
+        if (__all_sync(kFullMask, live == kSlots)) {
+          fold(std::true_type{});
+        } else {
+          fold(std::false_type{});
+        }
+        out0[o] = static_cast<uint32_t>(acc);
+      }
+    });
+  });
 }
 
-using FilterKernel = void (*)(const uint32_t*, const int32_t*, const uint32_t*, uint32_t*, int, int, int32_t);
-using AggKernel = void (*)(const uint32_t*, const int32_t*, const uint32_t*, uint32_t*, uint32_t*, uint32_t*, int,
-                           int, long long);
+using FilterKernel = void (*)(const uint32_t*, const int32_t*, const uint32_t*, uint32_t*, long long, int, int, int,
+                              int32_t, LaneSlots);
+using AggKernel = void (*)(const uint32_t*, const int32_t*, const uint32_t*, uint32_t*, uint32_t*, uint32_t*,
+                           long long, int, int, int, long long, LaneSlots);
 
 template <Kind K>
 FilterKernel filter_instance(int op) {
@@ -182,42 +385,62 @@ KernelT by_kind(int kind, F&& pick) {
 
 inline bool valid_itemsize(int itemsize) { return itemsize == 1 || itemsize == 2 || itemsize == 4; }
 
-}  // namespace gt
+// Checks a walk's stages and grid, lets kernel take the ring's dynamic
+// shared memory (the opt-in above 48 KB; an error when the ring does not
+// fit) with the carveout at its most shared memory, and launches it.
+template <typename KernelT, typename... Args>
+int launch_walk(KernelT kernel, long long ng, int bits, bool nullable, int stages, int grid, void* stream,
+                Args... args) {
+  if (stages < 2 || stages > kMaxStages || grid < 1 || grid > ng * kTilesPerGroup) return cudaErrorInvalidValue;
+  const size_t smem = kBarrierBytes + static_cast<size_t>(stages) * (bits + nullable) * kPieceBytes;
+  cudaError_t err = allow_shared(kernel, smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout, cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kTileLanes, smem, static_cast<cudaStream_t>(stream)>>>(args...);
+  return cudaGetLastError();
+}
 
-using gt::kLanes;
+}  // namespace gt
 
 extern "C" {
 
 // packed: (ng, bits * 1024) words; refs_g: (ng,) int32 or nullptr; valid:
-// (ng, 1024) words or nullptr; out: (ng, 1024) words. kind as above,
-// itemsize the logical dtype's bytes, op 0-5 = eq, ne, lt, le, gt, ge, key
-// the comparison value's order key.
+// (ng, 1024) words or nullptr; out: (ng, 1024) words. packed and valid are
+// 16-byte aligned (the bulk copies' requirement). kind as above, itemsize
+// the logical dtype's bytes, op 0-5 = eq, ne, lt, le, gt, ge, key the
+// comparison value's order key; stages (2-16) the ring's depth and grid
+// (1 to 4 * ng) the persistent blocks, as kernels/_wrap.scan_plan picks
+// them.
 int gt_filter_fold(const void* packed, const void* refs_g, const void* valid, void* out, long long ng, int bits,
-                   int kind, int itemsize, int op, int key, void* stream) {
+                   int kind, int itemsize, int op, int key, int stages, int grid, void* stream) {
   if (!gt::valid(ng, bits) || !gt::valid_itemsize(itemsize)) return cudaErrorInvalidValue;
   const gt::FilterKernel kernel =
       gt::by_kind<gt::FilterKernel>(kind, [&](auto k) { return gt::filter_instance<decltype(k)::value>(op); });
   if (kernel == nullptr) return cudaErrorInvalidValue;
-  kernel<<<static_cast<unsigned>(ng), kLanes, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(packed), static_cast<const int32_t*>(refs_g), static_cast<const uint32_t*>(valid),
-      static_cast<uint32_t*>(out), bits, 32 - 8 * itemsize, static_cast<int32_t>(key));
-  return cudaGetLastError();
+  return gt::launch_walk(kernel, ng, bits, valid != nullptr, stages, grid, stream,
+                         static_cast<const uint32_t*>(packed), static_cast<const int32_t*>(refs_g),
+                         static_cast<const uint32_t*>(valid), static_cast<uint32_t*>(out), ng, bits, stages,
+                         8 * itemsize, static_cast<int32_t>(key), gt::lane_slots(bits));
 }
 
 // agg 0 = sum (out0, out1, out2 = lo, hi, neg), 1 = min, 2 = max (out0 =
-// keys; out1, out2 unused); n the column's length, 0 <= n <= ng * GROUP.
+// keys; out1, out2 unused); n the column's length, 0 <= n <= ng * GROUP;
+// the rest as gt_filter_fold.
 int gt_agg_fold(const void* packed, const void* refs_g, const void* valid, void* out0, void* out1, void* out2,
-                long long ng, int bits, long long n, int kind, int itemsize, int agg, void* stream) {
+                long long ng, int bits, long long n, int kind, int itemsize, int agg, int stages, int grid,
+                void* stream) {
   if (!gt::valid(ng, bits) || !gt::valid_itemsize(itemsize) || n < 0 || n > ng * gt::kGroup)
     return cudaErrorInvalidValue;
   if (agg == 0 && (out1 == nullptr || out2 == nullptr)) return cudaErrorInvalidValue;
   const gt::AggKernel kernel =
       gt::by_kind<gt::AggKernel>(kind, [&](auto k) { return gt::agg_instance<decltype(k)::value>(agg); });
   if (kernel == nullptr) return cudaErrorInvalidValue;
-  kernel<<<static_cast<unsigned>(ng), kLanes, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(packed), static_cast<const int32_t*>(refs_g), static_cast<const uint32_t*>(valid),
-      static_cast<uint32_t*>(out0), static_cast<uint32_t*>(out1), static_cast<uint32_t*>(out2), bits, 8 * itemsize, n);
-  return cudaGetLastError();
+  return gt::launch_walk(kernel, ng, bits, valid != nullptr, stages, grid, stream,
+                         static_cast<const uint32_t*>(packed), static_cast<const int32_t*>(refs_g),
+                         static_cast<const uint32_t*>(valid), static_cast<uint32_t*>(out0),
+                         static_cast<uint32_t*>(out1), static_cast<uint32_t*>(out2), ng, bits, stages,
+                         8 * itemsize, n, gt::lane_slots(bits));
 }
 
 }  // extern "C"

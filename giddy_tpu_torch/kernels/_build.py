@@ -48,8 +48,8 @@ _SIGNATURES = {
     "gt_dzbv_group_decode": [_P, _P, _P, _P, _P, _L, _L, _L, _P, _L, _I, _P],
     "gt_dzbv_plane_counts": [_P, _P, _L, _P],
     "gt_dzbv_plane_decode": [_P, _P, _P, _P, _P, _L, _L, _L, _P, _P, _L, _I, _P],
-    "gt_filter_fold": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _P],
-    "gt_agg_fold": [_P, _P, _P, _P, _P, _P, _L, _I, _L, _I, _I, _I, _P],
+    "gt_filter_fold": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _P],
+    "gt_agg_fold": [_P, _P, _P, _P, _P, _P, _L, _I, _L, _I, _I, _I, _I, _I, _P],
     "gt_lmp_pack": [_P, _P, _P, _L, _I, _I, _L, _I, _P],
 }
 

@@ -9,6 +9,8 @@ dictionary of cascade's fused stage (kernels/cascade.py).
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from ..util import GROUP, LANES
@@ -99,6 +101,48 @@ def check_scan(kind: str, itemsize: int, refs_g: torch.Tensor | None, valid: tor
             raise ValueError(f"valid words hold {valid.shape[0]} groups, the packed words {ng}")
         if valid.device != device:
             raise ValueError(f"valid words are on {valid.device}, the packed words on {device}")
+
+
+# The staged walk of K16 and K17 (csrc/scan_epilogue.cu walk_tiles): a
+# tile is B KB of packed words (+ 1 KB of validity words) for 256 lanes.
+TILES_PER_GROUP = LANES // 256
+MAX_STAGES = 8
+RING_HEADER = 128  # the stages' mbarriers
+BLOCK_RESERVED = 1024  # shared memory the runtime keeps for each block (sm_80 on)
+IN_FLIGHT = 16 * 1024  # bytes an SM should keep in flight to stream HBM (Little's law)
+H100_SHARED_PER_SM = 233_472  # 228 KB; a block may opt in to 227 KB of it
+
+
+def scan_plan(bits: int, nullable: bool, shared_per_sm: int = H100_SHARED_PER_SM) -> tuple[int, int]:
+    """(stages, blocks an SM) of K16/K17's tile ring at B = ``bits``: the
+    most blocks an SM (4 down to 1) at which at least two stages fit, and
+    with them up to MAX_STAGES stages, such that the SM keeps >= IN_FLIGHT
+    bytes of packed words in flight (stages - 1 tiles a block)."""
+    tile = (bits + nullable) * 1024
+    for blocks in (4, 3, 2, 1):
+        per_block = shared_per_sm // blocks - BLOCK_RESERVED
+        stages = min(MAX_STAGES, (per_block - RING_HEADER) // tile)
+        if stages >= 2 and blocks * (stages - 1) * bits * 1024 >= IN_FLIGHT:
+            return stages, blocks
+    raise ValueError(f"no tile ring fits {shared_per_sm} B of shared memory at bits={bits}")
+
+
+def walk_args(packed: torch.Tensor, valid: torch.Tensor | None, bits: int) -> tuple[int, int]:
+    """(stages, grid) of a K16/K17 launch on ``packed``'s card, after the
+    bulk copies' check that ``packed`` and ``valid`` are 16-byte aligned."""
+    for t, name in ((packed, "packed words"), (valid, "valid words")):
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned for the bulk copies, got address {t.data_ptr():#x}")
+    shared_per_sm, sms = _card(packed.device)
+    stages, blocks = scan_plan(bits, valid is not None, shared_per_sm)
+    return stages, min(blocks * sms, packed.shape[0] * TILES_PER_GROUP)
+
+
+@functools.cache
+def _card(device: torch.device) -> tuple[int, int]:
+    """(shared memory an SM, SMs) of a CUDA device."""
+    props = torch.cuda.get_device_properties(device)
+    return props.shared_memory_per_multiprocessor, props.multi_processor_count
 
 
 def ptr(t: torch.Tensor | None) -> int | None:

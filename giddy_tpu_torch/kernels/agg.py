@@ -37,7 +37,7 @@ def agg_fold(packed: torch.Tensor, refs_g: torch.Tensor | None, valid: torch.Ten
     ptrs = [o.data_ptr() for o in outs] + [None] * (3 - len(outs))
     _wrap.launch(
         "gt_agg_fold", packed.device, packed.data_ptr(), _wrap.ptr(refs_g), _wrap.ptr(valid), *ptrs,
-        ng, bits, n, _wrap.SCAN_KINDS.index(kind), itemsize, AGGS.index(agg),
+        ng, bits, n, _wrap.SCAN_KINDS.index(kind), itemsize, AGGS.index(agg), *_wrap.walk_args(packed, valid, bits),
     )
     LAUNCHES += 1
     return outs

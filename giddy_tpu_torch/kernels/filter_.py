@@ -35,7 +35,7 @@ def filter_fold(packed: torch.Tensor, refs_g: torch.Tensor | None, valid: torch.
     out = torch.empty((ng, LANES), dtype=torch.int32, device=packed.device)
     _wrap.launch(
         "gt_filter_fold", packed.device, packed.data_ptr(), _wrap.ptr(refs_g), _wrap.ptr(valid), out.data_ptr(),
-        ng, bits, _wrap.SCAN_KINDS.index(kind), itemsize, OPS.index(op), key,
+        ng, bits, _wrap.SCAN_KINDS.index(kind), itemsize, OPS.index(op), key, *_wrap.walk_args(packed, valid, bits),
     )
     LAUNCHES += 1
     return out

@@ -13,9 +13,9 @@ import torch
 import giddy_tpu_torch as gtt
 from giddy_tpu_torch import aggregate, kernels, nulls, query
 from giddy_tpu_torch.groupby import _codes_device_column
-from giddy_tpu_torch.kernels import agg, cascade, dict_, dzbv, encode, filter_, lanes, nbit, patch, rle
+from giddy_tpu_torch.kernels import _wrap, agg, cascade, dict_, dzbv, encode, filter_, lanes, nbit, patch, rle
 from giddy_tpu_torch.ref import lmp as ref_lmp
-from giddy_tpu_torch.util import GROUP, np_dtype, pad_to_groups
+from giddy_tpu_torch.util import GROUP, LANES, np_dtype, pad_to_groups
 
 from test_torch_inputs import (
     DICT_KINDS, OPS, SCAN_DTYPES, assert_same_column, bitmap_values, dict_values, dzbv_values, for_values, rng_of,
@@ -562,6 +562,62 @@ def test_scan_wrappers_reject_tensors_on_two_devices(cuda):
     with pytest.raises(ValueError):
         agg.agg_fold(packed, refs_g, torch.zeros((packed.shape[0], 1024), dtype=torch.int32), bits, col.n, kind,
                      itemsize, "sum")
+
+
+def _words(rng, shape, cuda) -> torch.Tensor:
+    return torch.from_numpy(rng.integers(0, 2**32, shape, dtype=np.uint64).astype(np.uint32).view(np.int32)).to(cuda)
+
+
+@pytest.mark.parametrize("groups", ["one", "past the grid"])
+@pytest.mark.parametrize("bits", range(1, 33))
+def test_scan_folds_at_every_width(cuda, bits, groups):
+    """K16 at each kind with two ops and K17 sum/min/max equal their plain
+    versions bit for bit at B = 1..32, with and without FOR refs and
+    validity words, n = ng * GROUP - 5: on one group, and on more tiles
+    than the persistent grid has blocks (not a multiple of it)."""
+    rng = rng_of(f"fold/{bits}/{groups}")
+    ng = 1 if groups == "one" else torch.cuda.get_device_properties(cuda).multi_processor_count + 3
+    n = ng * GROUP - 5
+    packed = _words(rng, (ng, bits * LANES), cuda)
+    first = lanes.lmp_unpack(packed[:1], bits).reshape(-1)[:1]
+    for refs_g in (None, _words(rng, (ng,), cuda)):
+        u0 = first if refs_g is None else lanes.wrap32(first.to(torch.int64) + refs_g[:1])
+        for vw in (None, _words(rng, (ng, LANES), cuda)):
+            for kind, itemsize in (("u", 4), ("i", 2), ("f", 4)):
+                keys = {"lt": int(rng.integers(-(2**31), 2**31)),
+                        "eq": int(lanes.order_key(u0, kind, itemsize)[0])}
+                for op, key in keys.items():
+                    before = kernels.launches()["filter_fold"]
+                    got = filter_.filter_fold(packed, refs_g, vw, bits, kind, itemsize, op, key)
+                    assert kernels.launches()["filter_fold"] == before + 1
+                    want = lanes.filter_fold(packed, refs_g, vw, bits, kind, itemsize, op, key)
+                    torch.cuda.synchronize()
+                    assert torch.equal(got, want), (kind, op, refs_g is None, vw is None)
+                for name in ("sum", "min", "max"):
+                    w = vw if name == "sum" else None
+                    got = agg.agg_fold(packed, refs_g, w, bits, n, kind, itemsize, name)
+                    want = lanes.agg_fold(packed, refs_g, w, bits, n, kind, itemsize, name)
+                    torch.cuda.synchronize()
+                    assert all(torch.equal(g, x) for g, x in zip(got, want)), (kind, name, refs_g is None, vw is None)
+
+
+def test_scan_wrappers_reject_misaligned_words(cuda):
+    """The bulk copies of K16/K17 need 16-byte aligned packed and validity
+    words: a view 4 bytes off raises, and nothing launches."""
+    ng, bits = 2, 9
+    flat = torch.zeros(ng * bits * LANES + 1, dtype=torch.int32, device=cuda)
+    packed = flat[1:].view(ng, bits * LANES)
+    valid = torch.zeros(ng * LANES + 1, dtype=torch.int32, device=cuda)[1:].view(ng, LANES)
+    aligned = flat[:-1].view(ng, bits * LANES)
+    before = kernels.launches()
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        filter_.filter_fold(packed, None, None, bits, "i", 4, "lt", 5)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        agg.agg_fold(packed, None, None, bits, ng * GROUP, "i", 4, "min")
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        agg.agg_fold(aligned, None, valid, bits, ng * GROUP, "i", 4, "sum")
+    assert kernels.launches() == before
+    assert _wrap.walk_args(aligned, None, bits)[1] <= ng * _wrap.TILES_PER_GROUP
 
 
 # -- device encode: K18 lmp_pack and the encoders around it ------------------

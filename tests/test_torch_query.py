@@ -15,7 +15,7 @@ import giddy_tpu as gt
 import giddy_tpu_torch as gtt
 from giddy_tpu import query as jq
 from giddy_tpu_torch import kernels, query
-from giddy_tpu_torch.kernels import agg, filter_
+from giddy_tpu_torch.kernels import _wrap, agg, filter_
 from giddy_tpu_torch.util import GROUP, LANES, dtype_to_u32
 
 from test_torch_inputs import OPS, SCAN_DTYPES, rng_of, scan_key, scan_thresholds, scan_values, want_mask
@@ -245,6 +245,26 @@ def _packed(ng=2, bits=9):
 def test_scan_wrappers_reject_bad_arguments(call, exc):
     with pytest.raises(exc):
         call()
+
+
+# (stages, blocks an SM) that K16/K17's tile ring takes on an H100, pinned
+PLAN_PINS = {1: (8, 4), 9: (6, 4), 16: (3, 4), 32: (2, 3)}
+
+
+@pytest.mark.parametrize("nullable", [False, True])
+@pytest.mark.parametrize("bits", range(1, 33))
+def test_scan_plan_fits_and_keeps_bytes_in_flight(bits, nullable):
+    """K16/K17's tile ring on an H100 (228 KB of shared memory an SM, 1 KB
+    of it kept for each block): a block's ring within the 227 KB opt-in,
+    the SM's blocks within its shared memory, and >= 16 KB of packed words
+    in flight an SM at every width."""
+    stages, blocks = _wrap.scan_plan(bits, nullable)
+    ring = _wrap.RING_HEADER + stages * (bits + nullable) * 1024  # csrc/scan_epilogue.cu launch_walk
+    assert 2 <= stages <= _wrap.MAX_STAGES and 1 <= blocks <= 4
+    assert ring <= 227 * 1024 and blocks * (ring + 1024) <= 228 * 1024
+    assert blocks * (stages - 1) * bits * 1024 >= 16 * 1024
+    if bits in PLAN_PINS and not nullable:
+        assert (stages, blocks) == PLAN_PINS[bits]
 
 
 def test_scan_entry_points_refuse_what_is_not_ported():
