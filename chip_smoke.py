@@ -11,7 +11,8 @@ column in each of its three stream forms, and beside configs[4] through
 ``filter_bitmap`` through the fused filter K16, ``aggregate.sum_`` /
 ``min_`` / ``max_`` / ``avg_`` through the fused aggregate K17, nullable
 and dictionary columns, one general-path column; K16 and K17 also held
-against their plain versions at every packed width), device encode (the
+against their plain versions at every packed width, K13 and K14 at every
+tile stride and row width), device encode (the
 configs[0]-[3] columns through ``kernels.encode``: ``encode_nbit_device``,
 ``delta_streams_device`` / ``for_streams_device``, ``encode_dict_device``
 and ``encode_rle_device``, the LMP pack K18 under all but the last, each
@@ -523,7 +524,8 @@ def dzbv_column(kind: str, n: int, rng, per_tile: int = 16) -> np.ndarray:
 def dzbv_checks(rng, n: int) -> None:
     """K13-K15: each kind of column in the prep's form and in all three,
     forced tile strides that divide 128 and that straddle its windows,
-    narrow stores in every form, n = 0."""
+    narrow stores in every form, n = 0; then K13 and K14 at every stride
+    and row width (dzbv_width_checks)."""
     for kind, picks in (("mixed", None), ("skewed", "group"), ("group_skewed", "plane"), ("one_byte", "tile"),
                         ("two_bytes", None), ("full", None)):
         v = dzbv_column(kind, n, rng)
@@ -545,6 +547,35 @@ def dzbv_checks(rng, n: int) -> None:
     col = gtt.encode(np.zeros(0, np.int32), "dzbv")
     for form in DZBV_FORMS:
         check_kernel(f"dzbv n=0 {form}", col, np.zeros(0, np.int32), dzbv.form_streams(col, form))
+    dzbv_width_checks(np.random.default_rng(89))  # its own seed: the later phases' data stays as it was
+
+
+def dzbv_width_checks(rng) -> None:
+    """K13 at every stride s = 8..128 and K14 at every row width w4 = 1..8,
+    with planes {1}, {1, 2} and {1, 2, 3}, against their plain versions bit
+    for bit, on one group and on 2 * SMs + 3 (two blocks an SM, and then
+    some): width codes with exactly s (K13) or 16 * w4 (K14) of the widest
+    values in every tile, so every tile's row slot (K13) or group's row
+    (K14) is full, random plane 0 and random rows."""
+    sms = torch.cuda.get_device_properties(CUDA).multi_processor_count
+    launches = 0
+    for ng in (1, 2 * sms + 3):
+        # a random order of each tile's values: its first `per` are the wide ones
+        order = np.argsort(np.argsort(rng.random((ng * GROUP // 128, 128)), axis=1), axis=1)
+        order = torch.from_numpy(order.reshape(ng, GROUP).astype(np.int32)).to(CUDA)
+        plane0 = card_words(rng, (ng, 8 * 1024))
+        for form, shapes, unit in (("tile", range(8, 129, 8), 64), ("group", range(1, 9), 1024)):
+            name = DZBV_FORMS[form]
+            for a in shapes:
+                wide = (order < (a if form == "tile" else 16 * a)).to(torch.int32)
+                for planes in (1, 2, 3):
+                    widths = lanes.pack_lanes(wide * planes, 2)
+                    rows = tuple(card_words(rng, (ng, unit * a)) if k < planes else None for k in range(3))
+                    compare(f"dzbv {form} {'s' if form == 'tile' else 'w4'}={a} planes 1..{planes} ng={ng}", name,
+                            getattr(dzbv, name)(widths, plane0, rows), getattr(lanes, name)(widths, plane0, rows))
+                    launches += 1
+    print(f"[kernel] dzbv_tile_decode at s=8..128 and dzbv_group_decode at w4=1..8, planes {{1}}, {{1, 2}}, {{1, 2, 3}}, "
+          f"ng=1 and {2 * sms + 3}, rows full: {launches} launches bit-exact vs plain")
 
 
 SCAN_DTYPES = ("int32", "uint32", "float32", "int8", "int16", "uint8", "uint16")

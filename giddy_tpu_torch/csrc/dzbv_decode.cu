@@ -7,26 +7,25 @@
 // p = i * 1024 + c of its group for slots i = 0..31, and stores slot i at
 // g * 32768 + p, so stores are warp-coalesced; every entry point launches
 // on the stream it is given, allocates nothing, and returns
-// cudaGetLastError() after the launch, or cudaErrorInvalidValue for
-// arguments it does not take. out_bytes 4/2/1 stores the uint32 payload or
-// its low 16/8 bits (the logical result of a narrow column).
+// cudaGetLastError() after the launch, the error of a refused shared-memory
+// opt-in, or cudaErrorInvalidValue for arguments it does not take.
+// out_bytes 4/2/1 stores the uint32 payload or its low 16/8 bits (the
+// logical result of a narrow column).
 //
 // Value p of a group has w(p) - 1 in the LMP(2) widths stream and byte 0
 // in the LMP(8) plane 0. For each plane k = 1..3 that is present, a value
 // with w - 1 >= k takes byte k from the plane's stream at its rank among
 // those values: within its 128-value tile (K13), within its group (K14) or
-// within the column (K15). The three kernels are one template: every thread
-// loads its lane's 32 width codes once (two words, 2 bits a slot); phase 1
-// takes, for each slot and plane, one __ballot_sync and writes the warp's
-// popcount into a 32 x 32 (slot, warp) table in shared memory, three planes
-// in 16-bit fields of a uint64; after one __syncthreads() K14 and K15 turn
-// the table into an exclusive scan in linear order (slot-major, so the
-// group's order), with two more barriers. Phase 2 takes the ballots again
-// and ranks each value as the table entry before its warp plus its
-// in-warp prefix popcount, then loads its byte straight from device memory
-// through the read-only cache: consecutive ranks are consecutive words of
-// every form's layout, so a warp's loads of a plane fall in one or two
-// 128-byte lines. The TPU reference's MXU byte-field scans, 128-lane gather
+// within the column (K15). All three rank alike: every thread loads its
+// lane's 32 width codes once (two words, 2 bits a slot); phase 1 takes, for
+// each slot and plane, one __ballot_sync and writes the warp's popcount
+// into a 32 x 32 (slot, warp) table in shared memory, three planes in
+// 16-bit fields of a uint64; after one __syncthreads() the table becomes an
+// exclusive scan (K14 and K15: of all 1024 entries in (slot, warp) order,
+// the group's order, with two more barriers; K13: of each tile's four warps,
+// plus the tile's first byte in its row). Phase 2 takes the ballots again
+// and ranks each value as its warp's table entry plus its in-warp prefix
+// popcount. The TPU reference's MXU byte-field scans, 128-lane gather
 // windows and roll networks (giddy_tpu/kernels/dzbv.py, lanes.py) are TPU
 // design and have no counterpart here.
 // Bound: device-memory bytes, 0.25 (widths) + 1 (plane 0) + the plane bytes
@@ -42,17 +41,6 @@
 
 namespace gt {
 
-// The streams of byte planes 1..3 (plane k at index k - 1; nullptr where
-// the plane is absent) and each one's shape: the tile stride s_k in bytes
-// (tile form), the row width w4_k in units of 1024 words (group-row form),
-// or the stream's row count (on-disk form).
-struct DzbvPlanes {
-  const uint32_t* words[3];
-  long long shape[3];
-};
-
-enum class DzbvForm { kTile, kGroup, kPlane };
-
 // Lane c's 32 width codes w - 1 of group g: slot i in bits 2i, 2i+1 (LMP(2)
 // holds slots 0..15 in word 0 and 16..31 in word 1 of the lane).
 __device__ __forceinline__ uint64_t lane_width_codes(const uint32_t* __restrict__ widths, size_t g, int c) {
@@ -64,50 +52,369 @@ __device__ __forceinline__ uint32_t code_at(uint64_t codes, int i) {
   return static_cast<uint32_t>(codes >> (2 * i)) & 3u;
 }
 
+// -- K13 and K14: the group's plane rows staged in shared memory ----------
+//
+// K13 replaces giddy_tpu/kernels/dzbv.py:340 _tile_pass_call (body
+// :354-438), K14 :461 _single_pass_call (body :471-502). In both forms a
+// group's bytes of plane k are one contiguous row of its stream: K13's trow
+// row of 256 * s_k bytes at byte g * 256 * s_k, K14's prow row of
+// 4096 * w4_k bytes at g * 4096 * w4_k. So warp 0 stages the block's rows
+// in dynamic shared memory with bulk async copies (2 KB each, one mbarrier
+// expecting all their bytes) before anything else; phase 1 and the table
+// scan run while they land, and a second block on the SM is in its phase 2
+// meanwhile (<= 96 KB of rows + the 8.4 KB table a block: two blocks of
+// 1024 threads fit an SM at every stride and row width,
+// kernels/_wrap.dzbv_plan). Once they land, each row is rotated into
+// linear byte order in place (linearize), and phase 2 reads a value's byte
+// with one byte load at the row's address plus its rank, clamped to the
+// row: 32 consecutive ranks fall in 8 consecutive words, a load without
+// bank conflicts.
+// What bounds it: instructions. The first design, one template with K15,
+// ran at 0.26-0.31 of the byte bound at 2^26 with ~157 (K14) and ~264
+// (K13) warp instructions a slot: per plane a dependent 4-byte __ldg of the
+// byte's word, 64-bit address arithmetic, a range check and, in K13, a sum
+// of 0-3 table entries; staging alone did not move it. This one runs ~48 (K14) and
+// ~44 (K13) a slot, 0.74 of the bound (scripts/profile_dzbv_torch.py;
+// PERF.md): a slot's plane test is one predicate-setting AND on a lane mask
+// (ballot_bit), K13 folds its tile's prefix and row offset into the table
+// once, after phase 1, so both forms read one table entry a slot, and the
+// load is branch-free. Staging whole rows also reads their padding (K13's
+// strides and K14's row widths past a group's count), which the bound,
+// counting the compressed streams only, does not.
+
+enum class DzbvForm { kTile, kGroup };
+
+constexpr uint32_t kStagePiece = 2048;  // bytes of one bulk copy; every row is a multiple
+
+// What a staged block needs to know of the planes, built on the host
+// (stage_rows) and passed by value, so each field is a uniform operand:
+// plane k (index k - 1) has a group row of bytes[k] bytes at rows[k] +
+// g * bytes[k] (0 bytes where absent), staged at byte off[k] of the block's
+// dynamic shared memory, the rows back to back in plane order.
+struct DzbvRows {
+  const unsigned char* rows[3];
+  uint32_t bytes[3];
+  uint32_t off[3];
+  // off + the row's last byte (0 where absent). K13 clamps a rank to it,
+  // as the plain version clamps; K14 reads 0 past it.
+  uint32_t last[3];
+  uint32_t tile_lo;  // K13: s_1 | s_2 << 16, the row offsets a tile adds to the table's fields 0 and 1
+  uint32_t tile_hi;  // K13: s_3, to field 2
+  uint32_t total;    // bytes staged a group
+};
+
+// The even bits of x (bits 0, 2, .., 30) as bits 0..15.
+__device__ __forceinline__ uint32_t even_bits(uint32_t x) {
+  x &= 0x55555555u;
+  x = (x | (x >> 1)) & 0x33333333u;
+  x = (x | (x >> 2)) & 0x0F0F0F0Fu;
+  x = (x | (x >> 4)) & 0x00FF00FFu;
+  return (x | (x >> 8)) & 0x0000FFFFu;
+}
+
+// Lane c's slot masks of group g: bit i of mask k is set where the value of
+// slot i is wider than k + 1 bytes (its code w - 1 > k) and plane k + 1 is
+// present, so that a slot's test is one AND.
+__device__ __forceinline__ void lane_plane_masks(const uint32_t* __restrict__ widths, size_t g, int c,
+                                                 const bool (&has)[3], uint32_t (&mask)[3]) {
+  const uint64_t codes = lane_width_codes(widths, g, c);
+  const uint64_t b0 = codes, b1 = codes >> 1;
+  const uint64_t wide[3] = {b0 | b1, b1, b0 & b1};
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    mask[k] = has[k] ? even_bits(static_cast<uint32_t>(wide[k])) | (even_bits(static_cast<uint32_t>(wide[k] >> 32)) << 16)
+                     : 0u;
+  }
+}
+
+// Rotates each staged 2^L-byte block into linear order in place, so that
+// byte m of a row lies at byte off + m: K14's rows are LMP(8) cut to
+// w4 * 1024 words, byte m of a 4 KB block in word m % 1024 at byte m / 1024
+// (L = 12); K13's T8 rows hold byte m of a 512-byte block in word m % 128 at
+// byte m / 128 (L = 9). A block's 16-byte quad q (words 4q .. 4q + 3) holds
+// byte b of each at b * 2^(L-2) + 4q + i, so it gives the linear words
+// b * 2^(L-4) + q: one 4 x 4 byte transpose (8 byte permutes) a quad. A
+// block is 2^(L-4) quads, read by a team of 2^(L-9) warps before any of them
+// writes it back: one warp, synced by __syncwarp (K13), or eight, by a
+// named barrier a team (K14). Every thread of the block calls it once.
+template <int L>
+__device__ __forceinline__ void linearize(unsigned char* staged, uint32_t total, int c) {
+  constexpr int kQuads = 1 << (L - 4);  // a block's quads: 32 or 256
+  constexpr int kTeam = kQuads / 32;    // warps a block: 1 or 8
+  const int team = (c >> 5) / kTeam;
+  const int q = c & (kQuads - 1);
+  for (uint32_t at = static_cast<uint32_t>(team) << L; at < total; at += (32u / kTeam) << L) {
+    const uint4 w = reinterpret_cast<const uint4*>(staged + at)[q];
+    if constexpr (kTeam == 1) {
+      __syncwarp();
+    } else {
+      asm volatile("bar.sync %0, %1;" ::"r"(1 + team), "r"(32 * kTeam) : "memory");
+    }
+    const uint32_t x01 = __byte_perm(w.x, w.y, 0x5140), x23 = __byte_perm(w.x, w.y, 0x7362);
+    const uint32_t z01 = __byte_perm(w.z, w.w, 0x5140), z23 = __byte_perm(w.z, w.w, 0x7362);
+    uint32_t* out = reinterpret_cast<uint32_t*>(staged + at) + q;
+    out[0] = __byte_perm(x01, z01, 0x5410);
+    out[kQuads] = __byte_perm(x01, z01, 0x7632);
+    out[2 * kQuads] = __byte_perm(x23, z23, 0x5410);
+    out[3 * kQuads] = __byte_perm(x23, z23, 0x7632);
+  }
+}
+
+// __ballot_sync(kFullMask, (word & bit) != 0), the test one predicate-
+// setting AND: through the intrinsic the compiler first makes it a 0/1
+// register (a shift, an AND and a compare).
+__device__ __forceinline__ unsigned ballot_bit(uint32_t word, uint32_t bit) {
+  unsigned r;
+  asm volatile(
+      "{\n\t.reg .pred p;\n\t.reg .b32 t;\n\t"
+      "and.b32 t, %1, %2;\n\t"
+      "setp.ne.u32 p, t, 0;\n\t"
+      "vote.sync.ballot.b32 %0, p, 0xffffffff;\n\t}"
+      : "=r"(r)
+      : "r"(word), "r"(bit));
+  return r;
+}
+
+// The byte at a shared-memory address (the staged rows' addresses are
+// uniform operands, so a byte's address is one add and one clamp).
+__device__ __forceinline__ uint32_t shared_byte(uint32_t addr) {
+  uint32_t b;
+  asm("ld.shared.u8 %0, [%1];" : "=r"(b) : "r"(addr));
+  return b;
+}
+
+// P is the highest plane present (0: every value is one byte wide); a
+// plane below it may be absent (bytes 0), and then no value reads it.
+template <typename T, DzbvForm F, int P>
+__global__ void __launch_bounds__(kLanes, 2)
+    dzbv_staged_kernel(const uint32_t* __restrict__ widths, const uint32_t* __restrict__ plane0, const DzbvRows rows,
+                       T* __restrict__ out) {
+  if constexpr (P == 0) {
+    unpack_store_lane<T, LutMode::kNone>(plane0, out, 8, 0u, Lut<LutMode::kNone>(nullptr, 0u, nullptr));
+  } else {
+    extern __shared__ __align__(128) unsigned char staged[];
+    __shared__ uint64_t table[kSlots * 32];  // (slot, warp) -> three 16-bit fields
+    __shared__ uint64_t bar;
+    const size_t g = blockIdx.x;
+    const int c = threadIdx.x;
+    const int lane = c & 31;
+    const int warp = c >> 5;
+    if (warp == 0) {  // the group's rows, first of all
+      if (lane == 0) {
+        barrier_init(&bar);
+        barrier_init_fence();
+        barrier_expect(&bar, rows.total);
+      }
+      __syncwarp();
+#pragma unroll
+      for (int k = 0; k < P; ++k) {
+        const unsigned char* src = rows.rows[k] + g * rows.bytes[k];
+        for (uint32_t b = lane * kStagePiece; b < rows.bytes[k]; b += 32 * kStagePiece)
+          bulk_load(staged + rows.off[k] + b, src + b, kStagePiece, &bar);
+      }
+    }
+    bool has[3];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) has[k] = rows.bytes[k] != 0;
+    uint32_t mask[3];
+    lane_plane_masks(widths, g, c, has, mask);
+
+    // phase 1: each warp's count of the values wider than k + 1 bytes, by
+    // slot. Four slots a turn of a rolled loop, with copies of the masks
+    // shifted as it goes: unrolled, the compiler matches these tests with
+    // phase 2's and keeps all 96 alive across the barriers, and spills.
+    {
+      uint32_t m[3] = {mask[0], mask[1], mask[2]};
+      uint64_t* row = table + warp;
+#pragma unroll 1
+      for (int j = 0; j < kSlots / 4; ++j) {
+#pragma unroll
+        for (int b = 0; b < 4; ++b) {
+          uint64_t cnt = 0;
+#pragma unroll
+          for (int k = 0; k < P; ++k)
+            cnt |= static_cast<uint64_t>(__popc(ballot_bit(m[k], 1u << b))) << (16 * k);
+          if (lane == 0) row[b * 32] = cnt;
+        }
+#pragma unroll
+        for (int k = 0; k < P; ++k) m[k] >>= 4;
+        row += 4 * 32;
+      }
+    }
+    __syncthreads();
+    // entry c (slot c / 32, warp c % 32) in thread c
+    const uint64_t x = table[c];
+    uint64_t incl = x, entry;
+    if constexpr (F == DzbvForm::kTile) {
+      // the four warps of a tile are four neighbouring entries; tile
+      // t = c / 4 starts at byte t * s_k of row k, and t * s_k plus the
+      // tile's <= 96 values before its last warp stays below 2^16, so no
+      // field carries
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        const uint64_t y = __shfl_up_sync(kFullMask, incl, off, 4);
+        if ((lane & 3) >= off) incl += y;
+      }
+      const uint32_t t = static_cast<uint32_t>(c) >> 2;
+      entry = incl - x + ((static_cast<uint64_t>(t * rows.tile_hi) << 32) | (t * rows.tile_lo));
+    } else {
+      // exclusive scan of the 1024 entries in (slot, warp) order; a group's
+      // counts are <= 32768, so no 16-bit field carries
+      __shared__ uint64_t warp_sums[32];
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const uint64_t y = __shfl_up_sync(kFullMask, incl, off);
+        if (lane >= off) incl += y;
+      }
+      if (lane == 31) warp_sums[warp] = incl;
+      __syncthreads();
+      const uint64_t t = warp_sums[lane];
+      const uint32_t lo = __reduce_add_sync(kFullMask, lane < warp ? static_cast<uint32_t>(t) : 0u);
+      const uint32_t hi = __reduce_add_sync(kFullMask, lane < warp ? static_cast<uint32_t>(t >> 32) : 0u);
+      entry = ((static_cast<uint64_t>(hi) << 32) | lo) + incl - x;
+    }
+    barrier_wait(&bar, 0);
+    linearize<F == DzbvForm::kTile ? 9 : 12>(staged, rows.total, c);
+    table[c] = entry;
+    __syncthreads();
+
+    // phase 2: rank, one shared-memory byte a plane, store. first[k] and
+    // last[k] are the shared-memory addresses of row k's first and last byte.
+    const uint32_t base = smem_addr(staged);
+    uint32_t first[3], last[3];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      first[k] = base + rows.off[k];
+      last[k] = base + rows.last[k];
+    }
+    const unsigned below = (1u << lane) - 1u;
+    const uint32_t* p0 = plane0 + g * 8 * kLanes + c;
+    T* o = out + g * kGroup + c;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const uint32_t bytes0 = __ldg(p0 + j * kLanes);  // plane 0 of slots 4j .. 4j + 3
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        const int i = 4 * j + b;
+        const uint64_t e = table[i * 32 + warp];
+        const uint32_t field[3] = {static_cast<uint32_t>(e) & 0xFFFFu, static_cast<uint32_t>(e) >> 16,
+                                   static_cast<uint32_t>(e >> 32)};
+        uint32_t v = __byte_perm(bytes0, 0u, 0x4440 | b);
+#pragma unroll
+        for (int k = 0; k < P; ++k) {
+          const bool sel = mask[k] & (1u << i);
+          const unsigned ballot = ballot_bit(mask[k], 1u << i);
+          const uint32_t at = field[k] + __popc(ballot & below) + first[k];
+          // shared addresses and ranks are far below 2^31: a signed min is one instruction
+          const uint32_t byte = shared_byte(min(static_cast<int>(at), static_cast<int>(last[k])));
+          // byte k + 1 of v takes the plane's byte (selector nibble 4)
+          const uint32_t insert = k == 0 ? 0x3240u : k == 1 ? 0x3410u : 0x4210u;
+          if (F == DzbvForm::kTile ? sel : sel && at <= last[k]) v = __byte_perm(v, byte, insert);
+        }
+        o[i * kLanes] = static_cast<T>(v);
+      }
+    }
+  }
+}
+
+// The staged kernels' rows from the planes' streams and shapes (s_k for
+// K13, w4_k for K14; nullptr where a plane is absent), and the highest
+// plane present; false for a shape the form does not take.
+template <DzbvForm F>
+bool stage_rows(const void* const p[3], const long long a[3], DzbvRows* rows, int* top) {
+  *rows = DzbvRows{};
+  *top = 0;
+  uint32_t off = 0;
+  for (int k = 0; k < 3; ++k) {
+    rows->rows[k] = static_cast<const unsigned char*>(p[k]);
+    if (p[k] == nullptr) continue;
+    uint32_t bytes;
+    if constexpr (F == DzbvForm::kTile) {
+      if (a[k] < 8 || a[k] > 128 || a[k] % 8 != 0) return false;
+      bytes = 256u * static_cast<uint32_t>(a[k]);
+      if (k < 2) {
+        rows->tile_lo |= static_cast<uint32_t>(a[k]) << (16 * k);
+      } else {
+        rows->tile_hi = static_cast<uint32_t>(a[k]);
+      }
+    } else {
+      if (a[k] < 1 || a[k] > 8) return false;
+      bytes = 4096u * static_cast<uint32_t>(a[k]);
+    }
+    rows->bytes[k] = bytes;
+    rows->off[k] = off;
+    rows->last[k] = off + bytes - 1u;
+    off += bytes;
+    *top = k + 1;
+  }
+  rows->total = off;
+  return true;
+}
+
+// Checks the planes' shapes and alignment (the bulk copies need 16 bytes),
+// opts the kernel in to the staged rows' shared memory and launches it.
+template <DzbvForm F>
+int launch_staged(const void* widths, const void* plane0, const void* p1, const void* p2, const void* p3, long long a1,
+                  long long a2, long long a3, void* out, long long ng, int out_bytes, void* stream) {
+  if (!valid(ng, 1) || widths == nullptr || plane0 == nullptr || out == nullptr) return cudaErrorInvalidValue;
+  const void* const p[3] = {p1, p2, p3};
+  const long long a[3] = {a1, a2, a3};
+  DzbvRows rows;
+  int top;
+  if (!stage_rows<F>(p, a, &rows, &top)) return cudaErrorInvalidValue;
+  for (const void* q : p) {
+    if (reinterpret_cast<uintptr_t>(q) % 16 != 0) return cudaErrorInvalidValue;
+  }
+  return dispatch_out(out_bytes, [&](auto tag) -> int {
+    using T = decltype(tag);
+    using Kernel = void (*)(const uint32_t*, const uint32_t*, DzbvRows, T*);
+    const Kernel family[4] = {dzbv_staged_kernel<T, F, 0>, dzbv_staged_kernel<T, F, 1>, dzbv_staged_kernel<T, F, 2>,
+                              dzbv_staged_kernel<T, F, 3>};
+    const cudaError_t err = allow_staging(family[top], rows.total);
+    if (err != cudaSuccess) return err;
+    family[top]<<<static_cast<unsigned>(ng), kLanes, rows.total, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint32_t*>(widths), static_cast<const uint32_t*>(plane0), rows, static_cast<T*>(out));
+    return cudaGetLastError();
+  });
+}
+
+// -- K15: the on-disk planes ----------------------------------------------
+
+// The streams of byte planes 1..3 (plane k at index k - 1; nullptr where
+// the plane is absent) and each one's row count.
+struct DzbvPlanes {
+  const uint32_t* words[3];
+  long long shape[3];
+};
+
 __device__ __forceinline__ uint32_t byte_of(const uint32_t* word, uint32_t pos) {
   return (__ldg(word) >> (8 * pos)) & 0xFFu;
 }
 
-// Byte k+1 of the value of slot i, warp `warp` of group g, at `rank` among
-// the values of its tile (kTile), group (kGroup) or column (kPlane: offset
-// is the group's first rank in the plane). Each address is clamped into its
-// stream, as the plain versions clamp, so malformed streams read nothing
-// outside it; a group row's bytes past its w4 * 4096 read 0.
-template <DzbvForm F>
-__device__ __forceinline__ uint32_t plane_byte(const DzbvPlanes& planes, int k, size_t g, int i, int warp,
-                                               uint32_t rank, long long offset) {
+// Byte k+1 of the value at `rank` among the values of its group, offset the
+// group's first rank in the plane: LMP(8) of the whole plane, byte r in
+// group r / 32768 of the stream. The address is clamped into the stream,
+// as the plain version clamps, so malformed streams read nothing outside
+// it.
+__device__ __forceinline__ uint32_t plane_byte(const DzbvPlanes& planes, int k, uint32_t rank, long long offset) {
   const uint32_t* words = planes.words[k];
-  if constexpr (F == DzbvForm::kTile) {
-    // tile t = i * 8 + warp / 4 (positions [128 t, 128 t + 128)); its bytes
-    // start at t * s of the group's row of 256 * s bytes, T8-packed: byte q
-    // in word (q / 512) * 128 + q % 128, bits 8 * ((q / 128) % 4)
-    const uint32_t s = static_cast<uint32_t>(planes.shape[k]);
-    const uint32_t q = min((static_cast<uint32_t>(i) * 8u + (warp >> 2)) * s + rank, 256u * s - 1u);
-    return byte_of(words + g * 64 * s + (q >> 9) * 128 + (q & 127u), (q >> 7) & 3u);
-  } else if constexpr (F == DzbvForm::kGroup) {
-    // LMP(8) of the group's front-compacted bytes, cut to w4 * 1024 words:
-    // byte m at slot m / 1024 of lane m % 1024
-    const long long w4 = planes.shape[k];
-    if ((rank >> 12) >= w4) return 0u;
-    return byte_of(words + g * w4 * kLanes + (rank >> 12) * kLanes + (rank & 1023u), (rank >> 10) & 3u);
-  } else {
-    // LMP(8) of the whole plane: byte r in group r / 32768 of the stream
-    const long long r = min(offset + rank, planes.shape[k] * kGroup - 1);
-    const uint32_t m = static_cast<uint32_t>(r & (kGroup - 1));
-    return byte_of(words + (r >> 15) * (8 * kLanes) + (m >> 12) * kLanes + (m & 1023u), (m >> 10) & 3u);
-  }
+  const long long r = min(offset + rank, planes.shape[k] * kGroup - 1);
+  const uint32_t m = static_cast<uint32_t>(r & (kGroup - 1));
+  return byte_of(words + (r >> 15) * (8 * kLanes) + (m >> 12) * kLanes + (m & 1023u), (m >> 10) & 3u);
 }
 
-// K13 (kTile), K14 (kGroup) and K15's decode (kPlane; offsets is (3, ng)
-// int64, each group's first rank in planes 1..3). K13 replaces
-// giddy_tpu/kernels/dzbv.py:340 _tile_pass_call (body :354-438), K14
-// :461 _single_pass_call (body :471-502) and K15 the two-pass plane decode
-// of :512 _unpack_call and :519 _decode_xla (the unpacks, the cumsum rank
-// and the take in one pass after the count kernel below).
-template <typename T, DzbvForm F>
+// K15's decode (offsets is (3, ng) int64, each group's first rank in planes
+// 1..3): replaces the two-pass plane decode of giddy_tpu/kernels/dzbv.py:512
+// _unpack_call and :519 _decode_xla (the unpacks, the cumsum rank and the
+// take in one pass after the count kernel below). Its ranks run over the
+// column and a group's bytes start anywhere in a plane's stream, so it
+// loads each byte from device memory through the read-only cache:
+// consecutive ranks are consecutive words, so a warp's loads of a plane
+// fall in one or two 128-byte lines.
+template <typename T>
 __global__ void __launch_bounds__(kLanes)
-    dzbv_decode_kernel(const uint32_t* __restrict__ widths, const uint32_t* __restrict__ plane0, DzbvPlanes planes,
-                       const long long* __restrict__ offsets, T* __restrict__ out) {
+    dzbv_plane_kernel(const uint32_t* __restrict__ widths, const uint32_t* __restrict__ plane0, DzbvPlanes planes,
+                      const long long* __restrict__ offsets, T* __restrict__ out) {
   __shared__ uint64_t table[kSlots * 32];  // (slot, warp) -> three 16-bit counts
   __shared__ uint64_t warp_sums[32];
   const size_t g = blockIdx.x;
@@ -134,7 +441,7 @@ __global__ void __launch_bounds__(kLanes)
     if (lane == 0) table[i * 32 + warp] = cnt;
   }
   __syncthreads();
-  if constexpr (F != DzbvForm::kTile) {
+  {
     // exclusive scan of the 1024 entries in (slot, warp) order, entry c in
     // thread c; a group's counts are <= 32768, so no 16-bit field carries
     const uint64_t x = table[c];
@@ -155,10 +462,8 @@ __global__ void __launch_bounds__(kLanes)
 
   // phase 2: rank, byte loads, store
   long long offset[3] = {0, 0, 0};
-  if constexpr (F == DzbvForm::kPlane) {
 #pragma unroll
-    for (int k = 0; k < 3; ++k) offset[k] = __ldg(offsets + k * gridDim.x + g);
-  }
+  for (int k = 0; k < 3; ++k) offset[k] = __ldg(offsets + k * gridDim.x + g);
   const unsigned below = (1u << lane) - 1u;
   LaneReader b0(plane0 + g * 8 * kLanes + c, 8);
   T* o = out + g * kGroup + c;
@@ -166,19 +471,14 @@ __global__ void __launch_bounds__(kLanes)
   for (int i = 0; i < kSlots; ++i) {
     const uint32_t code = code_at(codes, i);
     uint32_t v = b0.next();
-    uint64_t before = 0;  // the selected values before this warp's, per plane
-    if constexpr (F == DzbvForm::kTile) {
-      for (int w = warp & ~3; w < warp; ++w) before += table[i * 32 + w];
-    } else {
-      before = table[i * 32 + warp];
-    }
+    const uint64_t before = table[i * 32 + warp];  // the selected values before this warp's, per plane
 #pragma unroll
     for (int k = 0; k < 3; ++k) {
       if (!has[k]) continue;
       const unsigned ballot = __ballot_sync(kFullMask, code > static_cast<uint32_t>(k));
       if (code > static_cast<uint32_t>(k)) {
         const uint32_t rank = (static_cast<uint32_t>(before >> (16 * k)) & 0xFFFFu) + __popc(ballot & below);
-        v |= plane_byte<F>(planes, k, g, i, warp, rank, offset[k]) << (8 * (k + 1));
+        v |= plane_byte(planes, k, rank, offset[k]) << (8 * (k + 1));
       }
     }
     o[i * kLanes] = static_cast<T>(v);
@@ -216,11 +516,11 @@ __global__ void __launch_bounds__(kLanes)
   }
 }
 
-// Checks the three planes' shapes for the form and launches the decode.
-template <DzbvForm F>
-int launch_dzbv(const void* widths, const void* plane0, const void* p1, const void* p2, const void* p3, long long a1,
-                long long a2, long long a3, const void* offsets, void* out, long long ng, int out_bytes,
-                void* stream) {
+// Checks the on-disk planes' row counts and the offsets, and launches K15's
+// decode.
+int launch_plane(const void* widths, const void* plane0, const void* p1, const void* p2, const void* p3, long long a1,
+                 long long a2, long long a3, const void* offsets, void* out, long long ng, int out_bytes,
+                 void* stream) {
   if (!valid(ng, 1) || widths == nullptr || plane0 == nullptr || out == nullptr) return cudaErrorInvalidValue;
   DzbvPlanes planes;
   const void* p[3] = {p1, p2, p3};
@@ -228,20 +528,11 @@ int launch_dzbv(const void* widths, const void* plane0, const void* p1, const vo
   for (int k = 0; k < 3; ++k) {
     planes.words[k] = static_cast<const uint32_t*>(p[k]);
     planes.shape[k] = p[k] != nullptr ? a[k] : 0;
-    if (p[k] == nullptr) continue;
-    bool ok;
-    if constexpr (F == DzbvForm::kTile) {
-      ok = a[k] >= 8 && a[k] <= 128 && a[k] % 8 == 0;
-    } else if constexpr (F == DzbvForm::kGroup) {
-      ok = a[k] >= 1 && a[k] <= 8;
-    } else {
-      ok = a[k] >= 1 && a[k] <= INT_MAX && offsets != nullptr;
-    }
-    if (!ok) return cudaErrorInvalidValue;
+    if (p[k] != nullptr && (a[k] < 1 || a[k] > INT_MAX || offsets == nullptr)) return cudaErrorInvalidValue;
   }
   return dispatch_out(out_bytes, [&](auto tag) -> int {
     using T = decltype(tag);
-    dzbv_decode_kernel<T, F><<<static_cast<unsigned>(ng), kLanes, 0, static_cast<cudaStream_t>(stream)>>>(
+    dzbv_plane_kernel<T><<<static_cast<unsigned>(ng), kLanes, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint32_t*>(widths), static_cast<const uint32_t*>(plane0), planes,
         static_cast<const long long*>(offsets), static_cast<T*>(out));
     return cudaGetLastError();
@@ -255,21 +546,20 @@ using gt::kLanes;
 extern "C" {
 
 // t1..t3: the trow streams (ng, 64 * s_k) of planes 1..3, nullptr where
-// absent; s1..s3 their strides.
+// absent, 16-byte aligned (the bulk copies' requirement); s1..s3 their
+// strides.
 int gt_dzbv_tile_decode(const void* widths, const void* plane0, const void* t1, const void* t2, const void* t3,
                         long long s1, long long s2, long long s3, void* out, long long ng, int out_bytes,
                         void* stream) {
-  return gt::launch_dzbv<gt::DzbvForm::kTile>(widths, plane0, t1, t2, t3, s1, s2, s3, nullptr, out, ng, out_bytes,
-                                              stream);
+  return gt::launch_staged<gt::DzbvForm::kTile>(widths, plane0, t1, t2, t3, s1, s2, s3, out, ng, out_bytes, stream);
 }
 
 // r1..r3: the prow streams (ng, w4_k * 1024) of planes 1..3, nullptr where
-// absent; w1..w3 their w4_k.
+// absent, 16-byte aligned; w1..w3 their w4_k.
 int gt_dzbv_group_decode(const void* widths, const void* plane0, const void* r1, const void* r2, const void* r3,
                          long long w1, long long w2, long long w3, void* out, long long ng, int out_bytes,
                          void* stream) {
-  return gt::launch_dzbv<gt::DzbvForm::kGroup>(widths, plane0, r1, r2, r3, w1, w2, w3, nullptr, out, ng,
-                                               out_bytes, stream);
+  return gt::launch_staged<gt::DzbvForm::kGroup>(widths, plane0, r1, r2, r3, w1, w2, w3, out, ng, out_bytes, stream);
 }
 
 // counts: (3, ng) int32.
@@ -286,8 +576,7 @@ int gt_dzbv_plane_counts(const void* widths, void* counts, long long ng, void* s
 int gt_dzbv_plane_decode(const void* widths, const void* plane0, const void* q1, const void* q2, const void* q3,
                          long long n1, long long n2, long long n3, const void* offsets, void* out, long long ng,
                          int out_bytes, void* stream) {
-  return gt::launch_dzbv<gt::DzbvForm::kPlane>(widths, plane0, q1, q2, q3, n1, n2, n3, offsets, out, ng, out_bytes,
-                                               stream);
+  return gt::launch_plane(widths, plane0, q1, q2, q3, n1, n2, n3, offsets, out, ng, out_bytes, stream);
 }
 
 }  // extern "C"

@@ -12,8 +12,9 @@
 // LaneWriter is the inverse, for the pack of device encode (K18). Also
 // here: the block-row scan every per-GROUP prefix kernel shares, the
 // fused dictionary stage (Lut), the exception phase of K9 and K12
-// (patch_group), and the host-side argument checks, output-type and
-// table-mode dispatch of the entry points.
+// (patch_group), the bulk async copies and mbarriers of the staging
+// kernels, and the host-side argument checks, shared-memory opt-ins,
+// output-type and table-mode dispatch of the entry points.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -318,6 +319,53 @@ __device__ __forceinline__ void patch_group(const int32_t* __restrict__ pos, con
   }
 }
 
+// Bulk async copies from device memory into shared memory (K13, K14, K16,
+// K17): one thread starts a copy of a contiguous run of bytes, and an
+// mbarrier in shared memory counts the bytes as they land, so no thread
+// spends registers or instructions on the copy and none waits on a copy
+// group.
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// An mbarrier that completes a phase at one arrival (the expect below) and
+// the bytes it expects. After the block's inits, one fence makes them
+// visible to the copies (barrier_init_fence).
+__device__ __forceinline__ void barrier_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(bar)) : "memory");
+}
+
+__device__ __forceinline__ void barrier_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+__device__ __forceinline__ void barrier_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(bar)), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void barrier_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+// bytes (a multiple of 16) from device memory to shared memory, both
+// 16-byte aligned; completes on bar's transaction count.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(bytes), "r"(smem_addr(bar))
+               : "memory");
+}
+
 // Most shared memory one block may opt in to on the current device.
 inline int shared_optin_bytes() {
   int dev = 0, optin = 0;
@@ -326,12 +374,26 @@ inline int shared_optin_bytes() {
   return optin;
 }
 
-// Lets kernel take `smem` bytes of dynamic shared memory (the opt-in
-// above the 48 KB default).
+// Lets kernel take `smem` bytes of dynamic shared memory. Without the
+// attribute a kernel may take 48 KB less its static shared memory, so a
+// kernel with static shared memory (K3, K6, K7's warp totals, the dzbv
+// rank table) needs it below 48 KB of dynamic shared memory too: it is set
+// for every launch that takes any.
 template <typename K>
 cudaError_t allow_shared(K kernel, size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
+  if (smem == 0) return cudaSuccess;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+}
+
+// The opt-in of the staging kernels (K13, K14, K16, K17): kernel may take
+// `smem` bytes of dynamic shared memory (an error when they do not fit),
+// with the carveout at its most shared memory, so that an SM holds as many
+// of its blocks as the staged bytes allow.
+template <typename K>
+cudaError_t allow_staging(K kernel, size_t smem) {
+  const cudaError_t err = allow_shared(kernel, smem);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout, cudaSharedmemCarveoutMaxShared);
 }
 
 // Picks the instance of a LUT-templated kernel for one launch. family is

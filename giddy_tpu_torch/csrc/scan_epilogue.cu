@@ -114,41 +114,6 @@ constexpr int kPieceBytes = kTileLanes * 4;
 constexpr int kBarrierBytes = 128;  // the stages' mbarriers, ahead of the ring
 constexpr int kMaxStages = kBarrierBytes / 8;
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void barrier_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(bar)) : "memory");
-}
-
-__device__ __forceinline__ void barrier_expect(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(bar)), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void barrier_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n\t.reg .pred p;\n\t"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-        "selp.u32 %0, 1, 0, p;\n\t}"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-  }
-}
-
-// bytes (a multiple of 16) from device memory to shared memory, both
-// 16-byte aligned; completes on bar's transaction count.
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
-  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(bytes), "r"(smem_addr(bar))
-               : "memory");
-}
-
 // Every thread of the block calls it once. fold(g, lane, tile, ref) folds
 // the thread's lane of the staged tile (tile points at its word 0 of the
 // stage; validity words, when staged, at tile[bits * kTileLanes]).
@@ -165,7 +130,7 @@ __device__ __forceinline__ void walk_tiles(const uint32_t* __restrict__ packed, 
   const long long first = blockIdx.x, step = gridDim.x;
   if (threadIdx.x == 0) {
     for (int s = 0; s < stages; ++s) barrier_init(bars + s);
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    barrier_init_fence();
   }
   __syncthreads();
   // warp 0: the tile t into stage s
@@ -386,16 +351,14 @@ KernelT by_kind(int kind, F&& pick) {
 inline bool valid_itemsize(int itemsize) { return itemsize == 1 || itemsize == 2 || itemsize == 4; }
 
 // Checks a walk's stages and grid, lets kernel take the ring's dynamic
-// shared memory (the opt-in above 48 KB; an error when the ring does not
-// fit) with the carveout at its most shared memory, and launches it.
+// shared memory (gt::allow_staging; an error when the ring does not fit)
+// and launches it.
 template <typename KernelT, typename... Args>
 int launch_walk(KernelT kernel, long long ng, int bits, bool nullable, int stages, int grid, void* stream,
                 Args... args) {
   if (stages < 2 || stages > kMaxStages || grid < 1 || grid > ng * kTilesPerGroup) return cudaErrorInvalidValue;
   const size_t smem = kBarrierBytes + static_cast<size_t>(stages) * (bits + nullable) * kPieceBytes;
-  cudaError_t err = allow_shared(kernel, smem);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout, cudaSharedmemCarveoutMaxShared);
+  const cudaError_t err = allow_staging(kernel, smem);
   if (err != cudaSuccess) return err;
   kernel<<<grid, kTileLanes, smem, static_cast<cudaStream_t>(stream)>>>(args...);
   return cudaGetLastError();

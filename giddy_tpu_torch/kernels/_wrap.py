@@ -127,15 +127,41 @@ def scan_plan(bits: int, nullable: bool, shared_per_sm: int = H100_SHARED_PER_SM
     raise ValueError(f"no tile ring fits {shared_per_sm} B of shared memory at bits={bits}")
 
 
+def check_aligned(streams: dict) -> None:
+    """Raise unless every stream ({name: tensor or None}) that a kernel
+    stages with bulk async copies starts 16-byte aligned: a misaligned
+    copy faults."""
+    for name, t in streams.items():
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned for the bulk copies, got address {t.data_ptr():#x}")
+
+
 def walk_args(packed: torch.Tensor, valid: torch.Tensor | None, bits: int) -> tuple[int, int]:
     """(stages, grid) of a K16/K17 launch on ``packed``'s card, after the
     bulk copies' check that ``packed`` and ``valid`` are 16-byte aligned."""
-    for t, name in ((packed, "packed words"), (valid, "valid words")):
-        if t is not None and t.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned for the bulk copies, got address {t.data_ptr():#x}")
+    check_aligned({"packed words": packed, "valid words": valid})
     shared_per_sm, sms = _card(packed.device)
     stages, blocks = scan_plan(bits, valid is not None, shared_per_sm)
     return stages, min(blocks * sms, packed.shape[0] * TILES_PER_GROUP)
+
+
+# The staged dzbv kernels K13 and K14 (csrc/dzbv_decode.cu
+# dzbv_staged_kernel): a block of 1024 threads decodes one group from its
+# plane rows, staged back to back in dynamic shared memory beside its
+# static rank table; two blocks fill an SM's 2048 threads, so both must fit.
+DZBV_ROW_UNIT = {"tile": 256, "group": 4096}  # a row's bytes per unit of s_k (K13) or w4_k (K14)
+# Static shared memory a block: the (slot, warp) table, K14's warp sums and
+# the mbarrier, rounded up to the rows' 128-byte alignment (ptxas: 8576 B
+# for K14, 8320 for K13).
+DZBV_STATIC = 8576
+
+
+def dzbv_plan(form: str, shapes) -> int:
+    """Bytes of dynamic shared memory of a K13 (``form`` "tile", ``shapes``
+    the planes' strides s_k) or K14 ("group", row widths w4_k) block: the
+    present planes' group rows (a shape of None or 0: the plane is absent),
+    as the kernel's launch computes them (stage_rows)."""
+    return sum(DZBV_ROW_UNIT[form] * a for a in shapes if a)
 
 
 @functools.cache

@@ -321,6 +321,8 @@ def _launch(name: str, widths: torch.Tensor, plane0: torch.Tensor, planes: tuple
     """Launch kernel ``name`` (gt_<name> of csrc/dzbv_decode.cu) on checked
     CUDA tensors: each plane's stream and ``shape_of(stream)``, None and 0
     where the plane is absent."""
+    if offsets is None:  # K13 and K14 stage each group's rows with bulk copies
+        _wrap.check_aligned({f"plane {k} rows": t for k, t in enumerate(planes, 1)})
     ng = widths.shape[0]
     out = _wrap.empty_out(ng, out_dtype, widths.device)
     _wrap.launch(

@@ -26,7 +26,7 @@ once) over 3.35 TB/s, which bounds every one of these calls.
 default) with this checkout's nvcc flags and ``-Xptxas -v`` and prints each
 kernel's registers, spills and shared memory; given SASS_FILE, it writes
 the kernels' SASS there (``cuobjdump -sass``) and prints each kernel's
-static instruction count and its loads.
+static instruction count, its loads and the sizes of its loops.
 
 ``--ncu`` profiles, for each ROOT, the first K16 and the first K17 launch
 (configs[0]: K16 ``lt 256``, K17 sum) with Nsight Compute (``ncu --set
@@ -132,36 +132,47 @@ def one(root: str) -> None:
     print(f"[ab] {root} {json.dumps(cells)}", flush=True)
 
 
-def sass_census(sass: str) -> None:
-    """Static SASS instructions of each K16/K17 kernel, with its loads from
-    device and shared memory."""
+def sass_census(sass: str, only: str = "") -> None:
+    """Static SASS instructions of each kernel (whose name holds ``only``),
+    with its loads from device and shared memory and its loops (a branch
+    back to an earlier address: the instructions from its target to it)."""
     import re
 
     name, counts = None, {}
     for line in sass.splitlines():
         head = re.match(r"\s*Function : (\S+)", line)
         if head:
-            name = head.group(1)
-            counts[name] = {"all": 0, "LDG": 0, "LDS": 0}
+            name = head.group(1) if only in head.group(1) else None
+            if name:
+                counts[name] = {"all": 0, "LDG": 0, "LDS": 0, "loops": []}
             continue
-        op = re.match(r"\s*/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_]+)", line)
+        op = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_]+)(?:\.\S+)?\s*(0x[0-9a-f]+)?", line)
         if name and op:
-            counts[name]["all"] += 1
-            for kind in ("LDG", "LDS"):
-                counts[name][kind] += op.group(1) == kind
+            c = counts[name]
+            c["all"] += 1
+            kind = op.group(2)
+            c["LDG"] += kind == "LDG"
+            c["LDS"] += kind == "LDS"
+            at = int(op.group(1), 16)
+            if kind == "BRA" and op.group(3) and int(op.group(3), 16) < at:
+                c["loops"].append((at - int(op.group(3), 16)) // 16 + 1)
     for name, c in counts.items():
-        print(f"[sass] {name}: {c['all']} instructions, {c['LDG']} LDG, {c['LDS']} LDS")
+        loops = f", loops of {c['loops']} instructions" if c["loops"] else ""
+        print(f"[sass] {name}: {c['all']} instructions, {c['LDG']} LDG, {c['LDS']} LDS{loops}")
 
 
-def ptxas(root: str, sass: str | None) -> None:
+def ptxas(root: str, sass: str | None, source: str = "scan_epilogue.cu", only: str = "") -> None:
+    """nvcc of csrc/<source> of ROOT with this checkout's flags and -Xptxas
+    -v (registers, spills, shared memory a kernel); with ``sass``, the SASS
+    written there and its census (kernels whose name holds ``only``)."""
     import tempfile
 
-    src = pathlib.Path(root) / "giddy_tpu_torch" / "csrc" / "scan_epilogue.cu"
+    src = pathlib.Path(root) / "giddy_tpu_torch" / "csrc" / source
     sys.path.insert(0, str(HERE))
     from giddy_tpu_torch.kernels import _build
 
     with tempfile.TemporaryDirectory() as tmp:
-        obj = f"{tmp}/scan_epilogue.o"
+        obj = f"{tmp}/{src.stem}.o"
         cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", obj, str(src)]
         t0 = time.perf_counter()
         out = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
@@ -173,7 +184,7 @@ def ptxas(root: str, sass: str | None) -> None:
             tool = str(pathlib.Path(_build._nvcc()).parent / "cuobjdump")
             dump = subprocess.run([tool, "-sass", obj], capture_output=True, text=True, timeout=600, check=True)
             pathlib.Path(sass).write_text(dump.stdout)
-            sass_census(dump.stdout)
+            sass_census(dump.stdout, only)
 
 
 NCU_METRICS = {

@@ -6,6 +6,8 @@ that has none:
     python -m pytest tests/test_torch_cuda.py -q
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -190,6 +192,23 @@ def test_cascade_lut_matches_plain_and_oracle(cuda, inner, d):
     got = cascade.cascade_lut(name, args)
     after = kernels.launches()
     assert after["cascade_lut"] == before["cascade_lut"] + 1 and after[name] == before[name] + 1
+    want = getattr(lanes, name)(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    np.testing.assert_array_equal(gtt.decode(col, device=cuda).cpu().numpy(), v)
+
+
+@pytest.mark.parametrize("inner,run", [("delta", 50), ("delta2", 50), ("rle", 1)])
+def test_cascade_lut_table_just_under_48_kb(cuda, inner, run):
+    """A table of d = 12250 (49,000 B, just under the default 48 KB of
+    dynamic shared memory) in shared memory beside the static warp totals
+    of K3, K7 and K6 (rle in the scatter form): the sum passes 48 KB, so
+    the launch needs the opt-in all the same."""
+    d = 12250
+    v, vocab = _cascade_values(d, np.random.default_rng(d), run=run)
+    col = gtt.encode(v, "cascade", codes_scheme=inner, dictionary=vocab)
+    name, args = kernels.kernel_call(col, gtt.device_streams(col, cuda), torch.int32)
+    got = cascade.cascade_lut(name, args)
     want = getattr(lanes, name)(*args)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
@@ -452,6 +471,101 @@ def test_dzbv_wrappers_reject_streams_on_two_devices(cuda):
             getattr(dzbv, name)(widths, plane0, (planes[0].cpu(), *planes[1:]), store)
         with pytest.raises(ValueError):
             getattr(dzbv, name)(widths, plane0.cpu(), planes, store)
+
+
+@functools.cache
+def _dzbv_column(wide_bytes: int, per_tile: int, ng: int) -> tuple:
+    """(values, column) of ng groups with exactly per_tile values wide_bytes
+    wide in every 128-value tile (planes 1 .. wide_bytes - 1), the rest one
+    byte wide; kept for the cases that share it."""
+    v = dzbv_values("per_tile", ng * GROUP, rng_of(f"staged/{wide_bytes}/{per_tile}/{ng}"), per_tile=per_tile,
+                    wide_bytes=wide_bytes).view(np.int32)
+    return v, gtt.encode(v, "dzbv")
+
+
+def _check_staged(name: str, col, streams: dict, v: np.ndarray, cuda) -> None:
+    """The staged kernel ``name`` (K13 or K14) launches once on the streams
+    and equals its plain version on the card and the input, bit for bit."""
+    got_name, args = kernels.kernel_call(col, gtt.upload(streams, cuda), torch.int32)
+    assert got_name == name
+    before = kernels.launches()[name]
+    got = getattr(dzbv, name)(*args)
+    assert kernels.launches()[name] == before + 1
+    want = getattr(lanes, name)(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert got.reshape(-1).cpu().numpy().tobytes() == v.tobytes()
+
+
+def _staged_groups(groups: str, cuda) -> int:
+    return 1 if groups == "one" else 2 * torch.cuda.get_device_properties(cuda).multi_processor_count + 3
+
+
+@pytest.mark.parametrize("groups", ["one", "past the grid"])
+@pytest.mark.parametrize("planes", [1, 2, 3])
+@pytest.mark.parametrize("s", range(8, 129, 8))
+def test_dzbv_tile_decode_at_every_stride(cuda, s, planes, groups):
+    """K13 at stride s with planes 1..planes, through tile_prep(force_s):
+    one group with exactly s of the widest values in every tile (each tile's
+    row slot full), and 2 * SMs + 3 groups (two blocks an SM, and then some)
+    with 8 in every tile."""
+    ng = _staged_groups(groups, cuda)
+    v, col = _dzbv_column(planes + 1, s if ng == 1 else 8, ng)
+    streams = dzbv.tile_prep(col, force_s=dict.fromkeys(range(1, planes + 1), s))
+    _check_staged("dzbv_tile_decode", col, streams, v, cuda)
+
+
+@pytest.mark.parametrize("groups", ["one", "past the grid"])
+@pytest.mark.parametrize("planes", [1, 2, 3])
+@pytest.mark.parametrize("w4", range(1, 9))
+def test_dzbv_group_decode_at_every_row_width(cuda, w4, planes, groups):
+    """K14 at row width w4 with planes 1..planes, through
+    group_prep(force_w4): one group with exactly 16 * w4 of the widest
+    values in every tile (its rows full, 4096 * w4 bytes), and 2 * SMs + 3
+    groups with 16 in every tile."""
+    ng = _staged_groups(groups, cuda)
+    v, col = _dzbv_column(planes + 1, 16 * w4 if ng == 1 else 16, ng)
+    streams = dzbv.group_prep(col, force_w4=dict.fromkeys(range(1, planes + 1), w4))
+    _check_staged("dzbv_group_decode", col, streams, v, cuda)
+
+
+@pytest.mark.parametrize("form", ["tile", "group"])
+def test_dzbv_staged_kernels_on_random_streams(cuda, form):
+    """K13 and K14 on random width codes, plane 0 and rows, so that tiles
+    and groups hold more values than their rows (K13 clamps into its row,
+    K14 reads 0 past it), at every store width and with plane 2 absent,
+    against the plain versions bit for bit."""
+    rng = rng_of(f"staged-random/{form}")
+    ng = 5
+    name = f"dzbv_{form}_decode"
+    unit, shapes = (64, (8, 64, 128)) if form == "tile" else (LANES, (1, 4, 8))
+    widths, plane0 = _words(rng, (ng, 2 * LANES), cuda), _words(rng, (ng, 8 * LANES), cuda)
+    rows = tuple(_words(rng, (ng, unit * a), cuda) for a in shapes)
+    for planes in (rows, (rows[0], None, rows[2])):
+        for store in (torch.int32, torch.int16, torch.uint8):
+            got = getattr(dzbv, name)(widths, plane0, planes, store)
+            want = getattr(lanes, name)(widths, plane0, planes, store)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (planes[1] is None, store)
+
+
+def test_dzbv_wrappers_reject_misaligned_rows(cuda):
+    """K13 and K14 stage each group's plane rows with bulk copies, which need
+    16-byte aligned rows: a view 4 bytes off raises and nothing launches;
+    the aligned view launches."""
+    ng = 2
+    widths = torch.zeros((ng, 2 * LANES), dtype=torch.int32, device=cuda)
+    plane0 = torch.zeros((ng, 8 * LANES), dtype=torch.int32, device=cuda)
+    for name, words in (("dzbv_tile_decode", 64 * 8), ("dzbv_group_decode", LANES)):
+        flat = torch.zeros(ng * words + 1, dtype=torch.int32, device=cuda)
+        before = kernels.launches()
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            getattr(dzbv, name)(widths, plane0, (None, flat[1:].view(ng, words), None))
+        assert kernels.launches() == before
+        out = getattr(dzbv, name)(widths, plane0, (None, flat[:-1].view(ng, words), None))
+        assert kernels.launches()[name] == before[name] + 1
+        torch.cuda.synchronize()
+        assert not out.any()
 
 
 # -- the scan epilogue: K16 filter_fold, K17 agg_fold ------------------------

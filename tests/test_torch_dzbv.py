@@ -18,7 +18,7 @@ import giddy_tpu as gt
 import giddy_tpu_torch as gtt
 from giddy_tpu.kernels import dzbv as gt_dzbv
 from giddy_tpu_torch import kernels
-from giddy_tpu_torch.kernels import dzbv, lanes
+from giddy_tpu_torch.kernels import _wrap, dzbv, lanes
 from giddy_tpu_torch.util import GROUP, LANES
 
 from test_torch_host import assert_same_streams
@@ -202,3 +202,30 @@ def test_plane_form_takes_rows_of_any_count():
     widths, plane0 = _base()
     out = dzbv.dzbv_plane_decode(widths, plane0, (None, None, _rows(5, 8 * LANES)))
     assert out.shape == (2, GROUP) and not out.any()
+
+
+H100_SHARED_PER_SM = 228 * 1024  # a block may opt in to 227 KB of it; the runtime keeps 1 KB a block
+SHAPES = {"tile": range(8, 129, 8), "group": range(1, 9)}
+
+
+@pytest.mark.parametrize("form,shape", [(form, a) for form, shapes in SHAPES.items() for a in shapes])
+def test_dzbv_plan_fits_two_blocks_an_sm(form, shape):
+    """K13 at every stride s and K14 at every row width w4, with planes {1},
+    {1, 2} and {1, 2, 3} (and a hole at plane 2): a block's staged rows and
+    static table fit the 227 KB opt-in, and two blocks of 1024 threads fit
+    an SM, so the staging never halves the threads an SM holds."""
+    for shapes in ((shape, None, None), (shape, shape, None), (shape, shape, shape), (shape, None, shape)):
+        dynamic = _wrap.dzbv_plan(form, shapes)
+        present = sum(a is not None for a in shapes)
+        assert dynamic == present * _wrap.DZBV_ROW_UNIT[form] * shape and dynamic % 2048 == 0
+        block = dynamic + _wrap.DZBV_STATIC
+        assert block <= 227 * 1024
+        assert 2 * (block + 1024) <= H100_SHARED_PER_SM
+
+
+def test_dzbv_plan_at_the_2_26_cell():
+    """The 2^26 dzbv column of chip_smoke.py stages 72 KB a group in the
+    tile form (s 128, 96, 64) and 60 KB in the group-row form (w4 7, 5, 3)."""
+    assert _wrap.dzbv_plan("tile", (128, 96, 64)) == 72 * 1024
+    assert _wrap.dzbv_plan("group", (7, 5, 3)) == 60 * 1024
+    assert _wrap.dzbv_plan("group", (None, 0, None)) == 0

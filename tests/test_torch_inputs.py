@@ -48,14 +48,15 @@ def bitmap_values(d: int, n: int, rng: np.random.Generator, dtype: str = "int32"
 DZBV_KINDS = ["mixed", "skewed", "group_skewed", "one_byte", "two_bytes", "full", "per_tile"]
 
 
-def dzbv_values(kind: str, n: int, rng: np.random.Generator, per_tile: int = 16) -> np.ndarray:
+def dzbv_values(kind: str, n: int, rng: np.random.Generator, per_tile: int = 16, wide_bytes: int = 4) -> np.ndarray:
     """uint32 values for dzbv: ``mixed`` datagen's column (widths 1-4 near
     uniform); ``skewed`` 1-byte values but one 4-byte tile at the start of
     every group (the tile form declines); ``group_skewed`` 1-byte values
     but the first group all 4 bytes wide (the group-row form declines too);
     ``one_byte`` all < 256 (no plane above 0); ``two_bytes`` all < 65536;
-    ``full`` 32-bit values; ``per_tile`` exactly ``per_tile`` 4-byte values
-    in every 128-value tile, the rest 1 byte."""
+    ``full`` 32-bit values; ``per_tile`` exactly ``per_tile`` values
+    ``wide_bytes`` wide (2-4: planes 1 to wide_bytes - 1) in every 128-value
+    tile, the rest 1 byte."""
     if kind == "mixed":
         return gen_column("dzbv", n, rng).view(np.uint32)
     if kind == "full":
@@ -63,7 +64,7 @@ def dzbv_values(kind: str, n: int, rng: np.random.Generator, per_tile: int = 16)
     if kind in ("one_byte", "two_bytes"):
         return rng.integers(0, 256 if kind == "one_byte" else 65536, n).astype(np.uint32)
     v = rng.integers(0, 256, n).astype(np.uint32)
-    wide = rng.integers(2**24, 2**32, n, dtype=np.uint64).astype(np.uint32)
+    wide = rng.integers(2 ** (8 * wide_bytes - 8), 2 ** (8 * wide_bytes), n, dtype=np.uint64).astype(np.uint32)
     if kind == "skewed":
         sel = (np.arange(n) % GROUP) < 128
     elif kind == "group_skewed":
@@ -267,6 +268,16 @@ def test_dzbv_values_have_the_widths_they_name(kind):
             assert np.array_equal(wide, np.arange(n) < GROUP)
         else:
             assert (np.add.reduceat(wide, np.arange(0, n, 128))[: n // 128] == 5).all()
+
+
+@pytest.mark.parametrize("wide_bytes", [2, 3, 4])
+def test_dzbv_per_tile_values_are_wide_bytes_wide(wide_bytes):
+    """per_tile puts exactly per_tile values wide_bytes wide in every tile
+    (the CUDA tests' columns with planes {1}, {1, 2}, {1, 2, 3})."""
+    n = 2 * GROUP
+    w = _widths(dzbv_values("per_tile", n, rng_of(f"wide{wide_bytes}"), per_tile=24, wide_bytes=wide_bytes))
+    assert set(np.unique(w)) == {1, wide_bytes}
+    assert ((w == wide_bytes).reshape(-1, 128).sum(axis=1) == 24).all()
 
 
 def test_wrapping_walk_crosses_the_int32_wrap():
