@@ -316,6 +316,7 @@ def scan_checks(rng, n: int) -> None:
     col = gtt.encode(walk, "delta2")
     check(col.params["bits"] >= 25, f"delta2 walk packs to {col.params['bits']} bits, wanted >= 25")
     check_kernel(f"delta2 random walk bits={col.params['bits']}", col, walk)
+    delta2_width_checks(np.random.default_rng(97))  # its own seed: the later phases' data stays as it was
     series = (np.cumsum(rng.normal(0, 1e-3, n)) + 300.0).astype(np.float32)
     check_kernel("xordelta float32 series", gtt.encode(series, "xordelta"), series)
     x = torch.from_numpy(rng.integers(-(2**31), 2**31, n, dtype=np.int64).astype(np.int32))
@@ -326,6 +327,24 @@ def scan_checks(rng, n: int) -> None:
         compare(f"group_prefix_sum exclusive={exclusive}", "cumsum_rows", got,
                 gtt.scan.group_prefix_sum(x, exclusive=exclusive).view(torch.int32).to(CUDA))
         print(f"[kernel] group_prefix_sum exclusive={exclusive}: cumsum_rows n={n} bit-exact vs plain")
+
+
+def delta2_width_checks(rng) -> None:
+    """K7 against its plain version at every B from 1 to 32 on random second
+    differences, with anchors and slopes across the int32 range (its sums
+    wrap mod 2^32), at every store width, on 2 * SMs + 3 groups (two blocks
+    an SM, and then some)."""
+    ng = 2 * torch.cuda.get_device_properties(CUDA).multi_processor_count + 3
+    anchors, slopes = card_words(rng, (ng,)), card_words(rng, (ng,))
+    slopes[0] = 2**31 - 1
+    for bits in range(1, 33):
+        packed = card_words(rng, (ng, bits * 1024))
+        for store in (torch.int32, torch.int16, torch.uint8):
+            compare(f"delta2 B={bits} store={store}", "delta2_decode",
+                    delta2.delta2_decode(packed, anchors, slopes, bits, store),
+                    lanes.delta2_decode(packed, anchors, slopes, bits, store))
+    print(f"[kernel] delta2_decode at B=1..32, wrapping anchors and slopes, stores 4/2/1, ng={ng}: 96 launches "
+          "bit-exact vs plain")
 
 
 def patched_column(rng, n: int, dtype: str = "int32", exceptions: bool = True) -> np.ndarray:
@@ -375,6 +394,13 @@ def cascade_checks(rng, n: int) -> None:
         v, vocab = cascade_column(rng, d, n)
         for inner in INNER_SCHEMES:
             check_kernel(f"cascade {inner} d={d}", gtt.encode(v, "cascade", codes_scheme=inner, dictionary=vocab), v)
+    limit = delta2.shared_lut_limit()
+    print(f"[kernel] delta2_decode keeps a cascade table in shared memory up to d={limit}")
+    for d in (12250, limit - 1, limit, limit + 1):  # K7's buffers take 66 KB beside the table
+        v, vocab = cascade_column(rng, d, n)
+        mode = "shared" if delta2.lut_in_shared(d) else "global"
+        check((mode == "shared") == (d <= limit), f"cascade delta2 d={d}: {mode} table")
+        check_kernel(f"cascade delta2 d={d} ({mode})", gtt.encode(v, "cascade", codes_scheme="delta2", dictionary=vocab), v)
     v, vocab = cascade_column(rng, 1000, n, run=1)
     for inner in ("rle", "rpe"):
         s = check_kernel(f"cascade {inner} d=1000 runs of 1", gtt.encode(v, "cascade", codes_scheme=inner), v)
@@ -499,8 +525,11 @@ def dzbv_column(kind: str, n: int, rng, per_tile: int = 16) -> np.ndarray:
     """int32 values for dzbv: datagen's widths 1-4 (``mixed``), one 4-byte
     tile at the start of every group (``skewed``: the tile form declines),
     the first group all 4 bytes wide (``group_skewed``: the group-row form
-    declines too), all < 256, all < 65536, 32-bit values, or exactly
-    ``per_tile`` 4-byte values in every 128-value tile, the rest 1 byte."""
+    declines too), all < 256, all < 65536, 32-bit values, exactly
+    ``per_tile`` 4-byte values in every 128-value tile, the rest 1 byte, or
+    (``windows``) 1-byte values but the first 100 of the first group, every
+    value of the groups between and all but 1100 of the last group 4 bytes
+    wide."""
     if kind == "mixed":
         return gen_column("dzbv", n, rng)
     if kind == "full":
@@ -513,6 +542,9 @@ def dzbv_column(kind: str, n: int, rng, per_tile: int = 16) -> np.ndarray:
         sel = (np.arange(n) % GROUP) < 128
     elif kind == "group_skewed":
         sel = np.arange(n) < GROUP
+    elif kind == "windows":
+        p, last = np.arange(n), (n - 1) // GROUP * GROUP
+        sel = (p < 100) | ((p >= GROUP) & (p < last)) | ((p >= max(last, GROUP)) & (p < last + GROUP - 1100))
     else:
         tiles = -(-n // 128)
         sel = np.zeros((tiles, 128), bool)
@@ -548,6 +580,32 @@ def dzbv_checks(rng, n: int) -> None:
     for form in DZBV_FORMS:
         check_kernel(f"dzbv n=0 {form}", col, np.zeros(0, np.int32), dzbv.form_streams(col, form))
     dzbv_width_checks(np.random.default_rng(89))  # its own seed: the later phases' data stays as it was
+    dzbv_window_checks(np.random.default_rng(91))
+
+
+def dzbv_window_checks(rng) -> None:
+    """K15's windows: a column whose first group holds 100 4-byte values and
+    whose other groups only 4-byte values, the last group's ranks ending in
+    its stream's last row (each middle group's ranks start 100 bytes into a
+    4 KB row and touch 9 rows of each of three planes: 110,592 B staged, one
+    block an SM) over 2 * SMs + 3 groups; then random widths and plane 0
+    over plane streams far too short for them (ranks clamp to the stream's
+    last byte), with a plane absent, at every store width."""
+    sms = torch.cuda.get_device_properties(CUDA).multi_processor_count
+    n = (2 * sms + 3) * GROUP
+    v = dzbv_column("windows", n, rng)
+    col = gtt.encode(v, "dzbv")
+    check_kernel(f"dzbv windows ng={n // GROUP}", col, v, col.streams)
+    ng = 5
+    widths, plane0 = card_words(rng, (ng, 2048)), card_words(rng, (ng, 8192))
+    for rows in ((1, 2, 3), (2, None, 1), (None, None, 4), (8, 6, 4)):
+        planes = tuple(None if a is None else card_words(rng, (a, 8192)) for a in rows)
+        for store in (torch.int32, torch.int16, torch.uint8):
+            compare(f"dzbv random plane rows {rows} store={store}", "dzbv_plane_decode",
+                    dzbv.dzbv_plane_decode(widths, plane0, planes, store),
+                    lanes.dzbv_plane_decode(widths, plane0, planes, store))
+    print(f"[kernel] dzbv_plane_decode on random widths over short plane streams, planes absent, stores 4/2/1: "
+          "12 launches bit-exact vs plain")
 
 
 def dzbv_width_checks(rng) -> None:

@@ -1,33 +1,35 @@
 // dzbv decode (discard zero bytes, variable width; FORMAT.md §1.10) of
-// giddy_tpu_torch: K13, K14 and K15, one kernel for each stream form the
-// host prep gives the byte planes (giddy_tpu_torch/kernels/dzbv.py). Same
-// conventions as lmp_decode.cu: plain C interface bound with ctypes by
-// giddy_tpu_torch/kernels/_build.py; one block of 1024 threads per GROUP
-// (grid = number of groups), thread c decodes lane c, positions
-// p = i * 1024 + c of its group for slots i = 0..31, and stores slot i at
-// g * 32768 + p, so stores are warp-coalesced; every entry point launches
-// on the stream it is given, allocates nothing, and returns
-// cudaGetLastError() after the launch, the error of a refused shared-memory
-// opt-in, or cudaErrorInvalidValue for arguments it does not take.
-// out_bytes 4/2/1 stores the uint32 payload or its low 16/8 bits (the
-// logical result of a narrow column).
+// giddy_tpu_torch: K13, K14 and K15, one kernel template (dzbv_staged_kernel)
+// with a form for each stream form the host prep gives the byte planes
+// (giddy_tpu_torch/kernels/dzbv.py). Same conventions as lmp_decode.cu:
+// plain C interface bound with ctypes by giddy_tpu_torch/kernels/_build.py;
+// one block of 1024 threads per GROUP (grid = number of groups), thread c
+// decodes lane c, positions p = i * 1024 + c of its group for slots
+// i = 0..31, and stores slot i at g * 32768 + p, so stores are
+// warp-coalesced; every entry point launches on the stream it is given,
+// allocates nothing, and returns cudaGetLastError() after the launch, the
+// error of a refused shared-memory opt-in, or cudaErrorInvalidValue for
+// arguments it does not take. out_bytes 4/2/1 stores the uint32 payload or
+// its low 16/8 bits (the logical result of a narrow column).
 //
 // Value p of a group has w(p) - 1 in the LMP(2) widths stream and byte 0
 // in the LMP(8) plane 0. For each plane k = 1..3 that is present, a value
 // with w - 1 >= k takes byte k from the plane's stream at its rank among
 // those values: within its 128-value tile (K13), within its group (K14) or
-// within the column (K15). All three rank alike: every thread loads its
-// lane's 32 width codes once (two words, 2 bits a slot); phase 1 takes, for
-// each slot and plane, one __ballot_sync and writes the warp's popcount
-// into a 32 x 32 (slot, warp) table in shared memory, three planes in
-// 16-bit fields of a uint64; after one __syncthreads() the table becomes an
-// exclusive scan (K14 and K15: of all 1024 entries in (slot, warp) order,
-// the group's order, with two more barriers; K13: of each tile's four warps,
-// plus the tile's first byte in its row). Phase 2 takes the ballots again
-// and ranks each value as its warp's table entry plus its in-warp prefix
-// popcount. The TPU reference's MXU byte-field scans, 128-lane gather
-// windows and roll networks (giddy_tpu/kernels/dzbv.py, lanes.py) are TPU
-// design and have no counterpart here.
+// within the column (K15, from each group's first rank, which a count
+// kernel and a torch cumsum over the groups give first). All three rank
+// alike: every thread loads its lane's 32 width codes once (two words, 2
+// bits a slot); phase 1 takes, for each slot and plane, one ballot and
+// writes the warp's popcount into a 32 x 32 (slot, warp) table in shared
+// memory, three planes in 16-bit fields of a uint64; after one
+// __syncthreads() the table becomes an exclusive scan (K14 and K15: of all
+// 1024 entries in (slot, warp) order, the group's order, with two more
+// barriers; K13: of each tile's four warps, plus the tile's first byte in
+// its row). Phase 2 takes the ballots again and ranks each value as its
+// warp's table entry plus its in-warp prefix popcount. The TPU reference's
+// MXU byte-field scans, 128-lane gather windows and roll networks
+// (giddy_tpu/kernels/dzbv.py, lanes.py) are TPU design and have no
+// counterpart here.
 // Bound: device-memory bytes, 0.25 (widths) + 1 (plane 0) + the plane bytes
 // read and 4, 2 or 1 written a value; the operations (ballots, popcounts,
 // addresses) are below that at 3 planes.
@@ -48,49 +50,63 @@ __device__ __forceinline__ uint64_t lane_width_codes(const uint32_t* __restrict_
   return static_cast<uint64_t>(__ldg(w)) | (static_cast<uint64_t>(__ldg(w + kLanes)) << 32);
 }
 
-__device__ __forceinline__ uint32_t code_at(uint64_t codes, int i) {
-  return static_cast<uint32_t>(codes >> (2 * i)) & 3u;
-}
-
-// -- K13 and K14: the group's plane rows staged in shared memory ----------
+// -- K13, K14 and K15: each group's plane bytes staged in shared memory ----
 //
 // K13 replaces giddy_tpu/kernels/dzbv.py:340 _tile_pass_call (body
-// :354-438), K14 :461 _single_pass_call (body :471-502). In both forms a
-// group's bytes of plane k are one contiguous row of its stream: K13's trow
-// row of 256 * s_k bytes at byte g * 256 * s_k, K14's prow row of
-// 4096 * w4_k bytes at g * 4096 * w4_k. So warp 0 stages the block's rows
-// in dynamic shared memory with bulk async copies (2 KB each, one mbarrier
-// expecting all their bytes) before anything else; phase 1 and the table
-// scan run while they land, and a second block on the SM is in its phase 2
-// meanwhile (<= 96 KB of rows + the 8.4 KB table a block: two blocks of
-// 1024 threads fit an SM at every stride and row width,
-// kernels/_wrap.dzbv_plan). Once they land, each row is rotated into
-// linear byte order in place (linearize), and phase 2 reads a value's byte
-// with one byte load at the row's address plus its rank, clamped to the
-// row: 32 consecutive ranks fall in 8 consecutive words, a load without
-// bank conflicts.
-// What bounds it: instructions. The first design, one template with K15,
-// ran at 0.26-0.31 of the byte bound at 2^26 with ~157 (K14) and ~264
-// (K13) warp instructions a slot: per plane a dependent 4-byte __ldg of the
-// byte's word, 64-bit address arithmetic, a range check and, in K13, a sum
-// of 0-3 table entries; staging alone did not move it. This one runs ~48 (K14) and
-// ~44 (K13) a slot, 0.74 of the bound (scripts/profile_dzbv_torch.py;
-// PERF.md): a slot's plane test is one predicate-setting AND on a lane mask
+// :354-438), K14 :461 _single_pass_call (body :471-502), K15 :512
+// _unpack_call and :519 _decode_xla (the unpacks, the cumsum rank and the
+// take). In each form a group's bytes of plane k are one contiguous run of
+// its stream: K13's trow row of 256 * s_k bytes at byte g * 256 * s_k, K14's
+// prow row of 4096 * w4_k bytes at g * 4096 * w4_k, and K15's window of the
+// on-disk plane: the plane is LMP(8) of the column's bytes, so its rank r
+// lies in 4 KB row r >> 12 (byte r & 4095 of the row, in word r & 1023 at
+// byte (r >> 10) & 3, as in K14's rows), and the group's ranks [off_k,
+// off_k + cnt_k) fill rows off_k >> 12 .. (off_k + cnt_k - 1) >> 12, at most
+// 9. So warp 0 stages the block's rows in dynamic shared memory with bulk
+// async copies (2 KB each, one mbarrier expecting all their bytes) before
+// anything else; K15's warp 0 first reads the group's first rank and count
+// in each plane (stage_windows) and expects the bytes of its own windows.
+// Phase 1 and the table scan run while they land, and a second block on the
+// SM, where one fits, is in its phase 2 meanwhile (K13/K14: <= 96 KB of rows
+// + the 8.4 KB table a block, two blocks of 1024 threads an SM at every
+// stride and row width; K15 sizes every block for 9 rows a plane, 36 KB:
+// two blocks at one or two planes, one at three; kernels/_wrap.dzbv_plan).
+// Once they land, each 4 KB (K13: 512 B) block is rotated into linear byte
+// order in place (linearize), and phase 2 reads a value's byte with one byte
+// load at the row's address plus its rank, clamped to the row (K15: to the
+// window, which is the plain version's clamp to the stream's last byte): 32
+// consecutive ranks fall in 8 consecutive words, a load without bank
+// conflicts.
+// What bounds it: instructions. The first design, one template for all
+// three forms with a dependent 4-byte __ldg of each byte's word, ran at
+// 0.26-0.31 of the byte bound at 2^26 with ~157 (K14, K15) and ~264 (K13)
+// warp instructions a slot: per plane 64-bit address arithmetic, a range
+// clamp, the load and a variable shift, in K13 a sum of 0-3 table entries;
+// staging alone did not move it. This one runs ~48 (K14) and ~44 (K13) a
+// slot, 0.74 of the bound, and K15, one block an SM at three planes,
+// ~50 a slot and 0.54 with its count kernel and cumsum (H100 80GB HBM3,
+// 700 W; scripts/profile_dzbv_torch.py; PERF.md): a
+// slot's plane test is one predicate-setting AND on a lane mask
 // (ballot_bit), K13 folds its tile's prefix and row offset into the table
-// once, after phase 1, so both forms read one table entry a slot, and the
+// once, after phase 1, so every form reads one table entry a slot, and the
 // load is branch-free. Staging whole rows also reads their padding (K13's
-// strides and K14's row widths past a group's count), which the bound,
-// counting the compressed streams only, does not.
+// strides and K14's row widths past a group's count, K15's parts of its
+// first and last row that other groups own), which the bound, counting the
+// compressed streams once, does not.
 
-enum class DzbvForm { kTile, kGroup };
+enum class DzbvForm { kTile, kGroup, kPlane };
 
 constexpr uint32_t kStagePiece = 2048;  // bytes of one bulk copy; every row is a multiple
+constexpr uint32_t kPlaneRow = 4096;    // K15: bytes of one row of an on-disk plane
+constexpr uint32_t kPlaneWindow = 9 * kPlaneRow;  // K15: the most rows a group's ranks in one plane touch
 
 // What a staged block needs to know of the planes, built on the host
 // (stage_rows) and passed by value, so each field is a uniform operand:
 // plane k (index k - 1) has a group row of bytes[k] bytes at rows[k] +
 // g * bytes[k] (0 bytes where absent), staged at byte off[k] of the block's
-// dynamic shared memory, the rows back to back in plane order.
+// dynamic shared memory, the rows back to back in plane order. K15 reads
+// its planes' streams at rows[k] and its windows' places from offsets and
+// counts; bytes[k] is then the window's most, kPlaneWindow.
 struct DzbvRows {
   const unsigned char* rows[3];
   uint32_t bytes[3];
@@ -100,7 +116,12 @@ struct DzbvRows {
   uint32_t last[3];
   uint32_t tile_lo;  // K13: s_1 | s_2 << 16, the row offsets a tile adds to the table's fields 0 and 1
   uint32_t tile_hi;  // K13: s_3, to field 2
-  uint32_t total;    // bytes staged a group
+  uint32_t total;    // bytes of dynamic shared memory a block: staged a group (K15: the most)
+  // K15: each group's first rank and count of values in planes 1..3, (3, ng)
+  // plane-major; and each plane stream's length in 4 KB rows
+  const long long* offsets;
+  const int32_t* counts;
+  long long stream_rows[3];
 };
 
 // The even bits of x (bits 0, 2, .., 30) as bits 0..15.
@@ -183,6 +204,63 @@ __device__ __forceinline__ uint32_t shared_byte(uint32_t addr) {
   return b;
 }
 
+// K15's staging, by warp 0 of the block: for each plane k present, the
+// group's first rank r and count n of values in it, and from them the rows
+// of the plane's stream that hold ranks r .. r + n - 1, clamped to the
+// stream (a short, malformed stream: the plain version clamps a rank to the
+// stream's last byte, which is then the window's last byte). The windows
+// are staged back to back; window[k] and window[3 + k] take the staged
+// offsets of the byte at rank r and of the window's last byte (any staged
+// byte where n = 0: no value reads it) and window[6] the bytes staged,
+// which the mbarrier expects. The source addresses are 64-bit, the shared
+// offsets 32-bit (<= 3 windows of 36 KB).
+template <int P>
+__device__ __forceinline__ void stage_windows(const DzbvRows& rows, size_t g, int lane, unsigned char* staged,
+                                              uint32_t* window, uint64_t* bar) {
+  const size_t ng = gridDim.x;
+  const unsigned char* src[3];
+  uint32_t bytes[3];
+  uint32_t at = 0;
+#pragma unroll
+  for (int k = 0; k < P; ++k) {
+    src[k] = rows.rows[k];
+    bytes[k] = 0;
+    uint32_t first = 0, last = 0;
+    if (rows.bytes[k] != 0) {
+      const long long r = __ldg(rows.offsets + k * ng + g);
+      const int n = __ldg(rows.counts + k * ng + g);
+      if (n > 0) {
+        const long long top = rows.stream_rows[k] - 1;
+        const long long r0 = min(max(r >> 12, 0LL), top);
+        const long long r1 = min(min(max((r + n - 1) >> 12, r0), top), r0 + kPlaneWindow / kPlaneRow - 1);
+        bytes[k] = static_cast<uint32_t>(r1 - r0 + 1) * kPlaneRow;
+        src[k] += r0 * kPlaneRow;
+        first = at + static_cast<uint32_t>(min(max(r - r0 * kPlaneRow, 0LL), static_cast<long long>(bytes[k] - 1)));
+        last = at + bytes[k] - 1;
+      }
+    }
+    if (lane == 0) {
+      window[k] = first;
+      window[3 + k] = last;
+    }
+    at += bytes[k];
+  }
+  if (lane == 0) {
+    window[6] = at;
+    barrier_init(bar);
+    barrier_init_fence();
+    barrier_expect(bar, at);
+  }
+  __syncwarp();
+  uint32_t to = 0;
+#pragma unroll
+  for (int k = 0; k < P; ++k) {
+    for (uint32_t b = lane * kStagePiece; b < bytes[k]; b += 32 * kStagePiece)
+      bulk_load(staged + to + b, src[k] + b, kStagePiece, bar);
+    to += bytes[k];
+  }
+}
+
 // P is the highest plane present (0: every value is one byte wide); a
 // plane below it may be absent (bytes 0), and then no value reads it.
 template <typename T, DzbvForm F, int P>
@@ -199,18 +277,29 @@ __global__ void __launch_bounds__(kLanes, 2)
     const int c = threadIdx.x;
     const int lane = c & 31;
     const int warp = c >> 5;
+    // K15: the staged offsets of each plane's rank 0 and last byte, then
+    // the bytes staged (stage_windows)
+    uint32_t* window = nullptr;
+    if constexpr (F == DzbvForm::kPlane) {
+      __shared__ uint32_t group_window[7];
+      window = group_window;
+    }
     if (warp == 0) {  // the group's rows, first of all
-      if (lane == 0) {
-        barrier_init(&bar);
-        barrier_init_fence();
-        barrier_expect(&bar, rows.total);
-      }
-      __syncwarp();
+      if constexpr (F == DzbvForm::kPlane) {
+        stage_windows<P>(rows, g, lane, staged, window, &bar);
+      } else {
+        if (lane == 0) {
+          barrier_init(&bar);
+          barrier_init_fence();
+          barrier_expect(&bar, rows.total);
+        }
+        __syncwarp();
 #pragma unroll
-      for (int k = 0; k < P; ++k) {
-        const unsigned char* src = rows.rows[k] + g * rows.bytes[k];
-        for (uint32_t b = lane * kStagePiece; b < rows.bytes[k]; b += 32 * kStagePiece)
-          bulk_load(staged + rows.off[k] + b, src + b, kStagePiece, &bar);
+        for (int k = 0; k < P; ++k) {
+          const unsigned char* src = rows.rows[k] + g * rows.bytes[k];
+          for (uint32_t b = lane * kStagePiece; b < rows.bytes[k]; b += 32 * kStagePiece)
+            bulk_load(staged + rows.off[k] + b, src + b, kStagePiece, &bar);
+        }
       }
     }
     bool has[3];
@@ -274,18 +363,19 @@ __global__ void __launch_bounds__(kLanes, 2)
       entry = ((static_cast<uint64_t>(hi) << 32) | lo) + incl - x;
     }
     barrier_wait(&bar, 0);
-    linearize<F == DzbvForm::kTile ? 9 : 12>(staged, rows.total, c);
+    linearize<F == DzbvForm::kTile ? 9 : 12>(staged, F == DzbvForm::kPlane ? window[6] : rows.total, c);
     table[c] = entry;
     __syncthreads();
 
     // phase 2: rank, one shared-memory byte a plane, store. first[k] and
-    // last[k] are the shared-memory addresses of row k's first and last byte.
+    // last[k] are the shared-memory addresses of row k's first and last byte
+    // (K15: of the window's byte at the group's rank 0, and of its last).
     const uint32_t base = smem_addr(staged);
     uint32_t first[3], last[3];
 #pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      first[k] = base + rows.off[k];
-      last[k] = base + rows.last[k];
+    for (int k = 0; k < P; ++k) {
+      first[k] = base + (F == DzbvForm::kPlane ? window[k] : rows.off[k]);
+      last[k] = base + (F == DzbvForm::kPlane ? window[3 + k] : rows.last[k]);
     }
     const unsigned below = (1u << lane) - 1u;
     const uint32_t* p0 = plane0 + g * 8 * kLanes + c;
@@ -309,7 +399,7 @@ __global__ void __launch_bounds__(kLanes, 2)
           const uint32_t byte = shared_byte(min(static_cast<int>(at), static_cast<int>(last[k])));
           // byte k + 1 of v takes the plane's byte (selector nibble 4)
           const uint32_t insert = k == 0 ? 0x3240u : k == 1 ? 0x3410u : 0x4210u;
-          if (F == DzbvForm::kTile ? sel : sel && at <= last[k]) v = __byte_perm(v, byte, insert);
+          if (F == DzbvForm::kGroup ? sel && at <= last[k] : sel) v = __byte_perm(v, byte, insert);
         }
         o[i * kLanes] = static_cast<T>(v);
       }
@@ -318,8 +408,9 @@ __global__ void __launch_bounds__(kLanes, 2)
 }
 
 // The staged kernels' rows from the planes' streams and shapes (s_k for
-// K13, w4_k for K14; nullptr where a plane is absent), and the highest
-// plane present; false for a shape the form does not take.
+// K13, w4_k for K14, the stream's rows of 32 KB for K15; nullptr where a
+// plane is absent), and the highest plane present; false for a shape the
+// form does not take.
 template <DzbvForm F>
 bool stage_rows(const void* const p[3], const long long a[3], DzbvRows* rows, int* top) {
   *rows = DzbvRows{};
@@ -337,9 +428,13 @@ bool stage_rows(const void* const p[3], const long long a[3], DzbvRows* rows, in
       } else {
         rows->tile_hi = static_cast<uint32_t>(a[k]);
       }
-    } else {
+    } else if constexpr (F == DzbvForm::kGroup) {
       if (a[k] < 1 || a[k] > 8) return false;
       bytes = 4096u * static_cast<uint32_t>(a[k]);
+    } else {
+      if (a[k] < 1 || a[k] > INT_MAX) return false;
+      bytes = kPlaneWindow;
+      rows->stream_rows[k] = a[k] * (kGroup / kPlaneRow);
     }
     rows->bytes[k] = bytes;
     rows->off[k] = off;
@@ -351,11 +446,15 @@ bool stage_rows(const void* const p[3], const long long a[3], DzbvRows* rows, in
   return true;
 }
 
-// Checks the planes' shapes and alignment (the bulk copies need 16 bytes),
-// opts the kernel in to the staged rows' shared memory and launches it.
+// Checks the planes' shapes and alignment (the bulk copies need 16 bytes;
+// K15's rows start at 4 KB multiples of its streams), and K15's ranks
+// (offsets (3, ng) int64 and counts (3, ng) int32, needed where a plane is
+// present), opts the kernel in to the staged rows' shared memory and
+// launches it.
 template <DzbvForm F>
 int launch_staged(const void* widths, const void* plane0, const void* p1, const void* p2, const void* p3, long long a1,
-                  long long a2, long long a3, void* out, long long ng, int out_bytes, void* stream) {
+                  long long a2, long long a3, const void* offsets, const void* counts, void* out, long long ng,
+                  int out_bytes, void* stream) {
   if (!valid(ng, 1) || widths == nullptr || plane0 == nullptr || out == nullptr) return cudaErrorInvalidValue;
   const void* const p[3] = {p1, p2, p3};
   const long long a[3] = {a1, a2, a3};
@@ -364,6 +463,11 @@ int launch_staged(const void* widths, const void* plane0, const void* p1, const 
   if (!stage_rows<F>(p, a, &rows, &top)) return cudaErrorInvalidValue;
   for (const void* q : p) {
     if (reinterpret_cast<uintptr_t>(q) % 16 != 0) return cudaErrorInvalidValue;
+  }
+  if constexpr (F == DzbvForm::kPlane) {
+    if (top > 0 && (offsets == nullptr || counts == nullptr)) return cudaErrorInvalidValue;
+    rows.offsets = static_cast<const long long*>(offsets);
+    rows.counts = static_cast<const int32_t*>(counts);
   }
   return dispatch_out(out_bytes, [&](auto tag) -> int {
     using T = decltype(tag);
@@ -378,112 +482,7 @@ int launch_staged(const void* widths, const void* plane0, const void* p1, const 
   });
 }
 
-// -- K15: the on-disk planes ----------------------------------------------
-
-// The streams of byte planes 1..3 (plane k at index k - 1; nullptr where
-// the plane is absent) and each one's row count.
-struct DzbvPlanes {
-  const uint32_t* words[3];
-  long long shape[3];
-};
-
-__device__ __forceinline__ uint32_t byte_of(const uint32_t* word, uint32_t pos) {
-  return (__ldg(word) >> (8 * pos)) & 0xFFu;
-}
-
-// Byte k+1 of the value at `rank` among the values of its group, offset the
-// group's first rank in the plane: LMP(8) of the whole plane, byte r in
-// group r / 32768 of the stream. The address is clamped into the stream,
-// as the plain version clamps, so malformed streams read nothing outside
-// it.
-__device__ __forceinline__ uint32_t plane_byte(const DzbvPlanes& planes, int k, uint32_t rank, long long offset) {
-  const uint32_t* words = planes.words[k];
-  const long long r = min(offset + rank, planes.shape[k] * kGroup - 1);
-  const uint32_t m = static_cast<uint32_t>(r & (kGroup - 1));
-  return byte_of(words + (r >> 15) * (8 * kLanes) + (m >> 12) * kLanes + (m & 1023u), (m >> 10) & 3u);
-}
-
-// K15's decode (offsets is (3, ng) int64, each group's first rank in planes
-// 1..3): replaces the two-pass plane decode of giddy_tpu/kernels/dzbv.py:512
-// _unpack_call and :519 _decode_xla (the unpacks, the cumsum rank and the
-// take in one pass after the count kernel below). Its ranks run over the
-// column and a group's bytes start anywhere in a plane's stream, so it
-// loads each byte from device memory through the read-only cache:
-// consecutive ranks are consecutive words, so a warp's loads of a plane
-// fall in one or two 128-byte lines.
-template <typename T>
-__global__ void __launch_bounds__(kLanes)
-    dzbv_plane_kernel(const uint32_t* __restrict__ widths, const uint32_t* __restrict__ plane0, DzbvPlanes planes,
-                      const long long* __restrict__ offsets, T* __restrict__ out) {
-  __shared__ uint64_t table[kSlots * 32];  // (slot, warp) -> three 16-bit counts
-  __shared__ uint64_t warp_sums[32];
-  const size_t g = blockIdx.x;
-  const int c = threadIdx.x;
-  const int lane = c & 31;
-  const int warp = c >> 5;
-  bool has[3];
-#pragma unroll
-  for (int k = 0; k < 3; ++k) has[k] = planes.words[k] != nullptr;
-  if (!has[0] && !has[1] && !has[2]) {  // every value is one byte wide
-    unpack_store_lane<T, LutMode::kNone>(plane0, out, 8, 0u, Lut<LutMode::kNone>(nullptr, 0u, nullptr));
-    return;
-  }
-  const uint64_t codes = lane_width_codes(widths, g, c);
-
-  // phase 1: each warp's count of the values wider than k + 1 bytes, by slot
-#pragma unroll 4
-  for (int i = 0; i < kSlots; ++i) {
-    const uint32_t code = code_at(codes, i);
-    uint64_t cnt = 0;
-#pragma unroll
-    for (int k = 0; k < 3; ++k)
-      if (has[k]) cnt |= static_cast<uint64_t>(__popc(__ballot_sync(kFullMask, code > static_cast<uint32_t>(k)))) << (16 * k);
-    if (lane == 0) table[i * 32 + warp] = cnt;
-  }
-  __syncthreads();
-  {
-    // exclusive scan of the 1024 entries in (slot, warp) order, entry c in
-    // thread c; a group's counts are <= 32768, so no 16-bit field carries
-    const uint64_t x = table[c];
-    uint64_t incl = x;
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const uint64_t y = __shfl_up_sync(kFullMask, incl, off);
-      if (lane >= off) incl += y;
-    }
-    if (lane == 31) warp_sums[warp] = incl;
-    __syncthreads();
-    const uint64_t t = warp_sums[lane];
-    const uint32_t lo = __reduce_add_sync(kFullMask, lane < warp ? static_cast<uint32_t>(t) : 0u);
-    const uint32_t hi = __reduce_add_sync(kFullMask, lane < warp ? static_cast<uint32_t>(t >> 32) : 0u);
-    table[c] = ((static_cast<uint64_t>(hi) << 32) | lo) + incl - x;
-    __syncthreads();
-  }
-
-  // phase 2: rank, byte loads, store
-  long long offset[3] = {0, 0, 0};
-#pragma unroll
-  for (int k = 0; k < 3; ++k) offset[k] = __ldg(offsets + k * gridDim.x + g);
-  const unsigned below = (1u << lane) - 1u;
-  LaneReader b0(plane0 + g * 8 * kLanes + c, 8);
-  T* o = out + g * kGroup + c;
-#pragma unroll 2
-  for (int i = 0; i < kSlots; ++i) {
-    const uint32_t code = code_at(codes, i);
-    uint32_t v = b0.next();
-    const uint64_t before = table[i * 32 + warp];  // the selected values before this warp's, per plane
-#pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      if (!has[k]) continue;
-      const unsigned ballot = __ballot_sync(kFullMask, code > static_cast<uint32_t>(k));
-      if (code > static_cast<uint32_t>(k)) {
-        const uint32_t rank = (static_cast<uint32_t>(before >> (16 * k)) & 0xFFFFu) + __popc(ballot & below);
-        v |= plane_byte(planes, k, rank, offset[k]) << (8 * (k + 1));
-      }
-    }
-    o[i * kLanes] = static_cast<T>(v);
-  }
-}
+// -- K15's ranks ----------------------------------------------------------
 
 // The first pass of K15: each group's count of the values with w - 1 >= k,
 // k = 1..3, into counts (3, ng) int32 (plane-major, so that the scan over
@@ -516,29 +515,6 @@ __global__ void __launch_bounds__(kLanes)
   }
 }
 
-// Checks the on-disk planes' row counts and the offsets, and launches K15's
-// decode.
-int launch_plane(const void* widths, const void* plane0, const void* p1, const void* p2, const void* p3, long long a1,
-                 long long a2, long long a3, const void* offsets, void* out, long long ng, int out_bytes,
-                 void* stream) {
-  if (!valid(ng, 1) || widths == nullptr || plane0 == nullptr || out == nullptr) return cudaErrorInvalidValue;
-  DzbvPlanes planes;
-  const void* p[3] = {p1, p2, p3};
-  const long long a[3] = {a1, a2, a3};
-  for (int k = 0; k < 3; ++k) {
-    planes.words[k] = static_cast<const uint32_t*>(p[k]);
-    planes.shape[k] = p[k] != nullptr ? a[k] : 0;
-    if (p[k] != nullptr && (a[k] < 1 || a[k] > INT_MAX || offsets == nullptr)) return cudaErrorInvalidValue;
-  }
-  return dispatch_out(out_bytes, [&](auto tag) -> int {
-    using T = decltype(tag);
-    dzbv_plane_kernel<T><<<static_cast<unsigned>(ng), kLanes, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint32_t*>(widths), static_cast<const uint32_t*>(plane0), planes,
-        static_cast<const long long*>(offsets), static_cast<T*>(out));
-    return cudaGetLastError();
-  });
-}
-
 }  // namespace gt
 
 using gt::kLanes;
@@ -551,7 +527,8 @@ extern "C" {
 int gt_dzbv_tile_decode(const void* widths, const void* plane0, const void* t1, const void* t2, const void* t3,
                         long long s1, long long s2, long long s3, void* out, long long ng, int out_bytes,
                         void* stream) {
-  return gt::launch_staged<gt::DzbvForm::kTile>(widths, plane0, t1, t2, t3, s1, s2, s3, out, ng, out_bytes, stream);
+  return gt::launch_staged<gt::DzbvForm::kTile>(widths, plane0, t1, t2, t3, s1, s2, s3, nullptr, nullptr, out, ng,
+                                                out_bytes, stream);
 }
 
 // r1..r3: the prow streams (ng, w4_k * 1024) of planes 1..3, nullptr where
@@ -559,7 +536,8 @@ int gt_dzbv_tile_decode(const void* widths, const void* plane0, const void* t1, 
 int gt_dzbv_group_decode(const void* widths, const void* plane0, const void* r1, const void* r2, const void* r3,
                          long long w1, long long w2, long long w3, void* out, long long ng, int out_bytes,
                          void* stream) {
-  return gt::launch_staged<gt::DzbvForm::kGroup>(widths, plane0, r1, r2, r3, w1, w2, w3, out, ng, out_bytes, stream);
+  return gt::launch_staged<gt::DzbvForm::kGroup>(widths, plane0, r1, r2, r3, w1, w2, w3, nullptr, nullptr, out, ng,
+                                                 out_bytes, stream);
 }
 
 // counts: (3, ng) int32.
@@ -571,12 +549,14 @@ int gt_dzbv_plane_counts(const void* widths, void* counts, long long ng, void* s
 }
 
 // q1..q3: the on-disk plane streams (rows_k, 8192) of planes 1..3, nullptr
-// where absent; n1..n3 their row counts; offsets: (3, ng) int64, the
-// exclusive scan over the groups of gt_dzbv_plane_counts.
+// where absent, 16-byte aligned; n1..n3 their row counts; counts: (3, ng)
+// int32 of gt_dzbv_plane_counts, offsets: (3, ng) int64, their exclusive
+// scan over the groups.
 int gt_dzbv_plane_decode(const void* widths, const void* plane0, const void* q1, const void* q2, const void* q3,
-                         long long n1, long long n2, long long n3, const void* offsets, void* out, long long ng,
-                         int out_bytes, void* stream) {
-  return gt::launch_plane(widths, plane0, q1, q2, q3, n1, n2, n3, offsets, out, ng, out_bytes, stream);
+                         long long n1, long long n2, long long n3, const void* offsets, const void* counts, void* out,
+                         long long ng, int out_bytes, void* stream) {
+  return gt::launch_staged<gt::DzbvForm::kPlane>(widths, plane0, q1, q2, q3, n1, n2, n3, offsets, counts, out, ng,
+                                                 out_bytes, stream);
 }
 
 }  // extern "C"

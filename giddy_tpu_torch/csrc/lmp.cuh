@@ -55,7 +55,8 @@ struct XorScan {
   }
 };
 
-// Two prefix sums side by side (delta2's sum(s_k) and sum(k * s_k)).
+// Two prefix sums side by side (delta2's sum(s_k) and sum(k * s_k), K7's
+// scan of its chunk totals).
 struct PairAddScan {
   using T = uint2;
   static __device__ __forceinline__ T combine(T a, T b) { return make_uint2(a.x + b.x, a.y + b.y); }
@@ -376,9 +377,9 @@ inline int shared_optin_bytes() {
 
 // Lets kernel take `smem` bytes of dynamic shared memory. Without the
 // attribute a kernel may take 48 KB less its static shared memory, so a
-// kernel with static shared memory (K3, K6, K7's warp totals, the dzbv
-// rank table) needs it below 48 KB of dynamic shared memory too: it is set
-// for every launch that takes any.
+// kernel with static shared memory (K3's and K6's warp totals, K7's chunk
+// table, the dzbv rank table) needs it below 48 KB of dynamic shared memory
+// too: it is set for every launch that takes any.
 template <typename K>
 cudaError_t allow_shared(K kernel, size_t smem) {
   if (smem == 0) return cudaSuccess;
@@ -399,26 +400,28 @@ cudaError_t allow_staging(K kernel, size_t smem) {
 // Picks the instance of a LUT-templated kernel for one launch. family is
 // {kernel<kNone>, kernel<kShared>, kernel<kGlobal>}. Without a table
 // (lut == nullptr) it is kNone; with a d-entry table it is kShared when 4*d
-// bytes fit beside the kernel's static shared memory in one block (and
-// the kernel is opted in above 48 KB), kGlobal otherwise. *smem is the
-// dynamic shared memory to launch with.
+// bytes fit beside the kernel's static shared memory and its own dynamic
+// shared memory (`own` bytes, the table after them) in one block, kGlobal
+// otherwise. *smem is the dynamic shared memory to launch with, and the
+// kernel is opted in to it.
 template <typename K>
-cudaError_t choose_lut(const K (&family)[3], const void* lut, long long d, K* kernel, size_t* smem) {
+cudaError_t choose_lut(const K (&family)[3], const void* lut, long long d, K* kernel, size_t* smem, size_t own = 0) {
   *kernel = family[0];
-  *smem = 0;
-  if (lut == nullptr) return cudaSuccess;
-  if (d < 1 || d > 0xFFFFFFFFLL) return cudaErrorInvalidValue;
-  cudaFuncAttributes attr;
-  const cudaError_t err = cudaFuncGetAttributes(&attr, family[1]);
-  if (err != cudaSuccess) return err;
-  const size_t table = static_cast<size_t>(d) * sizeof(uint32_t);
-  if (attr.sharedSizeBytes + table <= static_cast<size_t>(shared_optin_bytes())) {
-    *kernel = family[1];
-    *smem = table;
-    return allow_shared(family[1], table);
+  *smem = own;
+  if (lut != nullptr) {
+    if (d < 1 || d > 0xFFFFFFFFLL) return cudaErrorInvalidValue;
+    cudaFuncAttributes attr;
+    const cudaError_t err = cudaFuncGetAttributes(&attr, family[1]);
+    if (err != cudaSuccess) return err;
+    const size_t table = static_cast<size_t>(d) * sizeof(uint32_t);
+    if (attr.sharedSizeBytes + own + table <= static_cast<size_t>(shared_optin_bytes())) {
+      *kernel = family[1];
+      *smem = own + table;
+    } else {
+      *kernel = family[2];
+    }
   }
-  *kernel = family[2];
-  return cudaSuccess;
+  return allow_shared(*kernel, *smem);
 }
 
 }  // namespace gt

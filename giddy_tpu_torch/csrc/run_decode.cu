@@ -3,7 +3,8 @@
 // lmp_decode.cu: plain C interface bound with ctypes by
 // giddy_tpu_torch/kernels/_build.py; one block of 1024 threads per GROUP
 // (grid = number of groups), thread c owning positions i * 1024 + c (K5:
-// four neighbouring positions per step); every entry point launches on the
+// four neighbouring positions per step; K7: 16 consecutive positions in
+// its scan); every entry point launches on the
 // stream it is given, allocates nothing, and
 // returns cudaGetLastError() after the launch, or cudaErrorInvalidValue for
 // arguments it does not take. out_bytes 4/2/1 stores the uint32 payload or
@@ -135,31 +136,116 @@ __global__ void __launch_bounds__(kLanes)
 
 // K7. Replaces giddy_tpu/kernels/delta2.py:27 (body :32: unpack, unzigzag,
 // lanes.py:490 signed_double_cumsum, then anchor + slope * (j+1)).
-// Bound: device-memory bytes, as K3, and the shuffles of its scan. Design:
-// cumsum(cumsum(s))[j] = (j+1) * sum_{k<=j} s_k - sum_{k<=j} k * s_k, so
-// one block-row scan carries the pair of plain prefix sums (PairAddScan of
-// lmp.cuh), one barrier per row as in K3, and the epilogue is
-// anchor + (j+1) * (slope + sum s) - sum k*s, all mod 2^32.
+// Bound: device-memory bytes, as K3. With v_j the output at position j of
+// the group, v_j = v_{j-1} + slope + S_j (S_j = sum_{k<=j} s_k, v_{-1} =
+// anchor), and a run of positions starting at j0 needs only the exclusive
+// sums A = sum_{k<j0} s_k and B = sum_{k<j0} k * s_k:
+// v_{j0-1} = anchor + j0 * (slope + A) - B, all mod 2^32.
+// Design: a warp-transposed serial scan, in two passes of 16 slots. A chunk
+// is 16 consecutive positions, half of one slot of a warp's 32 lanes. In
+// each pass (1) each warp unpacks and unzigzags its lanes' 16 slots into
+// its own 16 x 33-word buffer in shared memory, slot i of lane m at [i][m];
+// (2) lane l sums chunk (slot l / 2, half l % 2) of its warp, (sum s,
+// sum j * s), into the pass's table in (slot, warp, half) order, the
+// group's order; (3) one exclusive scan of the pass's 1024 chunk sums,
+// carried on from the first pass (a shuffle scan a warp, the warp totals
+// through shared memory: three barriers a pass, where the block-row scan of
+// K3 takes one a slot); (4) lane l runs its chunk from the carry with two
+// adds a value, maps it through the table and writes it back in place;
+// (5) lane m stores row i's word m at i * 1024 + 32w + m, warp-coalesced.
+// The +1 word of padding keeps every buffer access free of bank conflicts.
+// What bounds it: instructions first. A block-row scan of the pair a slot
+// took 107 warp instructions a slot and issue-bound the kernel; this takes
+// 598 a pass of 16 slots in SASS, the unpack's word-load branch included,
+// which runs B times in 32 slots. 66 KB of buffers and 17 KB of tables a
+// block: two blocks of 1024 threads an SM, whose barriers and loads overlap
+// (one pass of 32 slots in 132 KB, one block an SM, ran 1.29x as long on
+// an H100 80GB HBM3 at 700 W; PERF.md); a cascade table goes after the
+// buffers (choose_lut's `own` bytes).
+constexpr int kChunkRow = kSlots + 1;  // words of a buffer row, padded
+constexpr int kPassSlots = kSlots / 2;  // slots a pass
+constexpr int kChunk = kPassSlots;      // values a chunk
+constexpr int kTableRow = 2 * 32 + 2;   // chunk entries of one slot (warp, half), padded
+constexpr size_t kDelta2Buffers = sizeof(uint32_t) * 32 * kPassSlots * kChunkRow;  // the 32 warps' buffers
+
 template <typename T, LutMode M>
-__global__ void __launch_bounds__(kLanes)
+__global__ void __launch_bounds__(kLanes, 2)
     delta2_decode_kernel(const uint32_t* __restrict__ packed, const int32_t* __restrict__ anchors,
                          const int32_t* __restrict__ slopes, T* __restrict__ out, int bits,
                          const uint32_t* __restrict__ lut, uint32_t d) {
-  extern __shared__ uint32_t lut_smem[];
+  extern __shared__ uint32_t buffers[];              // the warps' buffers, then (kShared) the table
+  __shared__ uint2 chunks[2][kPassSlots * kTableRow];  // by pass: (slot, warp, half) -> chunk sums, then their scan
   __shared__ uint2 warp_totals[2][32];
-  const Lut<M> map(lut, d, lut_smem);
+  const Lut<M> map(lut, d, buffers + kDelta2Buffers / sizeof(uint32_t));
   const size_t g = blockIdx.x;
   const int c = threadIdx.x;
+  const int lane = c & 31;
+  const int warp = c >> 5;
+  const int row = lane >> 1, half = lane & 1;  // this lane's chunk in a pass
+  uint32_t* buf = buffers + warp * kPassSlots * kChunkRow;
+  uint32_t* chunk = buf + row * kChunkRow + half * kChunk;
+  const int at = row * kTableRow + 2 * warp + half;  // its entry in a pass's table
   const uint32_t anchor = static_cast<uint32_t>(__ldg(anchors + g));
   const uint32_t slope = static_cast<uint32_t>(__ldg(slopes + g));
   LaneReader r(packed + g * bits * kLanes + c, bits);
   T* o = out + g * kGroup + c;
-  uint2 carry = make_uint2(0u, 0u);
-  for (int i = 0; i < kSlots; ++i) {
-    const uint32_t s = unzigzag(r.next());
-    const uint32_t j = static_cast<uint32_t>(i * kLanes + c);
-    const uint2 sums = block_row_scan<PairAddScan>(make_uint2(s, j * s), carry, warp_totals, i);
-    o[i * kLanes] = static_cast<T>(map(anchor + (j + 1u) * (slope + sums.x) - sums.y));
+  uint2 carry = make_uint2(0u, 0u);  // the sums of the first pass
+#pragma unroll 1
+  for (int pass = 0; pass < 2; ++pass) {
+    // (1) slot 16 * pass + i of this lane to [i][lane]
+#pragma unroll
+    for (int i = 0; i < kPassSlots; ++i) buf[i * kChunkRow + lane] = unzigzag(r.next());
+    __syncwarp();
+
+    // (2) this lane's chunk: positions j0 .. j0 + 15
+    const uint32_t j0 = static_cast<uint32_t>((pass * kPassSlots + row) * kLanes + warp * 32 + half * kChunk);
+    uint32_t sum = 0, ksum = 0;
+#pragma unroll
+    for (int k = 0; k < kChunk; ++k) {
+      sum += chunk[k];
+      ksum += static_cast<uint32_t>(k) * chunk[k];
+    }
+    uint2* table = chunks[pass];
+    table[at] = make_uint2(sum, j0 * sum + ksum);
+    __syncthreads();
+
+    // (3) exclusive scan of the pass's chunks: thread c takes chunk c
+    {
+      uint2* entry = table + (c >> 6) * kTableRow + (c & 63);
+      const uint2 x = *entry;
+      uint2 incl = x;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const uint2 y = shfl_up(incl, off);
+        if (lane >= off) incl = PairAddScan::combine(y, incl);
+      }
+      if (lane == 31) warp_totals[pass][warp] = incl;
+      __syncthreads();
+      const uint2 t = warp_totals[pass][lane];
+      const uint2 before = PairAddScan::span(t, warp);  // warps 0 .. warp-1
+      const uint2 total = PairAddScan::span(t, 32);
+      *entry = make_uint2(carry.x + before.x + incl.x - x.x, carry.y + before.y + incl.y - x.y);
+      carry = PairAddScan::combine(carry, total);
+      __syncthreads();
+    }
+
+    // (4) the chunk from its carry, mapped, back in place
+    {
+      const uint2 in = table[at];
+      uint32_t step = slope + in.x;             // slope + S_{j0-1}
+      uint32_t v = anchor + j0 * step - in.y;  // v_{j0-1}
+#pragma unroll
+      for (int k = 0; k < kChunk; ++k) {
+        step += chunk[k];
+        v += step;
+        chunk[k] = map(v);
+      }
+    }
+    __syncwarp();
+
+    // (5) slot 16 * pass + i of this lane
+#pragma unroll
+    for (int i = 0; i < kPassSlots; ++i) o[(pass * kPassSlots + i) * kLanes] = static_cast<T>(buf[i * kChunkRow + lane]);
   }
 }
 
@@ -240,7 +326,7 @@ int gt_delta2_decode(const void* packed, const void* anchors, const void* slopes
                          gt::delta2_decode_kernel<T, gt::LutMode::kGlobal>};
     K kernel;
     size_t smem;
-    const cudaError_t err = gt::choose_lut(family, lut, d, &kernel, &smem);
+    const cudaError_t err = gt::choose_lut(family, lut, d, &kernel, &smem, gt::kDelta2Buffers);
     if (err != cudaSuccess) return err;
     kernel<<<static_cast<unsigned>(ng), kLanes, smem, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint32_t*>(packed), static_cast<const int32_t*>(anchors),
@@ -248,6 +334,21 @@ int gt_delta2_decode(const void* packed, const void* anchors, const void* slopes
         static_cast<uint32_t>(d));
     return cudaGetLastError();
   });
+}
+
+// 1 when K7 (uint32 store) keeps a d-entry cascade table in shared memory
+// on the current device, beside its buffers and chunk table; 0 when it
+// reads it from global memory, or on an error.
+int gt_delta2_shared(long long d) {
+  using K = void (*)(const uint32_t*, const int32_t*, const int32_t*, uint32_t*, int, const uint32_t*, uint32_t);
+  const K family[3] = {gt::delta2_decode_kernel<uint32_t, gt::LutMode::kNone>,
+                       gt::delta2_decode_kernel<uint32_t, gt::LutMode::kShared>,
+                       gt::delta2_decode_kernel<uint32_t, gt::LutMode::kGlobal>};
+  K kernel;
+  size_t smem;
+  const uint32_t probe = 0;
+  if (gt::choose_lut(family, &probe, d, &kernel, &smem, gt::kDelta2Buffers) != cudaSuccess) return 0;
+  return kernel == family[1];
 }
 
 int gt_xordelta_decode(const void* packed, const void* anchors, void* out, long long ng, int bits, void* stream) {

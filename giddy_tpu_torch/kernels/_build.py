@@ -39,6 +39,7 @@ _SIGNATURES = {
     "gt_run_expand": [_P, _P, _P, _L, _I, _I, _I, _P, _L, _P],
     "gt_cumsum_rows": [_P, _P, _L, _I, _P, _L, _P],
     "gt_delta2_decode": [_P, _P, _P, _P, _L, _I, _I, _P, _L, _P],
+    "gt_delta2_shared": [_L],
     "gt_xordelta_decode": [_P, _P, _P, _L, _I, _P],
     "gt_patched_decode": [_P, _P, _P, _P, _P, _L, _I, _L, _I, _P],
     "gt_model_decode": [_P, _P, _P, _P, _P, _L, _I, _I, _P],
@@ -47,7 +48,7 @@ _SIGNATURES = {
     "gt_dzbv_tile_decode": [_P, _P, _P, _P, _P, _L, _L, _L, _P, _L, _I, _P],
     "gt_dzbv_group_decode": [_P, _P, _P, _P, _P, _L, _L, _L, _P, _L, _I, _P],
     "gt_dzbv_plane_counts": [_P, _P, _L, _P],
-    "gt_dzbv_plane_decode": [_P, _P, _P, _P, _P, _L, _L, _L, _P, _P, _L, _I, _P],
+    "gt_dzbv_plane_decode": [_P, _P, _P, _P, _P, _L, _L, _L, _P, _P, _P, _L, _I, _P],
     "gt_filter_fold": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _P],
     "gt_agg_fold": [_P, _P, _P, _P, _P, _P, _L, _I, _L, _I, _I, _I, _I, _I, _P],
     "gt_lmp_pack": [_P, _P, _P, _L, _I, _I, _L, _I, _P],

@@ -145,11 +145,15 @@ def walk_args(packed: torch.Tensor, valid: torch.Tensor | None, bits: int) -> tu
     return stages, min(blocks * sms, packed.shape[0] * TILES_PER_GROUP)
 
 
-# The staged dzbv kernels K13 and K14 (csrc/dzbv_decode.cu
+# The staged dzbv kernels K13, K14 and K15 (csrc/dzbv_decode.cu
 # dzbv_staged_kernel): a block of 1024 threads decodes one group from its
-# plane rows, staged back to back in dynamic shared memory beside its
-# static rank table; two blocks fill an SM's 2048 threads, so both must fit.
+# plane bytes, staged back to back in dynamic shared memory beside its
+# static rank table. Two blocks fill an SM's 2048 threads: they fit at
+# every K13 stride and K14 row width, and for K15 at one or two planes.
 DZBV_ROW_UNIT = {"tile": 256, "group": 4096}  # a row's bytes per unit of s_k (K13) or w4_k (K14)
+# K15 sizes every block for the most rows of 4 KB that a group's ranks in
+# one plane can touch: up to 32768 ranks from any byte of a row, 9 rows.
+DZBV_PLANE_WINDOW = 9 * 4096
 # Static shared memory a block: the (slot, warp) table, K14's warp sums and
 # the mbarrier, rounded up to the rows' 128-byte alignment (ptxas: 8576 B
 # for K14, 8320 for K13).
@@ -158,9 +162,12 @@ DZBV_STATIC = 8576
 
 def dzbv_plan(form: str, shapes) -> int:
     """Bytes of dynamic shared memory of a K13 (``form`` "tile", ``shapes``
-    the planes' strides s_k) or K14 ("group", row widths w4_k) block: the
-    present planes' group rows (a shape of None or 0: the plane is absent),
-    as the kernel's launch computes them (stage_rows)."""
+    the planes' strides s_k), K14 ("group", row widths w4_k) or K15
+    ("plane", the streams' row counts) block: the present planes' group
+    rows, or K15's windows (a shape of None or 0: the plane is absent), as
+    the kernel's launch computes them (stage_rows)."""
+    if form == "plane":
+        return DZBV_PLANE_WINDOW * sum(bool(a) for a in shapes)
     return sum(DZBV_ROW_UNIT[form] * a for a in shapes if a)
 
 

@@ -2,6 +2,10 @@
 
 Counterpart of giddy_tpu/kernels/delta2.py: unpack, unzigzag, two
 inclusive per-GROUP cumsums, then anchor[g] + slope[g]·(j+1), mod 2^32.
+The kernel holds half a group's values at a time in 66 KB of shared
+memory, so a cascade table beside them stays in shared memory only up to
+``shared_lut_limit()`` entries (36,864 on an H100); above it the kernel
+reads the table from global memory.
 """
 
 from __future__ import annotations
@@ -10,9 +14,27 @@ import torch
 
 from .. import registry
 from ..format import EncodedColumn
-from . import _wrap, lanes
+from . import _build, _wrap, lanes
 
 LAUNCHES = 0
+
+
+def lut_in_shared(d: int) -> bool:
+    """Whether K7 keeps a d-entry cascade table in shared memory on the
+    current CUDA device (else it reads it from global memory)."""
+    return bool(_build.lib().gt_delta2_shared(d))
+
+
+def shared_lut_limit() -> int:
+    """The largest d for which :func:`lut_in_shared` holds on the current
+    CUDA device (a bisection over d in [1, 65536])."""
+    lo, hi = 1, 65536
+    if not lut_in_shared(lo) or lut_in_shared(hi):
+        raise RuntimeError("K7's shared table holds no entry, or 65536")
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if lut_in_shared(mid) else (lo, mid)
+    return lo
 
 
 def delta2_decode(packed: torch.Tensor, anchors: torch.Tensor, slopes: torch.Tensor, bits: int, out_dtype: torch.dtype = torch.int32, lut: torch.Tensor | None = None) -> torch.Tensor:

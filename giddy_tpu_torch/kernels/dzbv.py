@@ -317,19 +317,20 @@ _PROW_WORDS = {w4 * LANES for w4 in range(1, 9)}
 
 
 def _launch(name: str, widths: torch.Tensor, plane0: torch.Tensor, planes: tuple, shape_of, out_dtype: torch.dtype,
-            offsets: torch.Tensor | None = None) -> torch.Tensor:
+            ranks: tuple = ()) -> torch.Tensor:
     """Launch kernel ``name`` (gt_<name> of csrc/dzbv_decode.cu) on checked
     CUDA tensors: each plane's stream and ``shape_of(stream)``, None and 0
-    where the plane is absent."""
-    if offsets is None:  # K13 and K14 stage each group's rows with bulk copies
-        _wrap.check_aligned({f"plane {k} rows": t for k, t in enumerate(planes, 1)})
+    where the plane is absent, and K15's ``ranks`` (offsets, counts). Every
+    form stages its plane bytes with bulk copies, which need 16-byte aligned
+    streams."""
+    _wrap.check_aligned({f"plane {k} rows": t for k, t in enumerate(planes, 1)})
     ng = widths.shape[0]
     out = _wrap.empty_out(ng, out_dtype, widths.device)
     _wrap.launch(
         f"gt_{name}", widths.device, widths.data_ptr(), plane0.data_ptr(),
         *(None if t is None else t.data_ptr() for t in planes),
         *(0 if t is None else shape_of(t) for t in planes),
-        *(() if offsets is None else (offsets.data_ptr(),)),
+        *(t.data_ptr() for t in ranks),
         out.data_ptr(), ng, _wrap.OUT_BYTES[out_dtype],
     )
     LAUNCHES[name] += 1
@@ -362,7 +363,8 @@ def dzbv_plane_decode(widths: torch.Tensor, plane0: torch.Tensor, planes: tuple,
     On a CUDA device: K15's count kernel gives each group's counts, (3, ng)
     so that the exclusive torch cumsum over the groups runs along rows
     (along columns torch scans each column in one thread), that cumsum
-    their int64 offsets, and K15's decode ranks from them; one launch of
+    their int64 offsets, and K15's decode stages each group's window of
+    every plane from its offset and count and ranks into it; one launch of
     K15 in the count."""
     ng = _check_base(widths, plane0, out_dtype)
     _check_planes(planes, "plane", None, widths.device, {8 * LANES})
@@ -371,7 +373,7 @@ def dzbv_plane_decode(widths: torch.Tensor, plane0: torch.Tensor, planes: tuple,
     counts = torch.empty((3, ng), dtype=torch.int32, device=widths.device)
     _wrap.launch("gt_dzbv_plane_counts", widths.device, widths.data_ptr(), counts.data_ptr(), ng)
     offsets = torch.cumsum(counts, 1, dtype=torch.int64) - counts
-    return _launch("dzbv_plane_decode", widths, plane0, planes, lambda t: t.shape[0], out_dtype, offsets)
+    return _launch("dzbv_plane_decode", widths, plane0, planes, lambda t: t.shape[0], out_dtype, (offsets, counts))
 
 
 def kernel_call(col: EncodedColumn, streams: dict, out_store: torch.dtype) -> tuple[str, tuple]:

@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """K16 (filter_fold) and K17 (agg_fold) of giddy_tpu_torch timed side by
 side for two checkouts on one NVIDIA GPU, with K1 (lmp_unpack) as the
-control that neither changes.
+control that neither changes; and K7 (delta2_decode), with K3
+(delta_decode) as its control.
 
     python3 scripts/fold_ab_torch.py PARENT_ROOT CHANGE_ROOT CHANGE_ROOT PARENT_ROOT
+    python3 scripts/fold_ab_torch.py --k7 ROOT [ROOT ...]
     python3 scripts/fold_ab_torch.py --ptxas [ROOT [SASS_FILE]]
     python3 scripts/fold_ab_torch.py --ncu ROOT [ROOT ...]
 
@@ -17,16 +19,19 @@ time to launch one call), each kernel at chip_smoke.py's
 cells: configs[0] (nbit 9 bits, 2^28: K16 ``lt 256``, K17 sum and min, K1),
 the configs[1] timestamps as FOR (16 bits with frame refs, 2^26: K16 ``lt``
 the middle value, K17 sum) and their 1%-null twin (validity words: K16 and
-K17 sum). Every output is first held against the checkout's plain version.
-One line a run: ``[ab] ROOT {json}``, then a table of the medians per root.
-The bound is the call's bytes (each input read once, each output written
-once) over 3.35 TB/s, which bounds every one of these calls.
+K17 sum), and the configs[1] timestamps as delta2 (K7, 3 bits) and as delta
+(K3, the control). Every output is first held against the checkout's plain
+version. One line a run: ``[ab] ROOT {json}``, then a table of the medians
+per root. The bound is the call's bytes (each input read once, each output
+written once) over 3.35 TB/s, which bounds every one of these calls.
+``--k7`` times the K7 cell and its K3 control alone.
 
-``--ptxas`` compiles csrc/scan_epilogue.cu of ROOT (this checkout by
-default) with this checkout's nvcc flags and ``-Xptxas -v`` and prints each
-kernel's registers, spills and shared memory; given SASS_FILE, it writes
-the kernels' SASS there (``cuobjdump -sass``) and prints each kernel's
-static instruction count, its loads and the sizes of its loops.
+``--ptxas`` compiles csrc/scan_epilogue.cu, csrc/run_decode.cu and
+csrc/lmp_decode.cu of ROOT (this checkout by default) with this checkout's
+nvcc flags and ``-Xptxas -v`` and prints each kernel's registers, spills
+and shared memory; given SASS_FILE, it writes the kernels' SASS there
+(``cuobjdump -sass``) and prints each kernel's static instruction count,
+its loads and the sizes of its loops.
 
 ``--ncu`` profiles, for each ROOT, the first K16 and the first K17 launch
 (configs[0]: K16 ``lt 256``, K17 sum) with Nsight Compute (``ncu --set
@@ -69,14 +74,15 @@ def cuda_ms(torch, fn, runs: int = 20) -> float:
     return statistics.median(a.elapsed_time(b) for a, b in pairs)
 
 
-def one(root: str) -> None:
-    """Time every cell with the giddy_tpu_torch under ``root``; print one line."""
+def one(root: str, k7_only: bool = False) -> None:
+    """Time every cell (or the K7 cell and its control) with the
+    giddy_tpu_torch under ``root``; print one line."""
     sys.path.insert(0, root)
     import numpy as np
     import torch
 
     import giddy_tpu_torch as gtt
-    from giddy_tpu_torch import nulls, query
+    from giddy_tpu_torch import kernels, nulls, query
     from giddy_tpu_torch.kernels import _build, agg, filter_, lanes, nbit
 
     assert pathlib.Path(gtt.__file__).resolve().is_relative_to(pathlib.Path(root).resolve()), gtt.__file__
@@ -104,7 +110,7 @@ def one(root: str) -> None:
         cells[label] = {"ms": cuda_ms(torch, fn), "host_us": host_us, "out_bytes": nbytes}
         del out, want
 
-    for cell, v, scheme, opts, mask in [
+    for cell, v, scheme, opts, mask in [] if k7_only else [
         ("configs[0] nbit 9-bit 2^28", v0, "nbit", {"bits": 9}, None),
         ("configs[1] for 2^26", ts, "for", {}, None),
         ("configs[1] for 1% nulls 2^26", ts, "for", {}, valid),
@@ -128,6 +134,15 @@ def one(root: str) -> None:
             if label.startswith(cell) and "bound_ms" not in c:
                 c["bound_ms"] = (in_bytes + c.pop("out_bytes")) / HBM_BYTES_PER_S * 1e3
         del streams, packed, refs, vw
+        torch.cuda.empty_cache()
+    for label, scheme in (("configs[1] delta2 2^26 K7", "delta2"), ("configs[1] delta 2^26 K3 control", "delta")):
+        col = gtt.encode(ts, scheme)
+        name, args = kernels.kernel_call(col, gtt.device_streams(col, cuda), torch.int32)
+        wrapper = getattr(kernels.WRAPPERS[name], name)
+        timed(label, lambda: wrapper(*args), lambda: getattr(lanes, name)(*args))
+        in_bytes = sum(t.numel() * t.element_size() for t in args if isinstance(t, torch.Tensor))
+        cells[label]["bound_ms"] = (in_bytes + cells[label].pop("out_bytes")) / HBM_BYTES_PER_S * 1e3
+        del args
         torch.cuda.empty_cache()
     print(f"[ab] {root} {json.dumps(cells)}", flush=True)
 
@@ -161,30 +176,36 @@ def sass_census(sass: str, only: str = "") -> None:
         print(f"[sass] {name}: {c['all']} instructions, {c['LDG']} LDG, {c['LDS']} LDS{loops}")
 
 
-def ptxas(root: str, sass: str | None, source: str = "scan_epilogue.cu", only: str = "") -> None:
-    """nvcc of csrc/<source> of ROOT with this checkout's flags and -Xptxas
-    -v (registers, spills, shared memory a kernel); with ``sass``, the SASS
-    written there and its census (kernels whose name holds ``only``)."""
+def ptxas(root: str, sass: str | None, sources: tuple = ("scan_epilogue.cu", "run_decode.cu", "lmp_decode.cu"),
+          only: str = "") -> None:
+    """nvcc of each csrc/<source> of ROOT with this checkout's flags and
+    -Xptxas -v (registers, spills, shared memory a kernel); with ``sass``,
+    their SASS written there and its census (kernels whose name holds
+    ``only``)."""
     import tempfile
 
-    src = pathlib.Path(root) / "giddy_tpu_torch" / "csrc" / source
     sys.path.insert(0, str(HERE))
     from giddy_tpu_torch.kernels import _build
 
+    dumps = []
     with tempfile.TemporaryDirectory() as tmp:
-        obj = f"{tmp}/{src.stem}.o"
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", obj, str(src)]
-        t0 = time.perf_counter()
-        out = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-        print(out.stderr)
-        print(f"[ptxas] nvcc of {src.name}: {time.perf_counter() - t0:.1f} s")
-        if out.returncode:
-            sys.exit(out.returncode)
-        if sass:
-            tool = str(pathlib.Path(_build._nvcc()).parent / "cuobjdump")
-            dump = subprocess.run([tool, "-sass", obj], capture_output=True, text=True, timeout=600, check=True)
-            pathlib.Path(sass).write_text(dump.stdout)
-            sass_census(dump.stdout, only)
+        for source in sources:
+            src = pathlib.Path(root) / "giddy_tpu_torch" / "csrc" / source
+            obj = f"{tmp}/{src.stem}.o"
+            cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", obj, str(src)]
+            t0 = time.perf_counter()
+            out = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+            print(out.stderr)
+            print(f"[ptxas] nvcc of {src.name}: {time.perf_counter() - t0:.1f} s")
+            if out.returncode:
+                sys.exit(out.returncode)
+            if sass:
+                tool = str(pathlib.Path(_build._nvcc()).parent / "cuobjdump")
+                dumps.append(subprocess.run([tool, "-sass", obj], capture_output=True, text=True, timeout=600,
+                                            check=True).stdout)
+    if sass:
+        pathlib.Path(sass).write_text("".join(dumps))
+        sass_census("".join(dumps), only)
 
 
 NCU_METRICS = {
@@ -232,15 +253,18 @@ def main(argv: list[str]) -> int:
         return 0
     if argv[:1] == ["--ncu"]:
         return ncu(argv[1:])
-    if argv[:1] == ["--one"]:
-        one(argv[1])
+    if argv[:1] in (["--one"], ["--one-k7"]):
+        one(argv[1], argv[0] == "--one-k7")
         return 0
+    flag = "--one"
+    if argv[:1] == ["--k7"]:
+        flag, argv = "--one-k7", argv[1:]
     if not argv:
         print(__doc__, file=sys.stderr)
         return 2
     runs = []
     for root in argv:
-        out = subprocess.run([sys.executable, __file__, "--one", root], capture_output=True, text=True, timeout=900)
+        out = subprocess.run([sys.executable, __file__, flag, root], capture_output=True, text=True, timeout=900)
         sys.stdout.write(out.stdout)
         if out.returncode:
             sys.stderr.write(out.stderr)

@@ -23,11 +23,14 @@ builds its kernels into its own ``_build/``, holds every output against the
 checkout's plain version (and the decodes against the input), then times
 each call on resident streams (scripts/fold_ab_torch.py ``cuda_ms``: CUDA
 events, median of 20, the runs queued behind a sleep kernel; beside it the
-host's time to launch one call). A ROOT written ``unchecked:PATH`` is timed
-without the checks: a diagnostic build whose output is wrong by design.
-One line a run, ``[ab] ROOT {json}``, then a table of the medians against
-the bound (the compressed streams read once and the int32 output written
-once over 3.35 TB/s, as chip_smoke.py counts it).
+host's time to launch one call). K15's call is also split into its three
+parts, the count kernel, the torch cumsum over the groups (with its casts)
+and the decode, by the device time ``torch.profiler`` gives each kernel
+over 20 queued calls. A ROOT written ``unchecked:PATH`` is timed without
+the checks: a diagnostic build whose output is wrong by design. One line a
+run, ``[ab] ROOT {json}``, then a table of the medians against the bound
+(the compressed streams read once and the int32 output written once over
+3.35 TB/s, as chip_smoke.py counts it).
 
 ``--ptxas`` compiles csrc/dzbv_decode.cu of ROOT (this checkout by default)
 with ``-Xptxas -v`` (registers, spills and shared memory of each kernel);
@@ -102,6 +105,29 @@ def profile() -> int:
     return 0
 
 
+def plane_parts(fn, runs: int = 20) -> dict:
+    """ms a call of K15's count kernel, its decode and everything else (the
+    torch cumsum and its casts), from the device time of each kernel under
+    torch.profiler over ``runs`` calls queued behind a sleep kernel."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(20_000_000)
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    parts = {"count": 0.0, "cumsum and casts": 0.0, "decode": 0.0}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        us = e.self_cuda_time_total if us is None else us
+        if not us or "sleep" in e.key or "spin" in e.key:  # the sleep kernel (spin_kernel)
+            continue
+        part = "count" if "plane_counts" in e.key else "decode" if "dzbv" in e.key else "cumsum and casts"
+        parts[part] += us / runs / 1e3
+    return parts
+
+
 def one(root: str, checked: bool) -> None:
     """Time K13, K14, K15 and K1 with the giddy_tpu_torch under ``root``;
     print one line."""
@@ -140,6 +166,7 @@ def one(root: str, checked: bool) -> None:
         timed(f"{name} ({form} form)", lambda: getattr(dzbv, name)(*args), lambda: getattr(lanes, name)(*args),
               v.view(np.int32), bound_ms, shape if form != "plane" else None)
         if form == "plane":
+            cells[f"{name} ({form} form)"]["parts"] = plane_parts(lambda: getattr(dzbv, name)(*args))
             p0 = streams["plane0"]
             k1_bound = (p0.numel() * 4 + p0.shape[0] * 32768 * 4) / fold_ab_torch.HBM_BYTES_PER_S * 1e3
             timed("lmp_unpack (plane 0, 8 bits; control)", lambda: nbit.lmp_unpack(p0, 8),
@@ -177,6 +204,9 @@ def ab(roots: list[str]) -> int:
         row = "  ".join(f"{r[label]['ms']:.4f} ({r[label]['bound_ms'] / r[label]['ms']:.3f}, {r[label]['host_us']:.0f} us)"
                         for _, r in runs)
         print(f"[ab] {label}: bound {c['bound_ms']:.4f} ms{staged} | {row}")
+        if "parts" in c:
+            print(f"[ab] {label} by part, ms: " + "  ".join(
+                "/".join(f"{r[label]['parts'][p]:.4f}" for p in c["parts"]) for _, r in runs) + f" ({', '.join(c['parts'])})")
     print("[ab] roots: " + "  ".join(spec for spec, _ in runs))
     return 1 if failed else 0
 
@@ -189,7 +219,7 @@ def smi() -> str:
 def main(argv: list[str]) -> int:
     if argv[:1] == ["--ptxas"]:
         fold_ab_torch.ptxas(argv[1] if len(argv) > 1 else str(HERE), argv[2] if len(argv) > 2 else None,
-                            "dzbv_decode.cu", "dzbv")
+                            ("dzbv_decode.cu",), "dzbv")
         return 0
     if not torch.cuda.is_available():
         print("profile_dzbv_torch: torch sees no CUDA device", file=sys.stderr)

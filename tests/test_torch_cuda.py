@@ -15,13 +15,13 @@ import torch
 import giddy_tpu_torch as gtt
 from giddy_tpu_torch import aggregate, kernels, nulls, query
 from giddy_tpu_torch.groupby import _codes_device_column
-from giddy_tpu_torch.kernels import _wrap, agg, cascade, dict_, dzbv, encode, filter_, lanes, nbit, patch, rle
+from giddy_tpu_torch.kernels import _wrap, agg, cascade, delta2, dict_, dzbv, encode, filter_, lanes, nbit, patch, rle
 from giddy_tpu_torch.ref import lmp as ref_lmp
 from giddy_tpu_torch.util import GROUP, LANES, np_dtype, pad_to_groups
 
 from test_torch_inputs import (
-    DICT_KINDS, OPS, SCAN_DTYPES, assert_same_column, bitmap_values, dict_values, dzbv_values, for_values, rng_of,
-    salted_prices, scan_thresholds, scan_values, want_agg, want_mask, wrapping_walk,
+    DICT_KINDS, OPS, SCAN_DTYPES, WINDOW_HEAD, assert_same_column, bitmap_values, dict_values, dzbv_values, for_values,
+    rng_of, salted_prices, scan_thresholds, scan_values, want_agg, want_mask, wrapping_walk,
 )
 
 pytestmark = pytest.mark.cuda
@@ -213,6 +213,64 @@ def test_cascade_lut_table_just_under_48_kb(cuda, inner, run):
     torch.cuda.synchronize()
     assert torch.equal(got, want)
     np.testing.assert_array_equal(gtt.decode(col, device=cuda).cpu().numpy(), v)
+
+
+@pytest.mark.parametrize("d", [1, 8, 1000, 12250, "limit - 1", "limit", "limit + 1"])
+def test_cascade_delta2_table_modes(cuda, d):
+    """K7 with cascade's table beside its 66 KB of buffers: in shared memory
+    up to the limit (36,864 entries on an H100), from global memory above
+    it; the kernel equals its plain version and decodes the input."""
+    limit = delta2.shared_lut_limit()
+    assert 16_000 < limit < 48_000
+    if isinstance(d, str):
+        d = limit + {"limit - 1": -1, "limit": 0, "limit + 1": 1}[d]
+    assert delta2.lut_in_shared(d) == (d <= limit)
+    v, vocab = _cascade_values(d, np.random.default_rng(d))
+    col = gtt.encode(v, "cascade", codes_scheme="delta2", dictionary=vocab)
+    name, args = kernels.kernel_call(col, gtt.device_streams(col, cuda), torch.int32)
+    assert name == "delta2_decode"
+    before = kernels.launches()
+    got = cascade.cascade_lut(name, args)
+    assert kernels.launches()["delta2_decode"] == before["delta2_decode"] + 1
+    want = getattr(lanes, name)(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    np.testing.assert_array_equal(gtt.decode(col, device=cuda).cpu().numpy(), v)
+
+
+@pytest.mark.parametrize("groups", ["one", "past the grid"])
+@pytest.mark.parametrize("bits", range(1, 33))
+def test_delta2_decode_at_every_width(cuda, bits, groups):
+    """K7 on random second differences at every width B, with anchors and
+    slopes across the int32 range (every sum wraps mod 2^32), at every store
+    width, against the plain version bit for bit; on one group and on 2 *
+    SMs + 3 (two blocks an SM, and then some)."""
+    rng = rng_of(f"delta2/{bits}/{groups}")
+    ng = _staged_groups(groups, cuda)
+    packed = _words(rng, (ng, bits * LANES), cuda)
+    anchors = _words(rng, (ng,), cuda)
+    slopes = _words(rng, (ng,), cuda)
+    slopes[0] = 2**31 - 1
+    for store in (torch.int32, torch.int16, torch.uint8):
+        before = kernels.launches()["delta2_decode"]
+        got = delta2.delta2_decode(packed, anchors, slopes, bits, store)
+        assert kernels.launches()["delta2_decode"] == before + 1
+        want = lanes.delta2_decode(packed, anchors, slopes, bits, store)
+        torch.cuda.synchronize()
+        assert got.dtype == store and torch.equal(got, want), store
+
+
+@pytest.mark.parametrize("n", [1, 1000, GROUP + 1, 3 * GROUP + 17])
+def test_delta2_decode_wrapping_walk_ragged(cuda, n):
+    """delta2 of a walk that crosses the int32 wrap, n not a multiple of
+    GROUP: the kernel equals its plain version over all n_pad values and
+    decodes the input."""
+    v = wrapping_walk(n, rng_of(f"delta2-walk/{n}"))
+    col = gtt.encode(v, "delta2")
+    name, args = kernels.kernel_call(col, gtt.device_streams(col, cuda), torch.int32)
+    got = getattr(kernels.WRAPPERS[name], name)(*args)
+    assert torch.equal(got, getattr(lanes, name)(*args))
+    assert got.reshape(-1)[:n].cpu().numpy().tobytes() == v.tobytes()
 
 
 @pytest.mark.parametrize("dtype", ["int16", "uint8", "float32"])
@@ -550,13 +608,13 @@ def test_dzbv_staged_kernels_on_random_streams(cuda, form):
 
 
 def test_dzbv_wrappers_reject_misaligned_rows(cuda):
-    """K13 and K14 stage each group's plane rows with bulk copies, which need
-    16-byte aligned rows: a view 4 bytes off raises and nothing launches;
-    the aligned view launches."""
+    """K13, K14 and K15 stage each group's plane rows with bulk copies, which
+    need 16-byte aligned streams: a view 4 bytes off raises and nothing
+    launches; the aligned view launches."""
     ng = 2
     widths = torch.zeros((ng, 2 * LANES), dtype=torch.int32, device=cuda)
     plane0 = torch.zeros((ng, 8 * LANES), dtype=torch.int32, device=cuda)
-    for name, words in (("dzbv_tile_decode", 64 * 8), ("dzbv_group_decode", LANES)):
+    for name, words in (("dzbv_tile_decode", 64 * 8), ("dzbv_group_decode", LANES), ("dzbv_plane_decode", 8 * LANES)):
         flat = torch.zeros(ng * words + 1, dtype=torch.int32, device=cuda)
         before = kernels.launches()
         with pytest.raises(ValueError, match="16-byte aligned"):
@@ -566,6 +624,63 @@ def test_dzbv_wrappers_reject_misaligned_rows(cuda):
         assert kernels.launches()[name] == before[name] + 1
         torch.cuda.synchronize()
         assert not out.any()
+
+
+@pytest.mark.parametrize("n", [4 * GROUP, 3 * GROUP + 17])
+def test_dzbv_plane_decode_windows(cuda, n):
+    """K15 on the on-disk planes of a column whose first group holds 100
+    4-byte values and whose next groups hold only 4-byte values: their
+    ranks start 100 bytes into a row and touch 9 rows of each of the three
+    planes (110,592 B staged, the most a block takes); at 4 GROUP the last
+    group's ranks end in the stream's last row, at 3 GROUP + 17 the last
+    group holds 17."""
+    v = dzbv_values("windows", n, rng_of(f"windows{n}")).view(np.int32)
+    col = gtt.encode(v, "dzbv")
+    wide = int((v.view(np.uint32) > 0xFFFFFF).sum())
+    assert col.params["plane_lens"][1:] == [wide] * 3 and wide > 2 * GROUP + WINDOW_HEAD
+    assert _check_dzbv(col, col.streams, v, cuda) == "dzbv_plane_decode"
+
+
+@pytest.mark.parametrize("planes", [1, 2, 3])
+def test_dzbv_plane_decode_past_the_grid(cuda, planes):
+    """K15 over 2 * SMs + 3 groups with 100 of every tile's 128 values
+    planes + 1 bytes wide (each group's ranks start mid-row): two blocks an
+    SM at one or two planes, one at three, and then some."""
+    ng = _staged_groups("past the grid", cuda)
+    v, col = _dzbv_column(planes + 1, 100, ng)
+    _check_staged("dzbv_plane_decode", col, col.streams, v, cuda)
+
+
+@pytest.mark.parametrize("rows", [(1, 2, 3), (2, None, 1), (1, 1, 1), (None, None, 4), (8, 6, 4)])
+def test_dzbv_plane_decode_on_random_streams(cuda, rows):
+    """K15 on random width codes and plane 0 over plane streams of `rows`
+    groups (None: absent), mostly far too short for the ranks the widths
+    give (a rank past the stream reads its last byte), at every store width,
+    against the plain version bit for bit."""
+    rng = rng_of(f"plane-random/{rows}")
+    ng = 5
+    widths, plane0 = _words(rng, (ng, 2 * LANES), cuda), _words(rng, (ng, 8 * LANES), cuda)
+    planes = tuple(None if a is None else _words(rng, (a, 8 * LANES), cuda) for a in rows)
+    for store in (torch.int32, torch.int16, torch.uint8):
+        before = kernels.launches()["dzbv_plane_decode"]
+        got = dzbv.dzbv_plane_decode(widths, plane0, planes, store)
+        assert kernels.launches()["dzbv_plane_decode"] == before + 1
+        want = lanes.dzbv_plane_decode(widths, plane0, planes, store)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), store
+
+
+def test_dzbv_plane_decode_groups_with_no_value_in_a_plane(cuda):
+    """Groups with no value above one byte between groups with many: their
+    windows are empty, and the next group's ranks start where the last
+    non-empty group's ended."""
+    rng = rng_of("plane-zero")
+    v = dzbv_values("group_skewed", 5 * GROUP, rng)
+    v[3 * GROUP : 3 * GROUP + 777] = rng.integers(2**24, 2**32, 777, dtype=np.uint64).astype(np.uint32)
+    v[4 * GROUP + 5] = 0x1234
+    col = gtt.encode(v.view(np.int32), "dzbv")
+    assert col.params["plane_lens"][1:] == [GROUP + 778, GROUP + 777, GROUP + 777]
+    assert _check_dzbv(col, col.streams, v.view(np.int32), cuda) == "dzbv_plane_decode"
 
 
 # -- the scan epilogue: K16 filter_fold, K17 agg_fold ------------------------

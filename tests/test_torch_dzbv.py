@@ -5,7 +5,10 @@ versions of K13, K14 and K15 against the JAX decoder of the same form
 oracle and the input; the prep's choice of form, forced tile strides that
 divide 128 and that straddle its windows, columns with no, one and three
 planes above 0, narrow stores and n = 0. Everything is compared bit for bit
-(tolerance 0). The host prep's bytes are held in test_torch_host.py."""
+(tolerance 0). The host prep's bytes are held in test_torch_host.py. Last,
+the shared memory the staged kernels take (kernels/_wrap.dzbv_plan), and a
+NumPy model of K15's windows, the 4 KB rows of each plane that a group's
+ranks touch, held to the plain version on short and skewed streams."""
 
 import dataclasses
 
@@ -19,6 +22,7 @@ import giddy_tpu_torch as gtt
 from giddy_tpu.kernels import dzbv as gt_dzbv
 from giddy_tpu_torch import kernels
 from giddy_tpu_torch.kernels import _wrap, dzbv, lanes
+from giddy_tpu_torch.ref.lmp import lmp_unpack
 from giddy_tpu_torch.util import GROUP, LANES
 
 from test_torch_host import assert_same_streams
@@ -229,3 +233,73 @@ def test_dzbv_plan_at_the_2_26_cell():
     assert _wrap.dzbv_plan("tile", (128, 96, 64)) == 72 * 1024
     assert _wrap.dzbv_plan("group", (7, 5, 3)) == 60 * 1024
     assert _wrap.dzbv_plan("group", (None, 0, None)) == 0
+
+
+@pytest.mark.parametrize("shapes", [(5, None, None), (5, 3, None), (5, None, 1), (None, 3, 1), (5, 3, 1)])
+def test_dzbv_plan_of_the_on_disk_planes(shapes):
+    """K15 sizes a block for 9 rows of 4 KB a present plane, whatever the
+    streams' lengths: at three planes (110,592 B, the worst case) one block
+    of 1024 threads fits an SM, at one or two planes two (the most threads
+    an SM holds)."""
+    dynamic = _wrap.dzbv_plan("plane", shapes)
+    present = sum(a is not None for a in shapes)
+    assert dynamic == present * _wrap.DZBV_PLANE_WINDOW == present * 36_864
+    assert dynamic + _wrap.DZBV_STATIC <= 227 * 1024
+    blocks = min(2, H100_SHARED_PER_SM // (dynamic + _wrap.DZBV_STATIC + 1024))  # 2048 threads an SM
+    assert blocks == (1 if present == 3 else 2)
+
+
+def window_model(widths: torch.Tensor, plane0: torch.Tensor, planes: tuple) -> np.ndarray:
+    """K15 in NumPy, as csrc/dzbv_decode.cu stage_windows and phase 2 do it:
+    each group's first rank r and count n in plane k, the rows r >> 12 ..
+    (r + n - 1) >> 12 of the plane's 4 KB rows (in rank order), clamped to
+    the stream and to 9, and each value's byte at min(r - 4096 * first row +
+    its rank in the group, the window's last byte). (ng, GROUP) uint32."""
+    codes = lmp_unpack(widths.numpy().view(np.uint32), 2, widths.shape[0] * GROUP).reshape(-1, GROUP)
+    out = lmp_unpack(plane0.numpy().view(np.uint32), 8, plane0.shape[0] * GROUP).reshape(-1, GROUP)
+    for k, plane in enumerate(planes, 1):
+        if plane is None:
+            continue
+        rows = lmp_unpack(plane.numpy().view(np.uint32), 8, plane.shape[0] * GROUP).reshape(-1, 4096)
+        mask = codes >= k
+        counts = mask.sum(axis=1)
+        for g, (r, n) in enumerate(zip(np.cumsum(counts) - counts, counts)):
+            if n == 0:
+                continue
+            r0 = min(r >> 12, rows.shape[0] - 1)
+            r1 = min((r + n - 1) >> 12, rows.shape[0] - 1, r0 + 8)
+            window = rows[r0 : r1 + 1].reshape(-1)
+            start = min(r - 4096 * r0, window.size - 1)
+            rank = np.arange(n)
+            out[g, mask[g]] |= window[np.minimum(start + rank, window.size - 1)].astype(np.uint32) << np.uint32(8 * k)
+    return out
+
+
+def _random_planes(rng, ng: int, plane_rows: tuple) -> tuple:
+    words = lambda shape: torch.from_numpy(rng.integers(0, 2**32, shape, dtype=np.uint64).astype(np.uint32).view(np.int32))
+    return words((ng, 2 * LANES)), words((ng, 8 * LANES)), tuple(
+        None if a is None else words((a, 8 * LANES)) for a in plane_rows)
+
+
+@pytest.mark.parametrize("case", ["windows", "group_skewed", "mixed", "random short", "random plane 2 absent",
+                                  "random one row"])
+def test_k15_window_model_matches_plain_version(case):
+    """The windows K15 stages give the plain version's bytes: a middle
+    group's 9 rows a plane from 100 bytes into a row, the last group's
+    window at the stream's end, groups with no value in a plane, and random
+    widths over streams far too short for them (ranks clamp to the stream's
+    last byte, so the window shrinks to the stream's last rows or to its
+    last row alone)."""
+    if case.startswith("random"):
+        rng = rng_of(f"windows/{case}")
+        rows = {"random short": (1, 2, 3), "random plane 2 absent": (2, None, 1), "random one row": (1, 1, 1)}[case]
+        widths, plane0, planes = _random_planes(rng, 5, rows)
+    else:
+        v = dzbv_values(case, 4 * GROUP, rng_of(f"windows/{case}")).view(np.int32)
+        col = gtt.encode(v, "dzbv")
+        name, (widths, plane0, planes, _) = kernels.kernel_call(col, gtt.upload(col.streams, "cpu"), torch.int32)
+        assert name == "dzbv_plane_decode" and all(t is not None for t in planes)
+    want = lanes.dzbv_plane_decode(widths, plane0, planes).numpy().view(np.uint32)
+    assert window_model(widths, plane0, planes).tobytes() == want.tobytes()
+    if case == "windows":
+        assert want.reshape(-1).tobytes() == v.view(np.uint32).tobytes()

@@ -45,7 +45,9 @@ def bitmap_values(d: int, n: int, rng: np.random.Generator, dtype: str = "int32"
     return vocab.astype(np.dtype(dtype))[rng.integers(0, d, n)]
 
 
-DZBV_KINDS = ["mixed", "skewed", "group_skewed", "one_byte", "two_bytes", "full", "per_tile"]
+DZBV_KINDS = ["mixed", "skewed", "group_skewed", "one_byte", "two_bytes", "full", "per_tile", "windows"]
+# ``windows``: the wide values of the first and the last group
+WINDOW_HEAD, WINDOW_TAIL = 100, GROUP - 1100
 
 
 def dzbv_values(kind: str, n: int, rng: np.random.Generator, per_tile: int = 16, wide_bytes: int = 4) -> np.ndarray:
@@ -56,7 +58,11 @@ def dzbv_values(kind: str, n: int, rng: np.random.Generator, per_tile: int = 16,
     ``one_byte`` all < 256 (no plane above 0); ``two_bytes`` all < 65536;
     ``full`` 32-bit values; ``per_tile`` exactly ``per_tile`` values
     ``wide_bytes`` wide (2-4: planes 1 to wide_bytes - 1) in every 128-value
-    tile, the rest 1 byte."""
+    tile, the rest 1 byte; ``windows`` 1-byte values but the first
+    WINDOW_HEAD of the first group, every value of the groups between and the
+    first WINDOW_TAIL of the last group 4 bytes wide: in the on-disk planes a
+    middle group's ranks start 100 bytes into a 4 KB row and touch 9 rows of
+    each plane, and the last group's end in the stream's last row."""
     if kind == "mixed":
         return gen_column("dzbv", n, rng).view(np.uint32)
     if kind == "full":
@@ -69,6 +75,9 @@ def dzbv_values(kind: str, n: int, rng: np.random.Generator, per_tile: int = 16,
         sel = (np.arange(n) % GROUP) < 128
     elif kind == "group_skewed":
         sel = np.arange(n) < GROUP
+    elif kind == "windows":
+        p, last = np.arange(n), (n - 1) // GROUP * GROUP
+        sel = (p < WINDOW_HEAD) | ((p >= GROUP) & (p < last)) | ((p >= max(last, GROUP)) & (p < last + WINDOW_TAIL))
     elif kind == "per_tile":
         tiles = -(-n // 128)
         order = np.argsort(rng.random((tiles, 128)), axis=1)[:, :per_tile]
@@ -266,6 +275,12 @@ def test_dzbv_values_have_the_widths_they_name(kind):
             assert np.array_equal(wide, np.arange(n) % GROUP < 128)
         elif kind == "group_skewed":
             assert np.array_equal(wide, np.arange(n) < GROUP)
+        elif kind == "windows":
+            counts = np.add.reduceat(wide, np.arange(0, n, GROUP))
+            assert counts.tolist() == [WINDOW_HEAD, GROUP, GROUP, 17]
+            full = dzbv_values(kind, 4 * GROUP, rng_of(kind))
+            assert np.add.reduceat(_widths(full) == 4, np.arange(0, 4 * GROUP, GROUP)).tolist() == [
+                WINDOW_HEAD, GROUP, GROUP, WINDOW_TAIL]
         else:
             assert (np.add.reduceat(wide, np.arange(0, n, 128))[: n // 128] == 5).all()
 

@@ -2,7 +2,8 @@
 delta2 (K7) and xordelta (K8) encode and decode, and scan.group_prefix_sum
 (K6) / group_reduce. The port runs the kernels' plain versions, the JAX
 package its Pallas kernels in interpret mode. Everything is compared bit
-for bit (tolerance 0)."""
+for bit (tolerance 0). Last, a NumPy model of K7's chunked scan against
+the plain version."""
 
 import zlib
 
@@ -15,7 +16,7 @@ import giddy_tpu.scan as gt_scan
 import giddy_tpu_torch as gtt
 from giddy_tpu_torch import kernels
 from giddy_tpu_torch.kernels import delta2, lanes, xordelta
-from giddy_tpu_torch.ref.lmp import lmp_pack
+from giddy_tpu_torch.ref.lmp import lmp_pack, lmp_unpack
 from giddy_tpu_torch.util import GROUP
 
 from helpers import gen_column
@@ -150,3 +151,65 @@ def test_scan_plain_versions():
     want = (anchors.numpy().astype(np.int64)[:, None] + slopes.numpy().astype(np.int64)[:, None]
             * np.arange(1, GROUP + 1) + cc).astype(np.uint32)
     assert out.tobytes() == want.tobytes()
+
+
+def delta2_chunk_model(s: np.ndarray, anchors: np.ndarray, slopes: np.ndarray) -> np.ndarray:
+    """K7's algebra in NumPy (csrc/run_decode.cu delta2_decode_kernel), all
+    uint32 and wrapping: (ng, GROUP) second differences -> (ng, GROUP)
+    values. Two passes of 16 slots; in a pass, chunk e = 64 * slot + 2 *
+    warp + half is the 16 positions 16e .. 16e + 15 of the pass, so its
+    chunks in (slot, warp, half) order are the pass in order. Each chunk's
+    sums (sum s, sum j * s), their exclusive scan over the pass's 1024
+    chunks carried on from the first pass's total, then each chunk from
+    v_{j0-1} = anchor + j0 * (slope + A) - B with two adds a value,
+    v_j = v_{j-1} + slope + S_j."""
+    ng = s.shape[0]
+    half = GROUP // 2
+    k = np.arange(16, dtype=np.uint32)
+    carry = np.zeros((2, ng), np.uint32)
+    out = np.empty((ng, GROUP), np.uint32)
+    for p in range(2):
+        chunk = s[:, p * half : (p + 1) * half].reshape(ng, 1024, 16)
+        j = np.arange(p * half, (p + 1) * half, dtype=np.uint32).reshape(1024, 16)
+        j0 = j[:, 0]
+        sums = chunk.sum(axis=2, dtype=np.uint32)
+        jsums = j0 * sums + (chunk * k).sum(axis=2, dtype=np.uint32)
+        assert np.array_equal(jsums, (chunk * j).sum(axis=2, dtype=np.uint32))
+        a = carry[0][:, None] + np.cumsum(sums, axis=1, dtype=np.uint32) - sums  # exclusive
+        b = carry[1][:, None] + np.cumsum(jsums, axis=1, dtype=np.uint32) - jsums
+        carry = carry + np.stack([sums.sum(axis=1, dtype=np.uint32), jsums.sum(axis=1, dtype=np.uint32)])
+        step = slopes[:, None] + a  # slope + S_{j0-1}
+        v = anchors[:, None] + j0 * step - b  # v_{j0-1}
+        part = np.empty((ng, 1024, 16), np.uint32)
+        for i in range(16):
+            step = step + chunk[:, :, i]
+            v = v + step
+            part[:, :, i] = v
+        out[:, p * half : (p + 1) * half] = part.reshape(ng, half)
+    return out
+
+
+@pytest.mark.parametrize("bits", [1, 3, 17, 32])
+def test_delta2_chunk_model_matches_plain_version(bits):
+    """The formula K7 implements, on random second differences of every
+    width and anchors and slopes across the int32 range (each sum wraps mod
+    2^32 many times at 32 bits), against lanes.delta2_decode."""
+    rng = np.random.default_rng(56 + bits)
+    ng = 3
+    packed = rng.integers(0, 2**32, (ng, bits * 1024), dtype=np.uint64).astype(np.uint32)
+    anchors = rng.integers(-(2**31), 2**31, ng).astype(np.int32)
+    slopes = np.array([2**31 - 1, -(2**31), int(rng.integers(-(2**31), 2**31))], np.int32)
+    z = lmp_unpack(packed.reshape(-1), bits, ng * GROUP).reshape(ng, GROUP)
+    s = (z >> np.uint32(1)) ^ (np.uint32(0) - (z & np.uint32(1)))
+    got = delta2_chunk_model(s, anchors.view(np.uint32), slopes.view(np.uint32))
+    want = lanes.delta2_decode(torch.from_numpy(packed.view(np.int32)), torch.from_numpy(anchors),
+                               torch.from_numpy(slopes), bits)
+    assert got.tobytes() == want.numpy().view(np.uint32).tobytes()
+
+
+@pytest.mark.parametrize("limit", [1, 22_144, 65_535])
+def test_delta2_shared_lut_limit_bisects_the_probe(monkeypatch, limit):
+    """shared_lut_limit finds the largest d that K7's probe keeps in shared
+    memory (on the card, the C entry gt_delta2_shared; here a stand-in)."""
+    monkeypatch.setattr(delta2, "lut_in_shared", lambda d: d <= limit)
+    assert delta2.shared_lut_limit() == limit
