@@ -16,7 +16,14 @@ tile stride and row width), device encode (the
 configs[0]-[3] columns through ``kernels.encode``: ``encode_nbit_device``,
 ``delta_streams_device`` / ``for_streams_device``, ``encode_dict_device``
 and ``encode_rle_device``, the LMP pack K18 under all but the last, each
-held byte for byte to the host encoder's column), and times them.
+held byte for byte to the host encoder's column), the analytic phase
+(64-bit and string columns, partial decode, zone maps, GROUP BY and top-k
+on a TPC-H lineitem-shaped table at n = 2^26 and an orders-shaped one at
+n = 2^24: ``decode`` of wide and strdict columns, the wide branches of
+``query`` and ``aggregate``, ``zonemap.count_where_pruned`` /
+``searchsorted``, ``query.select_where`` / ``partial.take``,
+``groupby.group_reduce``, ``topk.top_k`` and the ``strings`` scans, each
+held exactly against NumPy on the input), and times them.
 
     python3 chip_smoke.py
 
@@ -39,7 +46,7 @@ import numpy as np
 import torch
 
 import giddy_tpu_torch as gtt
-from giddy_tpu_torch import aggregate, kernels, nulls, query
+from giddy_tpu_torch import aggregate, groupby, kernels, nulls, partial, query, strings, topk, wide, zonemap
 from giddy_tpu_torch.datagen import gen_column
 from giddy_tpu_torch.kernels import (
     _build, agg, alp, bitmap, cascade, cumsum, delta, delta2, dict_, dzbv, encode, filter_, for_, lanes, model, nbit,
@@ -1056,8 +1063,9 @@ def encoded(label: str, v: np.ndarray, scheme: str, **opts):
     t0 = time.perf_counter()
     col = gtt.encode(v, scheme, name=label, **opts)
     HOST_ENCODE_S[label] = time.perf_counter() - t0
-    print(f"[encode] {label}: host encode {HOST_ENCODE_S[label]:.2f} s "
-          f"({col.nbytes_decoded / col.nbytes_compressed:.2f}x), params {col.params}")
+    ratio = (f"{col.nbytes_compressed} B of streams, codes {col.params['codes_scheme']}" if scheme == "strdict"
+             else f"{col.nbytes_decoded / col.nbytes_compressed:.2f}x")
+    print(f"[encode] {label}: host encode {HOST_ENCODE_S[label]:.2f} s ({ratio}), params {col.params}")
     return col
 
 
@@ -1123,7 +1131,7 @@ def same_on_card(out: torch.Tensor, v: np.ndarray) -> bool:
 
 
 def main_path(cols: list, x: torch.Tensor, container: list, casc: tuple, epilogue: list,
-              dz: tuple, scan: dict) -> tuple[dict[str, int], str]:
+              dz: tuple, scan: dict, analytic: tuple) -> tuple[dict[str, int], str]:
     """Phase 4: each main path -- every column through decode(col,
     device=cuda), scan.group_prefix_sum(x), the configs[4] container
     through decode_columns(cols, device=cuda), the cascade column through
@@ -1189,6 +1197,7 @@ def main_path(cols: list, x: torch.Tensor, container: list, casc: tuple, epilogu
           lambda: container_ok(container + [dz]))
     scan_main_path(scan, drive)
     encode_main_path({label: (v, col) for label, v, col in cols}, drive)
+    analytic_main_path(*analytic, drive)
     return totals, picked
 
 
@@ -1589,6 +1598,291 @@ def rank_cell(smi: str) -> None:
     time_column(f"rle runs ~20 n=2^26 (_rank_call cell, w_pad {w_pad})", v, col, smi)
 
 
+# -- the analytic phase --------------------------------------------------------
+# 64-bit and string columns, partial decode, zone maps, GROUP BY and top-k on
+# two tables shaped after TPC-H (lineitem at n = 2^26, about SF 11; orders at
+# n = 2^24, SF 11's orders). Every result is held exactly against NumPy on the
+# input values (floats by their bits).
+
+LINEITEM_N = 2**26
+ORDERS_N = 2**24
+PRIORITIES = ["1-URGENT", "2-HIGH", "3-MEDIUM", "4-NOT SPECIFIED", "5-LOW"]
+AGGS = ("count", "sum", "min", "max")
+
+
+@dataclasses.dataclass
+class Column:
+    """An analytic column: its input values, the encoded column and, for a
+    strdict column, the vocabulary and each row's index into it."""
+
+    label: str
+    values: np.ndarray
+    col: object
+    vocab: np.ndarray | None = None
+    idx: np.ndarray | None = None
+
+
+def lineitem_table() -> dict[str, Column]:
+    """l_orderkey (int64, sorted, 1-7 lines an order, TPC-H's sparse keys:
+    8 of every 32 used) as wide with a delta lo plane and an nbit hi plane;
+    l_extendedprice (float64, l_quantity times a part's retail price in
+    cents, TPC-H's formula over 2.2M parts) as wide; l_quantity (int32,
+    1-50) as nbit; l_suppkey (int32, 1000 keys) as dict. Seed 20."""
+    n, rng = LINEITEM_N, np.random.default_rng(20)
+    order = np.arange(n // 2, dtype=np.int64)  # 4 lines an order on average: twice the keys needed
+    keys = order // 8 * 32 + order % 8 + 1
+    orderkey = np.repeat(keys, rng.integers(1, 8, keys.shape[0]))[:n]
+    quantity = rng.integers(1, 51, n).astype(np.int32)
+    part = rng.integers(1, 2_200_001, n)
+    retail_cents = 90000 + (part // 10) % 20001 + 100 * (part % 1000)
+    price = (quantity * retail_cents) / 100.0
+    vocab = (rng.choice(110_000, 1000, replace=False) + 1).astype(np.int32)
+    suppkey = vocab[rng.integers(0, 1000, n)]
+    return {
+        "l_orderkey": Column("l_orderkey", orderkey, encoded("lineitem l_orderkey int64 wide n=2^26", orderkey, "wide",
+                                                             base_scheme="delta", hi_scheme="nbit")),
+        "l_extendedprice": Column("l_extendedprice", price, encoded("lineitem l_extendedprice float64 wide n=2^26", price,
+                                                                    "wide")),
+        "l_quantity": Column("l_quantity", quantity, encoded("lineitem l_quantity nbit n=2^26", quantity, "nbit")),
+        "l_suppkey": Column("l_suppkey", suppkey, encoded("lineitem l_suppkey dict d=1000 n=2^26", suppkey, "dict")),
+    }
+
+
+def orders_table() -> dict[str, Column]:
+    """o_orderstatus (3 strings, p = 0.1, 0.6, 0.3), o_orderpriority (5
+    strings) and o_clerk (10,000 strings "Clerk#%09d"), each strdict with
+    codes_scheme="auto", and o_custkey (int32 in 1..1,650,000) as nbit.
+    Seed 21. The strings are one Python object a row, built on the host."""
+    n, rng = ORDERS_N, np.random.default_rng(21)
+    out = {}
+    for name, vocab, idx in [
+        ("o_orderstatus", ["F", "O", "P"], rng.choice(3, n, p=[0.1, 0.6, 0.3])),
+        ("o_orderpriority", PRIORITIES, rng.integers(0, 5, n)),
+        ("o_clerk", [f"Clerk#{i:09d}" for i in range(1, 10_001)], rng.integers(0, 10_000, n)),
+    ]:
+        vocab = np.array(vocab, dtype=object)
+        values = vocab[idx]
+        out[name] = Column(name, values, encoded(f"orders {name} strdict n=2^24", values, "strdict"), vocab, idx)
+    custkey = rng.integers(1, 1_650_001, n).astype(np.int32)
+    out["o_custkey"] = Column("o_custkey", custkey, encoded("orders o_custkey nbit n=2^24", custkey, "nbit"))
+    return out
+
+
+def analytic_kernel_checks(li: dict, od: dict) -> None:
+    """Each kernel of the analytic paths against its plain version on the
+    card at their shapes: both planes of the two wide columns, the dict
+    codes and every strdict code column (check_kernel)."""
+    for name in ("l_orderkey", "l_extendedprice"):
+        c = li[name]
+        u = c.values.view(np.uint64)
+        for plane, half in (("lo", u & np.uint64(0xFFFFFFFF)), ("hi", u >> np.uint64(32))):
+            check_kernel(f"lineitem {name} {plane} plane n=2^26", wide._sub(c.col, plane), half.astype(np.uint32))
+    codes = groupby._codes_device_column(li["l_suppkey"].col)
+    check_kernel("lineitem l_suppkey codes n=2^26", codes, np.searchsorted(np.unique(li["l_suppkey"].values),
+                                                                            li["l_suppkey"].values).astype(np.int32))
+    for name in ("o_orderstatus", "o_orderpriority", "o_clerk"):
+        c = od[name]
+        used = np.unique(c.idx)
+        code_of = np.zeros(c.vocab.shape[0], np.int32)  # each used entry's code in the sorted dictionary
+        code_of[used[np.argsort(c.vocab[used].astype(str))]] = np.arange(used.shape[0])
+        check_kernel(f"orders {name} codes n=2^24", strings.codes_column(c.col), code_of[c.idx])
+
+
+def group_oracle(codes: np.ndarray, vals: np.ndarray, d: int, hi: int, mask: np.ndarray | None = None) -> tuple:
+    """NumPy GROUP BY of small non-negative values (< hi) by code: counts,
+    exact sums, mins and maxs from one (code, value) histogram."""
+    if mask is not None:
+        codes, vals = codes[mask], vals[mask]
+    hist = np.bincount(codes.astype(np.int64) * hi + vals, minlength=d * hi).reshape(d, hi)
+    seen = hist > 0
+    return (hist.sum(1), hist @ np.arange(hi, dtype=np.int64), seen.argmax(1).astype(np.int64),
+            (hi - 1 - seen[:, ::-1].argmax(1)).astype(np.int64))
+
+
+def same_group(r, keys: np.ndarray, want: tuple) -> bool:
+    count, total, lo, hi = want
+    return (np.array_equal(r.keys, keys) and r.keys.dtype == keys.dtype and r.count.dtype == np.int64
+            and all(np.array_equal(a, b) for a, b in zip((r.count, r.sum, r.min, r.max), (count, total, lo, hi))))
+
+
+def stable_top(keys: np.ndarray, k: int, largest: bool) -> np.ndarray:
+    """The positions that NumPy's stable argsort puts last k (reversed: equal
+    keys highest position first) or first k, found through a partition."""
+    t = np.partition(keys, keys.size - k if largest else k - 1)[keys.size - k if largest else k - 1]
+    cand = np.flatnonzero(keys >= t if largest else keys <= t)
+    order = np.lexsort((-cand, -keys[cand]) if largest else (cand, keys[cand]))
+    return cand[order][:k]
+
+
+def same_topk(got: tuple, v: np.ndarray, pos: np.ndarray) -> bool:
+    vals, p = got
+    return np.array_equal(p, pos) and same_bits(vals, v[pos])
+
+
+def words_of(mask: np.ndarray) -> torch.Tensor:
+    """The LMP(1) words of a whole-groups mask, packed on the card."""
+    return lanes.pack_hits(torch.from_numpy(mask).to(CUDA).view(-1, GROUP))
+
+
+def analytic_main_path(li: dict, od: dict, drive) -> None:
+    """The analytic phase's paths (see the module docstring of each entry
+    point), each driven once with the launch counts reset and read around
+    it, each held exactly against NumPy on the input."""
+    ok, okc = li["l_orderkey"].values, li["l_orderkey"].col
+    price, pricec = li["l_extendedprice"].values, li["l_extendedprice"].col
+    qty, qtyc = li["l_quantity"].values, li["l_quantity"].col
+    supp, suppc = li["l_suppkey"].values, li["l_suppkey"].col
+    drive("lineitem l_orderkey wide n=2^26", "decode(col, device=cuda) vs input",
+          lambda: same_on_card(gtt.decode(okc, device=CUDA), ok), ("delta_decode", "lmp_unpack"))
+    drive("lineitem l_extendedprice wide n=2^26", "decode(col, device=cuda) vs input",
+          lambda: same_on_card(gtt.decode(pricec, device=CUDA), price), ("lmp_unpack",))
+    med, one = int(ok[ok.shape[0] // 2]), int(ok[12345])
+    counts = {"lt": int((ok < med).sum()), "eq": int((ok == one).sum())}
+    for op, value in (("lt", med), ("eq", one)):
+        drive(f"lineitem l_orderkey count_where {op}", "query.count_where(col, device=cuda) vs NumPy",
+              lambda: query.count_where(okc, op, value, device=CUDA) == counts[op], ("delta_decode", "lmp_unpack"))
+        drive(f"lineitem l_orderkey filter_bitmap {op}", "query.filter_bitmap(col, device=cuda) vs NumPy's mask",
+              lambda: torch.equal(query.filter_bitmap(okc, op, value, device=CUDA),
+                                  words_of(ok < med if op == "lt" else ok == one)))
+    drive("lineitem l_orderkey sum_/min_/max_", "aggregate.sum_/min_/max_(col, device=cuda) vs NumPy",
+          lambda: (aggregate.sum_(okc, device=CUDA) == int(ok.sum()) and aggregate.min_(okc, device=CUDA) == int(ok.min())
+                   and aggregate.max_(okc, device=CUDA) == int(ok.max())), ("delta_decode", "agg_fold", "filter_fold"))
+    for op, value in (("lt", med), ("eq", one)):
+        drive(f"lineitem l_orderkey count_where_pruned {op}", "zonemap.count_where_pruned vs count_where and NumPy",
+              lambda: zonemap.count_where_pruned(okc, op, value, device=CUDA) == counts[op]
+              == query.count_where(okc, op, value, device=CUDA))
+    q = np.concatenate([ok[np.random.default_rng(22).integers(0, ok.shape[0], 1000)], [0, int(ok[-1]) + 1]])
+    drive("lineitem l_orderkey searchsorted", "zonemap.searchsorted(col, 1002 keys) vs np.searchsorted, both sides",
+          lambda: all(np.array_equal(zonemap.searchsorted(okc, q, side=side, device=CUDA), np.searchsorted(ok, q, side=side))
+                      for side in ("left", "right")), ("delta_decode",))
+    thr = float(np.partition(price, price.shape[0] - price.shape[0] // 1000)[price.shape[0] - price.shape[0] // 1000])
+    drive("lineitem l_extendedprice select_where gt (0.1%)", "query.select_where(col, device=cuda) vs NumPy",
+          lambda: same_bits(query.select_where(pricec, "gt", thr, device=CUDA), price[price > thr]), ("lmp_unpack",))
+    idx = np.random.default_rng(23).integers(0, ok.shape[0], ok.shape[0] // 1000)
+    drive("lineitem l_orderkey take (0.1% of the rows)", "partial.take(col, idx, device=cuda) vs NumPy",
+          lambda: same_bits(partial.take(okc, idx, device=CUDA), ok[idx]), ("delta_decode",))
+    skeys = np.unique(supp)
+    scodes = np.searchsorted(skeys, supp)
+    for label, bm, mask in (("", None, None), (" where l_orderkey < median", True, ok < med)):
+        want = group_oracle(scodes, qty, skeys.shape[0], 51, mask)
+        drive(f"lineitem group_reduce(l_suppkey, l_quantity){label}", "groupby.group_reduce(..., device=cuda) vs NumPy",
+              lambda: same_group(groupby.group_reduce(
+                  suppc, qtyc, AGGS, None if bm is None else query.filter_bitmap(okc, "lt", med, device=CUDA),
+                  device=CUDA), skeys, want), ("lmp_unpack",))
+    top = stable_top(price, 100, largest=True)
+    drive("lineitem top_k(l_extendedprice, 100)", "topk.top_k(col, 100, device=cuda) vs NumPy's stable argsort",
+          lambda: same_topk(topk.top_k(pricec, 100, device=CUDA), price, top), ("lmp_unpack",))
+    low = stable_top(qty, 100, largest=False)
+    drive("lineitem top_k(l_quantity, 100, largest=False), ties", "topk.top_k(col, device=cuda) vs NumPy's stable argsort",
+          lambda: same_topk(topk.top_k(qtyc, 100, largest=False, device=CUDA), qty, low), ("lmp_unpack",))
+
+    for name in ("o_orderstatus", "o_orderpriority", "o_clerk"):
+        c = od[name]
+        drive(f"orders {name} strdict n=2^24 ({c.col.params['codes_scheme']} codes)", "decode(col, device=cuda) vs input",
+              lambda: np.array_equal(gtt.decode(c.col, device=CUDA), c.values))
+    preds = [("o_orderstatus", "eq", "F", lambda e: e == "F"),
+             ("o_clerk", "startswith", "Clerk#00000", lambda e: e.startswith("Clerk#00000")),
+             ("o_clerk", "contains", "999", lambda e: "999" in e),
+             ("o_orderpriority", "contains", "HIGH", lambda e: "HIGH" in e)]
+    for name, op, value, fn in preds:
+        c = od[name]
+        mask = np.array([fn(e) for e in c.vocab])[c.idx]
+        drive(f"orders {name} filter_bitmap_str {op} {value!r}", "strings.filter_bitmap_str(col, device=cuda) vs NumPy",
+              lambda: torch.equal(strings.filter_bitmap_str(c.col, op, value, device=CUDA), words_of(mask)))
+    for name, picks in (("o_orderpriority", PRIORITIES[:2]), ("o_clerk", list(od["o_clerk"].vocab[::97]))):
+        c = od[name]
+        mask = np.isin(c.idx, [int(np.flatnonzero(c.vocab == p)[0]) for p in picks])
+        drive(f"orders {name} isin_bitmap_str ({len(picks)} strings)", "strings.isin_bitmap_str(col, device=cuda) vs NumPy",
+              lambda: torch.equal(strings.isin_bitmap_str(c.col, picks, device=CUDA), words_of(mask)))
+    c, cust = od["o_orderpriority"], od["o_custkey"]
+    want = (np.bincount(c.idx, minlength=5), np.bincount(c.idx, weights=cust.values, minlength=5).astype(np.int64),
+            np.array([cust.values[c.idx == g].min() for g in range(5)], np.int64),
+            np.array([cust.values[c.idx == g].max() for g in range(5)], np.int64))
+    drive("orders group_reduce(o_orderpriority, o_custkey)", "groupby.group_reduce(..., device=cuda) vs NumPy",
+          lambda: same_group(groupby.group_reduce(c.col, cust.col, AGGS, device=CUDA), np.array(PRIORITIES, object), want))
+    c = od["o_clerk"]
+    drive("orders o_clerk select_where_str lt 'Clerk#000000011' (0.1%)", "strings.select_where_str(col, device=cuda) vs NumPy",
+          lambda: np.array_equal(strings.select_where_str(c.col, "lt", "Clerk#000000011", device=CUDA), c.values[c.idx < 10]))
+    for name in ("o_orderstatus", "o_orderpriority", "o_clerk"):
+        c = od[name]
+        used = sorted(c.vocab[np.bincount(c.idx, minlength=c.vocab.shape[0]) > 0])
+        check(strings.min_str(c.col) == used[0] and strings.max_str(c.col) == used[-1]
+              and strings.distinct_count_str(c.col) == len(used), f"orders {name} min_str/max_str/distinct_count_str")
+        print(f"[main] orders {name} min_str/max_str/distinct_count_str: exact, from the dictionary (no device work)")
+
+
+def time_analytic(li: dict, od: dict, smi: str) -> None:
+    """Phase 5 for the analytic paths: each call's host-clock ms (median of
+    10, or of 3 where a host step takes seconds) beside the H2D of the
+    same values raw (a strdict column's raw values as fixed-width bytes);
+    the zone map's build (one oracle decode on the host) alone."""
+    raw = {name: host_ms(lambda c=c: torch.from_numpy(c.values).to(CUDA)) for name, c in li.items()}
+    for name, c in od.items():
+        if c.vocab is not None:  # the strings as a fixed-width byte array
+            b = np.array([v.encode() for v in c.vocab], dtype="S")[c.idx].view(np.uint8)
+            raw[name] = host_ms(lambda b=b: torch.from_numpy(b).to(CUDA))
+    raw["o_custkey"] = host_ms(lambda: torch.from_numpy(od["o_custkey"].values).to(CUDA))
+    ok, okc = li["l_orderkey"].values, li["l_orderkey"].col
+    med, one = int(ok[ok.shape[0] // 2]), int(ok[12345])
+    fresh = dataclasses.replace(okc)
+    t0 = time.perf_counter()
+    zonemap.zone_map(fresh)
+    print(f"[time] lineitem l_orderkey zone map build on {smi}: {(time.perf_counter() - t0) * 1e3:.1f} ms on the host "
+          f"(the NumPy oracle decode of both planes and the per-group bounds; once a column)")
+    price, pricec = li["l_extendedprice"].values, li["l_extendedprice"].col
+    thr = float(np.partition(price, price.shape[0] - price.shape[0] // 1000)[price.shape[0] - price.shape[0] // 1000])
+    idx = np.random.default_rng(23).integers(0, ok.shape[0], ok.shape[0] // 1000)
+    q = ok[np.random.default_rng(22).integers(0, ok.shape[0], 1000)]
+    suppc, qtyc = li["l_suppkey"].col, li["l_quantity"].col
+    bm = query.filter_bitmap(okc, "lt", med, device=CUDA)
+    cells = [
+        ("l_orderkey", "decode(col)", lambda: gtt.decode(okc, device=CUDA), 10),
+        ("l_extendedprice", "decode(col)", lambda: gtt.decode(pricec, device=CUDA), 10),
+        ("l_orderkey", "count_where lt median", lambda: query.count_where(okc, "lt", med, device=CUDA), 10),
+        ("l_orderkey", "count_where eq one key", lambda: query.count_where(okc, "eq", one, device=CUDA), 10),
+        ("l_orderkey", "filter_bitmap lt median", lambda: query.filter_bitmap(okc, "lt", med, device=CUDA), 10),
+        ("l_orderkey", "sum_", lambda: aggregate.sum_(okc, device=CUDA), 10),
+        ("l_orderkey", "min_ (zone map)", lambda: aggregate.min_(okc, device=CUDA), 10),
+        ("l_orderkey", "count_where_pruned lt median", lambda: zonemap.count_where_pruned(okc, "lt", med, device=CUDA), 10),
+        ("l_orderkey", "count_where_pruned eq one key", lambda: zonemap.count_where_pruned(okc, "eq", one, device=CUDA), 10),
+        ("l_orderkey", "searchsorted 1000 keys", lambda: zonemap.searchsorted(okc, q, device=CUDA), 10),
+        ("l_extendedprice", "select_where gt (0.1%)", lambda: query.select_where(pricec, "gt", thr, device=CUDA), 3),
+        ("l_orderkey", "take 0.1% of the rows", lambda: partial.take(okc, idx, device=CUDA), 3),
+        ("l_quantity", "group_reduce(l_suppkey, l_quantity)", lambda: groupby.group_reduce(suppc, qtyc, AGGS, device=CUDA), 10),
+        ("l_quantity", "group_reduce(...) with the filter bitmap",
+         lambda: groupby.group_reduce(suppc, qtyc, AGGS, bm, device=CUDA), 10),
+        ("l_extendedprice", "top_k 100", lambda: topk.top_k(pricec, 100, device=CUDA), 10),
+        ("l_quantity", "top_k 100 smallest", lambda: topk.top_k(qtyc, 100, largest=False, device=CUDA), 10),
+    ]
+    for name in ("o_orderstatus", "o_orderpriority", "o_clerk"):
+        c = od[name].col
+        cells.append((name, "decode(col) (codes on the card, string gather on the host)",
+                      lambda c=c: gtt.decode(c, device=CUDA), 3))
+    cells += [
+        ("o_orderstatus", "filter_bitmap_str eq 'F'", lambda: strings.filter_bitmap_str(od["o_orderstatus"].col, "eq", "F",
+                                                                                          device=CUDA), 10),
+        ("o_clerk", "filter_bitmap_str startswith 'Clerk#00000'", lambda: strings.filter_bitmap_str(
+            od["o_clerk"].col, "startswith", "Clerk#00000", device=CUDA), 10),
+        ("o_clerk", "filter_bitmap_str contains '999'", lambda: strings.filter_bitmap_str(
+            od["o_clerk"].col, "contains", "999", device=CUDA), 10),
+        ("o_orderpriority", "isin_bitmap_str 2 strings", lambda: strings.isin_bitmap_str(
+            od["o_orderpriority"].col, PRIORITIES[:2], device=CUDA), 10),
+        ("o_custkey", "group_reduce(o_orderpriority, o_custkey)", lambda: groupby.group_reduce(
+            od["o_orderpriority"].col, od["o_custkey"].col, AGGS, device=CUDA), 10),
+        ("o_clerk", "min_str/max_str/distinct_count_str", lambda: (strings.min_str(od["o_clerk"].col), strings.max_str(
+            od["o_clerk"].col), strings.distinct_count_str(od["o_clerk"].col)), 10),
+        ("o_clerk", "select_where_str lt 'Clerk#000000011' (0.1%)", lambda: strings.select_where_str(
+            od["o_clerk"].col, "lt", "Clerk#000000011", device=CUDA), 3),
+    ]
+    for name, what, fn, runs in cells:
+        table = "lineitem" if name.startswith("l_") else "orders"
+        n = LINEITEM_N if table == "lineitem" else ORDERS_N
+        ms = host_ms(fn, runs=runs)
+        print(f"[time] {table} {name} {what} n=2^{n.bit_length() - 1} on {smi}: {ms:.3f} ms (host clock, median of {runs}); "
+              f"H2D of the raw {name} {raw[name]:.3f} ms")
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     smi = environment()
     build()
@@ -1600,7 +1894,10 @@ def main() -> int:
     epilogue = epilogue_columns()
     dz = dzbv_main()
     scan = scan_columns(cols)
-    counts, picked = main_path(cols + epilogue, x, container, casc, [(v, col) for _, v, col in epilogue], dz, scan)
+    li, od = lineitem_table(), orders_table()
+    analytic_kernel_checks(li, od)
+    counts, picked = main_path(cols + epilogue, x, container, casc, [(v, col) for _, v, col in epilogue], dz, scan,
+                               (li, od))
     container_without_sync("configs[4]", container)
     container_without_sync("model + bitmap + alp", [(v, col) for _, v, col in epilogue])
     timings = dict(time_column(label, v, col, smi) for label, v, col in cols + epilogue)
@@ -1613,6 +1910,7 @@ def main() -> int:
     timings.update(time_dzbv(*dz, picked, smi))
     timings.update(time_scan_layer(scan, smi))
     timings.update(time_encode({label: (v, col) for label, v, col in cols}, smi))
+    time_analytic(li, od, smi)
     for name, count in counts.items():
         check(count >= 1, f"{name} was launched {count} times on the main path")
     rows = [

@@ -5,17 +5,20 @@ GPU with hand-written CUDA kernels (csrc/), or on the CPU with their plain
 PyTorch versions. Imports torch and NumPy, never JAX or giddy_tpu.
 
 Ported so far: decode of nbit, dzbf, for, delta, dict, rle, rpe, delta2,
-xordelta, patched, raw, cascade, model, bitmap, alp and dzbv, single columns
-(``decode``) and whole containers (``decode_columns``),
+xordelta, patched, raw, cascade, model, bitmap, alp and dzbv, of 64-bit
+columns (``wide``) and string columns (``strings``, scheme ``strdict``),
+single columns (``decode``) and whole containers (``decode_columns``),
 ``scan.group_prefix_sum`` / ``group_reduce``, the synthetic columns of
-``datagen``, nullable
-columns (``nulls``, ``encode(..., valid=mask)``), and the scan layer's
-filters (``query.count_where`` / ``filter_bitmap`` and the bitmap algebra)
-and aggregates (``aggregate.sum_`` / ``min_`` / ``max_`` / ``avg_`` /
-``distinct_count``).
+``datagen``, nullable columns (``nulls``, ``encode(..., valid=mask)``), the
+scan layer's filters (``query.count_where`` / ``filter_bitmap`` / ``select``
+and the bitmap algebra) and aggregates (``aggregate.sum_`` / ``min_`` /
+``max_`` / ``avg_`` / ``distinct_count``), GROUP BY (``groupby``), top-k
+(``topk``), zone maps (``zonemap``), random-access decode (``partial``) and
+the layout ops (``layout``). Every entry point runs on the card unless the
+caller asks for ``device="cpu"``.
 """
 
-from . import aggregate, datagen, nulls, query, scan
+from . import aggregate, datagen, groupby, layout, nulls, partial, query, scan, strings, topk, wide, zonemap
 from .api import decode, decode_columns, decode_ref, device_streams, encode, get_decoder, narrow_store_dtype, upload
 from .format import (
     EncodedColumn,
@@ -47,15 +50,22 @@ __all__ = [
     "from_reference",
     "get",
     "get_decoder",
+    "groupby",
+    "layout",
     "narrow_store_dtype",
     "null_count",
     "nulls",
     "open_container",
+    "partial",
     "query",
     "read_container",
     "scan",
     "schemes",
+    "strings",
+    "topk",
     "upload",
     "valid_mask",
+    "wide",
     "write_container",
+    "zonemap",
 ]

@@ -16,10 +16,13 @@ ints, IEEE total-order floats). Float sums decode, copy to the host and
 reduce in float64 with NumPy's own order, as the reference does.
 
 Dictionary-backed columns (dict, cascade) sum as ``sum_c count_c *
-dict_c``: ``torch.bincount`` over the codes that the code column decodes
-(the value gather never runs), then an exact host dot in Python ints.
-Every entry point takes ``device`` ("cuda", or "cpu" for the tests) with
-no default.
+dict_c``: the code counts of ``groupby.group_count`` over the codes that
+the code column decodes (the value gather never runs), then an exact host
+dot in Python ints. 64-bit (wide) columns sum per 32-bit plane (exact in
+Python ints, the sign from a count of negative hi planes) and take min/max
+from their zone map.
+Every entry point takes ``device``, the card unless the caller asks for
+``"cpu"``.
 """
 
 from __future__ import annotations
@@ -30,7 +33,7 @@ import torch
 from . import nulls
 from .api import _check_supported, _decode_device, decode, device_streams, get_decoder
 from .format import EncodedColumn
-from .groupby import _codes_device_column, key_values
+from .groupby import group_count, key_values
 from .kernels import lanes
 from .kernels.agg import agg_fold
 from .query import FUSED, _host_key_u32
@@ -67,27 +70,16 @@ def _run(col: EncodedColumn, agg: str, device: torch.device) -> tuple:
     return lanes.slot_fold(u, valid, col.n, dt.kind, dt.itemsize, agg)
 
 
-def _code_counts(col: EncodedColumn, device: torch.device) -> np.ndarray:
-    """Rows per dictionary code of a dict/cascade column, (d,) int64 on the
-    host: the codes decode on the card (K1 for dict, the inner scheme's
-    kernel without its table for cascade), rows >= n and null rows drop
-    out. The counts of giddy_tpu's group_reduce(col, None, ("count",))."""
-    codes = decode(_codes_device_column(col), device=device).to(torch.int64)
-    if nulls.is_nullable(col):
-        valid = lanes.unpack_lanes(nulls.valid_words_device(col, device), 1).reshape(-1)[: col.n]
-        codes = codes[valid.bool()]
-    d = col.params["dict_size"]
-    return torch.bincount(codes, minlength=d)[:d].cpu().numpy()
-
-
-def sum_(col: EncodedColumn, *, device: torch.device | str) -> int | float:
+def sum_(col: EncodedColumn, *, device: torch.device | str = "cuda") -> int | float:
     """Exact column sum: Python ints for integer columns, a float64 host sum
     for floats. Nullable columns sum the non-null rows (SQL SUM)."""
     device = _decode_device(device)
     _check_supported(col)
     dt = np_dtype(col.dtype)
     if col.scheme in ("cascade", "dict") and dt.kind != "f":
-        counts = _code_counts(col, device)
+        # rows per code (null rows drop out: group_count ANDs the validity
+        # words in), then the exact host dot
+        counts = group_count(col, device=device).count
         vals = key_values(col).astype(np.int64)
         return int(sum(int(c) * int(v) for c, v in zip(counts, vals)))
     if dt.kind == "f":
@@ -95,6 +87,19 @@ def sum_(col: EncodedColumn, *, device: torch.device | str) -> int | float:
         if nulls.is_nullable(col):
             v = v[nulls.valid_mask(col)]
         return float(np.sum(v, dtype=np.float64))
+    if col.scheme == "wide":
+        from . import wide
+        from .partial import take
+        from .query import count_where
+
+        s = sum_(wide._sub(col, "lo"), device=device) + (sum_(wide._sub(col, "hi"), device=device) << 32)
+        if dt.kind == "i":  # two's complement: 2^64 less for each negative
+            s -= count_where(wide._sub(col, "hi"), "ge", 1 << 31, device=device) << 64
+        if nulls.is_nullable(col):
+            # the plane sums covered the fill values at null rows: subtract
+            # them exactly (take decodes only the groups that hold nulls)
+            s -= sum(int(x) for x in take(col, nulls.null_positions(col), device=device))
+        return s
     lo, hi, neg = ((p.to(torch.int64) & 0xFFFFFFFF).sum() for p in _run(col, "sum", device))
     s = int(lo.item()) + (int(hi.item()) << 32)
     if dt.kind == "i":
@@ -123,22 +128,33 @@ def _minmax(col: EncodedColumn, agg: str, device: torch.device | str):
             return u32_to_dtype(u[pick : pick + 1], col.dtype)[0].item()
         vals = u32_to_dtype(u, col.dtype)
         return int(vals.max() if agg == "max" else vals.min())
+    if col.scheme == "wide":
+        # the zone map's keys: logical values for ints, total-order bits for floats
+        from .zonemap import zone_map
+
+        zm = zone_map(col)
+        k = zm.maxs.max() if agg == "max" else zm.mins.min()
+        if dt.kind != "f":
+            return int(k)
+        u = np.uint64(k)
+        u = u ^ (np.uint64(0x8000000000000000) if u >> np.uint64(63) else np.uint64(0xFFFFFFFFFFFFFFFF))
+        return u.view(np.float64).item()
     (keys,) = _run(col, agg, device)
     best = keys.max() if agg == "max" else keys.min()
     return _key_unmap_host(int(best.item()), col.dtype)
 
 
-def min_(col: EncodedColumn, *, device: torch.device | str):
+def min_(col: EncodedColumn, *, device: torch.device | str = "cuda"):
     """Column minimum (floats: total-order semantics, NaN-aware)."""
     return _minmax(col, "min", device)
 
 
-def max_(col: EncodedColumn, *, device: torch.device | str):
+def max_(col: EncodedColumn, *, device: torch.device | str = "cuda"):
     """Column maximum (floats: total-order semantics, NaN-aware)."""
     return _minmax(col, "max", device)
 
 
-def avg_(col: EncodedColumn, *, device: torch.device | str) -> float:
+def avg_(col: EncodedColumn, *, device: torch.device | str = "cuda") -> float:
     """Column mean: exact sum / row count (float64). Nullable columns
     average the non-null rows (SQL AVG)."""
     nv = nulls.count_valid(col)
@@ -147,7 +163,7 @@ def avg_(col: EncodedColumn, *, device: torch.device | str) -> float:
     return float(sum_(col, device=device)) / nv
 
 
-def distinct_count(col: EncodedColumn, *, device: torch.device | str) -> int:
+def distinct_count(col: EncodedColumn, *, device: torch.device | str = "cuda") -> int:
     """Number of distinct values (floats in bit-pattern space). Dense
     (auto-built) dictionaries answer from the header; other dictionary-
     backed columns count the codes in use; everything else decodes and
@@ -159,8 +175,8 @@ def distinct_count(col: EncodedColumn, *, device: torch.device | str) -> int:
     if col.scheme in ("cascade", "dict") and col.params.get("dense"):
         return col.params["dict_size"]
     if col.scheme in ("dict", "cascade"):
-        return int(np.count_nonzero(_code_counts(col, device)))
+        return int(np.count_nonzero(group_count(col, device=device).count))
     v = decode(col, device=device).cpu().numpy()
     if v.dtype.kind == "f":  # bit-pattern distinctness (NaN payloads)
-        v = v.view(np.uint32)
+        v = v.view(np.uint64 if v.dtype.itemsize == 8 else np.uint32)
     return int(np.unique(v).size)

@@ -1,11 +1,17 @@
 """Public decode API of the PyTorch port (counterpart of giddy_tpu/api.py).
 
-``decode(col, device=...)``: registry lookup -> host prep -> upload of the
+``decode(col)``: registry lookup -> host prep -> upload of the
 streams -> (cached) decoder -> its kernel -> logical-dtype tensor.
-``decode_columns(cols, device=...)`` does the same for a container's
-columns, all uploads first, then all decoders. On a CUDA
+``decode_columns(cols)`` does the same for a container's columns, all
+uploads first, then all decoders. Every entry point runs on the card
+(``device="cuda"``) unless the caller asks for ``device="cpu"``. On a CUDA
 device the decoder launches the hand-written kernels of csrc/; on the CPU it
 runs their plain PyTorch versions (kernels/lanes.py).
+
+64-bit columns decode through the ``wide`` scheme (wide.py: both 32-bit
+planes through their kernels, the int64 recombine on the card); string
+columns through ``strdict`` (strings.py: the codes on the card, the string
+gather on the host, which returns a NumPy object array).
 """
 
 from __future__ import annotations
@@ -15,6 +21,8 @@ import torch
 
 from . import kernels as _kernels  # noqa: F401  (installs device decoders)
 from . import ref as _ref  # noqa: F401  (installs host codecs)
+from . import strings as _strings  # noqa: F401  (installs the string-dictionary scheme)
+from . import wide as _wide  # noqa: F401  (installs the 64-bit plane wrapper)
 from . import registry
 from .format import EncodedColumn
 from .util import check_device_addressable
@@ -58,11 +66,14 @@ def decode_ref(col: EncodedColumn) -> np.ndarray:
 
 
 def _check_supported(col: EncodedColumn) -> None:
-    registry.get(col.scheme)  # raises NotImplementedError for a pending scheme
-    if col.dtype not in _LOGICAL:
+    registry.get(col.scheme)  # raises KeyError for an unknown scheme
+    if col.scheme == "wide":
+        if col.dtype not in _wide.TORCH_DTYPES:
+            raise ValueError(f"a wide column is 64-bit, got dtype {col.dtype!r} of {col.name!r}")
+    elif col.scheme != "strdict" and col.dtype not in _LOGICAL:
         raise NotImplementedError(
-            f"dtype {col.dtype!r} of {col.name!r} is decoded through the 64-bit "
-            "'wide' scheme, not ported yet (ROADMAP.md queue 1, item 4)"
+            f"dtype {col.dtype!r} of {col.name!r} is decoded only through the 64-bit "
+            f"'wide' scheme, not through {col.scheme!r}"
         )
     check_device_addressable(col.n, f"device decode of {col.name!r}")
 
@@ -90,7 +101,7 @@ def get_decoder(col: EncodedColumn, out_store: torch.dtype = torch.int32):
     return fn
 
 
-def upload(streams: dict[str, np.ndarray], device: torch.device | str) -> dict[str, torch.Tensor]:
+def upload(streams: dict[str, np.ndarray], device: torch.device | str = "cuda") -> dict[str, torch.Tensor]:
     """Each host stream as a tensor on ``device``; uint32 word streams
     travel as int32 carrying the same bits."""
     out = {}
@@ -102,7 +113,7 @@ def upload(streams: dict[str, np.ndarray], device: torch.device | str) -> dict[s
     return out
 
 
-def device_streams(col: EncodedColumn, device: torch.device | str) -> dict[str, torch.Tensor]:
+def device_streams(col: EncodedColumn, device: torch.device | str = "cuda") -> dict[str, torch.Tensor]:
     """Host prep, then :func:`upload` of the prepped streams."""
     prep = registry.get(col.scheme).prep_streams
     return upload(prep(col) if prep is not None else col.streams, device)
@@ -124,13 +135,19 @@ def _decode_device(device: torch.device | str) -> torch.device:
     return device
 
 
-def decode(col: EncodedColumn, *, device: torch.device | str, pad: bool = False) -> torch.Tensor:
-    """Decode a column on ``device`` (``"cuda"`` or ``"cpu"``; no default).
+def decode(col: EncodedColumn, *, device: torch.device | str = "cuda", pad: bool = False):
+    """Decode a column on ``device`` (the card unless ``"cpu"`` is asked).
 
     Returns a tensor of the column's logical dtype on that device, of
-    length n, or n_pad (whole groups) when ``pad=True``."""
+    length n, or n_pad (whole groups) when ``pad=True``; a wide column's is
+    int64, uint64 or float64. A strdict column returns the NumPy object
+    array of its strings (``pad`` does not apply)."""
     device = _decode_device(device)
     _check_supported(col)
+    if col.scheme == "strdict":
+        return _strings.decode(col, device=device)
+    if col.scheme == "wide":
+        return _wide.decode_device(col, device=device, pad=pad)
     if col.n == 0 and not pad:
         return torch.empty(0, dtype=_LOGICAL[col.dtype][1], device=device)
     u = get_decoder(col, narrow_store_dtype(col))(device_streams(col, device))
@@ -138,21 +155,43 @@ def decode(col: EncodedColumn, *, device: torch.device | str, pad: bool = False)
     return out if pad else out[: col.n]
 
 
-def decode_columns(cols: list[EncodedColumn], *, device: torch.device | str, pad: bool = False) -> dict[str, torch.Tensor]:
+def _parts(col: EncodedColumn) -> list[EncodedColumn]:
+    """The 32-bit columns that decode ``col``: its two planes (wide), its
+    code column (strdict), or itself."""
+    if col.scheme == "wide":
+        return [_wide._sub(col, "lo"), _wide._sub(col, "hi")]
+    if col.scheme == "strdict":
+        return [_strings.codes_column(col)]
+    return [col]
+
+
+def decode_columns(cols: list[EncodedColumn], *, device: torch.device | str = "cuda", pad: bool = False) -> dict:
     """Decode a whole container's columns on ``device`` (the mixed column
     set of BASELINE configs[4]; counterpart of giddy_tpu/api.py:159-182).
 
-    Every column's streams are uploaded first; then every column's cached
-    decoder runs, back to back on the current stream, with no host
-    synchronisation between columns. Results are keyed by column name, a
+    Every column's streams are uploaded first (a wide column's two planes,
+    a strdict column's codes); then every cached decoder runs, back to back
+    on the current stream, with no host synchronisation between columns.
+    Wide planes recombine on the card; strdict codes gather their strings
+    on the host after the last decoder. Results are keyed by column name, a
     later column of the same name replacing an earlier one."""
     device = _decode_device(device)
     for col in cols:
         _check_supported(col)
-    decoders = [get_decoder(col, narrow_store_dtype(col)) for col in cols]
-    streams = [device_streams(col, device) for col in cols]
+    parts = [_parts(col) for col in cols]
+    flat = [p for ps in parts for p in ps]
+    decoders = [get_decoder(p, narrow_store_dtype(p)) for p in flat]
+    streams = [device_streams(p, device) for p in flat]
+    outs = iter([_to_logical(dec(s), p.dtype) for p, dec, s in zip(flat, decoders, streams)])
     result = {}
-    for col, decoder, s in zip(cols, decoders, streams):
-        out = _to_logical(decoder(s), col.dtype)
+    for col, ps in zip(cols, parts):
+        got = [next(outs) for _ in ps]
+        if col.scheme == "wide":
+            out = _wide.combine_device(*got, col.dtype)
+        elif col.scheme == "strdict":
+            result[col.name] = _strings.dictionary(col)[got[0][: col.n].cpu().numpy()]
+            continue
+        else:
+            out = got[0]
         result[col.name] = out if pad else out[: col.n]
     return result

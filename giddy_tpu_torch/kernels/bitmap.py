@@ -39,8 +39,11 @@ def bitmap_decode(bitmaps: torch.Tensor, values: torch.Tensor, ng: int, out_dtyp
 
 
 def args(col: EncodedColumn, streams: dict, out_store: torch.dtype) -> tuple:
-    """The arguments of :func:`bitmap_decode` that decode ``col``."""
-    return streams["bitmaps"], streams["values"], num_groups(col.n), out_store
+    """The arguments of :func:`bitmap_decode` that decode ``col`` (the
+    planes as (d, ng*1024) rows, whether they come flat or, from a
+    partial-decode slice, as (d, ng, 1024))."""
+    values = streams["values"]
+    return streams["bitmaps"].reshape(values.shape[0], -1), values, num_groups(col.n), out_store
 
 
 def build(col: EncodedColumn, out_store: torch.dtype = torch.int32):

@@ -63,7 +63,7 @@ def valid_mask(col: EncodedColumn) -> np.ndarray:
     return unpack_valid(col.streams["valid"], col.n)
 
 
-def valid_words_device(col: EncodedColumn, device: torch.device | str) -> torch.Tensor:
+def valid_words_device(col: EncodedColumn, device: torch.device | str = "cuda") -> torch.Tensor:
     """The (ng, LANES) validity words on ``device`` as int32 (uint32 bits),
     uploaded once per column and device: cached on the column, whose
     streams are immutable by contract; :func:`attach_valid` drops it."""
@@ -104,7 +104,7 @@ def attach_valid(col: EncodedColumn, mask: np.ndarray) -> EncodedColumn:
     return col
 
 
-def decode_masked(col: EncodedColumn, *, device: torch.device | str) -> tuple[torch.Tensor, torch.Tensor]:
+def decode_masked(col: EncodedColumn, *, device: torch.device | str = "cuda") -> tuple[torch.Tensor, torch.Tensor]:
     """Decode on ``device`` -> (values[n], valid[n] bool), both on
     ``device``. Values at null rows hold the canonical fill."""
     from .api import decode
@@ -113,7 +113,7 @@ def decode_masked(col: EncodedColumn, *, device: torch.device | str) -> tuple[to
     return values, torch.from_numpy(valid_mask(col)).to(values.device)
 
 
-def notnull_bitmap(col: EncodedColumn, *, device: torch.device | str) -> torch.Tensor:
+def notnull_bitmap(col: EncodedColumn, *, device: torch.device | str = "cuda") -> torch.Tensor:
     """(ng, LANES) LMP(1) bitmap of non-null rows on ``device`` (composable
     with the query.py bitmap algebra; pad bits are 0)."""
     if not is_nullable(col):
@@ -123,7 +123,7 @@ def notnull_bitmap(col: EncodedColumn, *, device: torch.device | str) -> torch.T
     return valid_words_device(col, device)
 
 
-def isnull_bitmap(col: EncodedColumn, *, device: torch.device | str) -> torch.Tensor:
+def isnull_bitmap(col: EncodedColumn, *, device: torch.device | str = "cuda") -> torch.Tensor:
     """(ng, LANES) LMP(1) bitmap of null rows on ``device``."""
     from .query import bitmap_not
 

@@ -14,8 +14,13 @@ in: NULL never matches. Dictionary-backed columns (dict, cascade) push the
 predicate into the dictionary on the host and scan code ranges with K16
 over the code column.
 
-Every entry point takes ``device`` ("cuda", or "cpu" for the tests) with
-no default and returns tensors on it. Bitmaps are (ng, LANES) int32
+64-bit (wide) columns decode both 32-bit planes with their kernels and
+compare with 64-bit semantics pieced from the halves (``_wide_hits``);
+``isin_bitmap`` searches their (hi, lo) pairs. ``select``/``select_where``
+decode only the groups that hold matches (partial.take).
+
+Every entry point takes ``device``, the card unless the caller asks for
+``"cpu"``, and returns tensors on it. Bitmaps are (ng, LANES) int32
 tensors carrying the uint32 words; bits past n are whatever the compare
 gives, and ``count_bits`` masks them.
 """
@@ -75,6 +80,41 @@ def _stage_value(dtype: str, value) -> np.ndarray:
     return np.array([[value]], dtype=np.int64).astype(np.uint32).view(ctype)
 
 
+def _stage_value_wide(dtype: str, value) -> tuple[int, int]:
+    """64-bit staging (giddy_tpu/query.py:256): the (lo, hi) uint32 halves,
+    floats pre-mapped to the 64-bit total-order key."""
+    dk = np_dtype(dtype).kind
+    dt = {"i": np.int64, "u": np.uint64, "f": np.float64}[dk]
+    u = np.array(value, dtype=dt).view(np.uint64)
+    if dk == "f":
+        neg = np.uint64(0xFFFFFFFFFFFFFFFF) if (u >> np.uint64(63)) else np.uint64(0)
+        u = u ^ (np.uint64(0x8000000000000000) | neg)
+    return int(u & np.uint64(0xFFFFFFFF)), int(u >> np.uint64(32))
+
+
+def _i32(x: int) -> int:
+    """A uint32 as the int32 that carries its bits."""
+    return x - (1 << 32) if x >= 1 << 31 else x
+
+
+def _wide_hits(lo: torch.Tensor, hi: torch.Tensor, clo: int, chi: int, kind: str, op: str) -> torch.Tensor:
+    """64-bit compare pieced from the int32-carried (lo, hi) planes
+    (giddy_tpu/query.py:129): hi ordered in the logical signedness (floats
+    through the total-order key: all 64 bits of negatives flipped, only the
+    sign bit of non-negatives; the value's halves arrive pre-mapped), lo
+    always unsigned. Unsigned order compares ``x ^ 0x80000000`` as int32."""
+    if kind == "f":
+        neg = hi >> 31  # arithmetic: all ones for negatives
+        hi = hi ^ (neg | -(2**31))
+        lo = lo ^ neg
+    flip = 0 if kind == "i" else -(2**31)
+    hi_o, chi_o = hi ^ flip, _i32(chi) ^ flip
+    lo_o, clo_o = lo ^ -(2**31), _i32(clo) ^ -(2**31)
+    eq = (hi == _i32(chi)) & (lo == _i32(clo))
+    lt = (hi_o < chi_o) | ((hi == _i32(chi)) & (lo_o < clo_o))
+    return {"eq": eq, "ne": ~eq, "lt": lt, "le": lt | eq, "gt": ~(lt | eq), "ge": ~lt}[op]
+
+
 def _stage_key(dtype: str, value) -> int:
     """The staged value as an order key (lanes.order_key), the int32 that
     K16 takes as its kernel argument: signed values as they are, uint32
@@ -128,7 +168,7 @@ def _dict_filter_bitmap(col: EncodedColumn, op: str, value, device: torch.device
     return _zeros(col, device) if acc is None else acc
 
 
-def filter_bitmap(col: EncodedColumn, op: str, value, *, device: torch.device | str) -> torch.Tensor:
+def filter_bitmap(col: EncodedColumn, op: str, value, *, device: torch.device | str = "cuda") -> torch.Tensor:
     """(ng, LANES) int32 bitmap words in LMP(1) layout: bit i of word
     [g, c] = predicate(col[g*GROUP + i*LANES + c]). Pad positions past n
     are garbage; count_where masks them."""
@@ -143,6 +183,14 @@ def filter_bitmap(col: EncodedColumn, op: str, value, *, device: torch.device | 
             return bm if valid is None else bm & valid
         # fragmented match set: fall through to decode + compare
     dt = np_dtype(col.dtype)
+    if col.scheme == "wide":
+        from . import wide
+
+        lo, hi = wide.plane_payloads(col, device)
+        ng = num_groups(col.n)
+        bm = lanes.pack_hits(_wide_hits(lo.view(ng, GROUP), hi.view(ng, GROUP),
+                                        *_stage_value_wide(col.dtype, value), dt.kind, op))
+        return bm if valid is None else bm & valid
     key = _stage_key(col.dtype, value)
     streams = device_streams(col, device)
     if col.scheme in FUSED:  # one launch, the validity AND included
@@ -187,7 +235,7 @@ def count_bits(words: torch.Tensor, n: int) -> int:
     return int(popcount_words(_mask_pad(words, n)).sum().item())
 
 
-def count_where(col: EncodedColumn, op: str, value, *, device: torch.device | str) -> int:
+def count_where(col: EncodedColumn, op: str, value, *, device: torch.device | str = "cuda") -> int:
     """Number of elements satisfying the predicate; 0, with no launch, for
     an empty column."""
     if col.n == 0:
@@ -218,22 +266,25 @@ def bitmap_not(words: torch.Tensor, n: int) -> torch.Tensor:
     return _mask_pad(~words, n)
 
 
-def between_bitmap(col: EncodedColumn, lo, hi, *, device: torch.device | str) -> torch.Tensor:
+def between_bitmap(col: EncodedColumn, lo, hi, *, device: torch.device | str = "cuda") -> torch.Tensor:
     """Bitmap of lo <= col[i] <= hi (inclusive both ends)."""
     return bitmap_and(filter_bitmap(col, "ge", lo, device=device), filter_bitmap(col, "le", hi, device=device))
 
 
-def count_between(col: EncodedColumn, lo, hi, *, device: torch.device | str) -> int:
+def count_between(col: EncodedColumn, lo, hi, *, device: torch.device | str = "cuda") -> int:
     return count_bits(between_bitmap(col, lo, hi, device=device), col.n)
 
 
-def isin_bitmap(col: EncodedColumn, values, *, device: torch.device | str) -> torch.Tensor:
+def isin_bitmap(col: EncodedColumn, values, *, device: torch.device | str = "cuda") -> torch.Tensor:
     """Bitmap of membership in a value set. Up to 8 values OR eq scans;
     larger sets run one binary search of each decoded payload in the
-    sorted staged set. Floats match in bit-pattern space (-0.0 does not
-    match +0.0; NaNs match equal-payload NaNs)."""
+    sorted staged set; wide columns always search their (hi, lo) pairs.
+    Floats match in bit-pattern space (-0.0 does not match +0.0; NaNs
+    match equal-payload NaNs)."""
     device = _decode_device(device)
     _check_supported(col)
+    if col.scheme == "wide":
+        return _isin_searched_wide(col, values, device)
     dt = np_dtype(col.dtype)
     if dt.kind == "f":
         fv = np.asarray(np.asarray(values, dtype=object).reshape(-1), np.float32)
@@ -297,7 +348,54 @@ def _isin_searched(col: EncodedColumn, vals, device: torch.device) -> torch.Tens
     return bm & nulls.valid_words_device(col, device) if nulls.is_nullable(col) else bm
 
 
-def dict_mask_bitmap(col: EncodedColumn, mask: np.ndarray, *, device: torch.device | str) -> torch.Tensor:
+def _staged_set_u64(dtype: str, values) -> tuple[np.ndarray, np.ndarray] | None:
+    """64-bit twin of _staged_set_u32 (giddy_tpu/query.py:474): (lo, hi)
+    uint32 plane pairs sorted by (hi, lo), deduped, padded to a power of
+    two. Floats stage as raw float64 bit patterns. None = provably empty."""
+    dt = np_dtype(dtype)
+    vals = np.asarray(values, dtype=object).reshape(-1)
+    if dt.kind == "f":
+        u = np.array([float(v) for v in vals], np.float64).view(np.uint64)
+    else:
+        lo_b, hi_b = (0, 2**64) if dt.kind == "u" else (-(2**63), 2**63)
+        kept = [int(v) for v in vals if lo_b <= int(v) < hi_b]
+        u = np.array(kept, dtype=np.int64 if dt.kind == "i" else np.uint64).view(np.uint64)
+    if u.size == 0:
+        return None
+    slo = (u & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    shi = (u >> np.uint64(32)).astype(np.uint32)
+    order = np.lexsort((slo, shi))
+    slo, shi = slo[order], shi[order]
+    keep = np.ones(slo.size, bool)
+    keep[1:] = (slo[1:] != slo[:-1]) | (shi[1:] != shi[:-1])
+    slo, shi = slo[keep], shi[keep]
+    m = 1 << (int(slo.size - 1).bit_length())
+    slo = np.concatenate([slo, np.repeat(slo[-1:], m - slo.size)])
+    shi = np.concatenate([shi, np.repeat(shi[-1:], m - shi.size)])
+    return slo, shi
+
+
+def _isin_searched_wide(col: EncodedColumn, values, device: torch.device) -> torch.Tensor:
+    """Membership for wide columns (giddy_tpu/query.py:532): both planes
+    decode on the card and each (hi, lo) pair searches the staged set. The
+    search runs on int64 keys ``(hi, lo) ^ 2^63``, whose signed order is
+    the set's (hi, lo) unsigned order."""
+    from . import wide
+
+    staged = _staged_set_u64(col.dtype, values)
+    if staged is None:
+        return _zeros(col, device)
+    slo, shi = staged
+    table = torch.from_numpy((slo.astype(np.uint64) | (shi.astype(np.uint64) << np.uint64(32))).view(np.int64)).to(device)
+    table = table ^ -(2**63)
+    lo, hi = wide.plane_payloads(col, device)
+    v = wide.combine_device(lo, hi, "int64") ^ -(2**63)
+    pos = torch.searchsorted(table, v).clamp_(max=table.shape[0] - 1)
+    bm = lanes.pack_hits((table[pos] == v).view(num_groups(col.n), GROUP))
+    return bm & nulls.valid_words_device(col, device) if nulls.is_nullable(col) else bm
+
+
+def dict_mask_bitmap(col: EncodedColumn, mask: np.ndarray, *, device: torch.device | str = "cuda") -> torch.Tensor:
     """Bitmap of rows whose dictionary entry is set in ``mask`` (bool[d]),
     dict/cascade columns: up to 8 code ranges scan as range filters over
     the code column, a fragmented mask as one lookup over the decoded
@@ -323,7 +421,7 @@ def dict_mask_bitmap(col: EncodedColumn, mask: np.ndarray, *, device: torch.devi
     return acc & nulls.valid_words_device(col, device) if nulls.is_nullable(col) else acc
 
 
-def filter_bitmap_cols(a: EncodedColumn, b: EncodedColumn, op: str, *, device: torch.device | str) -> torch.Tensor:
+def filter_bitmap_cols(a: EncodedColumn, b: EncodedColumn, op: str, *, device: torch.device | str = "cuda") -> torch.Tensor:
     """Column-vs-column predicate: bitmap of ``a[i] <op> b[i]``. Both
     columns decode on the card and compare on the same order keys. They
     must share length and logical dtype; 64-bit columns are not taken."""
@@ -345,23 +443,29 @@ def filter_bitmap_cols(a: EncodedColumn, b: EncodedColumn, op: str, *, device: t
     return bm
 
 
-def count_where_cols(a: EncodedColumn, b: EncodedColumn, op: str, *, device: torch.device | str) -> int:
+def count_where_cols(a: EncodedColumn, b: EncodedColumn, op: str, *, device: torch.device | str = "cuda") -> int:
     """Number of rows where ``a[i] <op> b[i]``."""
     return count_bits(filter_bitmap_cols(a, b, op, device=device), a.n)
 
 
-def select(col: EncodedColumn, bitmap) -> np.ndarray:
-    """The SELECT half of a scan needs partial decode (``partial.take``),
-    not ported yet."""
-    raise NotImplementedError("select needs partial.take, not ported yet (ROADMAP.md queue 1, item 6)")
+def select(col: EncodedColumn, bitmap: torch.Tensor, *, device: torch.device | str = "cuda") -> np.ndarray:
+    """The values at the bitmap's set positions, the SELECT half of a scan
+    (the bitmap from filter_bitmap over this or any column of the same
+    length). Only the groups that hold matches decode, on ``device``
+    (partial.take); the result is NumPy."""
+    from .partial import take
+
+    words = bitmap.cpu().numpy().view(np.uint32).reshape(num_groups(col.n), LANES)
+    mask = lmp_unpack(words, 1, col.n).astype(bool)
+    return take(col, np.flatnonzero(mask), device=device)
 
 
-def select_where(col: EncodedColumn, op: str, value) -> np.ndarray:
-    """One-shot ``SELECT col WHERE col <op> value``: see :func:`select`."""
-    raise NotImplementedError("select_where needs partial.take, not ported yet (ROADMAP.md queue 1, item 6)")
+def select_where(col: EncodedColumn, op: str, value, *, device: torch.device | str = "cuda") -> np.ndarray:
+    """One-shot ``SELECT col WHERE col <op> value``."""
+    return select(col, filter_bitmap(col, op, value, device=device), device=device)
 
 
-def where_mask(col: EncodedColumn, op: str, value, *, device: torch.device | str) -> np.ndarray:
+def where_mask(col: EncodedColumn, op: str, value, *, device: torch.device | str = "cuda") -> np.ndarray:
     """Boolean mask of length n (host), the unpacked bitmap, for checks and
     small results; big pipelines consume the bitmap itself."""
     words = filter_bitmap(col, op, value, device=device).cpu().numpy().view(np.uint32)

@@ -16,8 +16,8 @@ import numpy as np
 from .format import EncodedColumn
 
 # Schemes the JAX package decodes that the port does not yet, with the
-# ROADMAP.md queue-1 item that ports each.
-PENDING = {"wide": 4, "strdict": 4}
+# ROADMAP.md queue-1 item that ports each (none left).
+PENDING: dict[str, int] = {}
 
 
 @dataclasses.dataclass

@@ -87,8 +87,18 @@ def sorted_factorize(values: np.ndarray):
 
     The reference prefers pandas' hash factorize when it is installed; both
     give the same sorted dictionary and codes, and pandas is not a
-    dependency of the port."""
-    return np.unique(values, return_inverse=True)
+    dependency of the port. Object arrays (strings) factorize through a
+    hash of their distinct values, which are then sorted: np.unique would
+    sort every row with Python comparisons."""
+    values = np.asarray(values)
+    if values.dtype != object:
+        return np.unique(values, return_inverse=True)
+    rows = values.tolist()
+    uniq = sorted(set(rows))
+    index = {u: i for i, u in enumerate(uniq)}
+    dic = np.empty(len(uniq), dtype=object)
+    dic[:] = uniq
+    return dic, np.fromiter(map(index.__getitem__, rows), np.intp, count=len(rows))
 
 
 def pad_to_groups(v: np.ndarray, fill: int = 0) -> np.ndarray:

@@ -172,9 +172,17 @@ def test_key_unmap_matches_jax():
 
 
 def test_aggregates_refuse_what_is_not_ported():
-    wide = gtt.from_reference(gt.encode(np.arange(10, dtype=np.int64), "wide"))
-    for fn in ("sum_", "min_", "max_"):
-        with pytest.raises(NotImplementedError, match="item 4"):
-            port_value(wide, fn)
+    """Wide columns now aggregate, equal to the reference; what stays
+    refused: a 64-bit dtype on a scheme other than wide, and a device that
+    is neither the card nor the CPU."""
+    ref = gt.encode(np.arange(10, dtype=np.int64) * -(2**40), "wide")
+    wide = gtt.from_reference(ref)
+    for fn in ("sum_", "min_", "max_", "avg_", "distinct_count"):
+        assert same(port_value(wide, fn), getattr(ja, fn)(ref)), fn
+    assert port_value(wide, "sum_") == -45 * 2**40
+    col = gtt.encode(np.arange(10, dtype=np.int32), "nbit")
+    col.dtype = "int64"
+    with pytest.raises(NotImplementedError, match="'wide' scheme"):
+        port_value(col, "sum_")
     with pytest.raises(ValueError, match="no decoder for device"):
         aggregate.sum_(gtt.encode(np.arange(10, dtype=np.int32), "nbit"), device="meta")

@@ -113,17 +113,26 @@ def test_wrappers_reject_bad_arguments(call, exc):
 
 
 def test_unported_schemes_dtypes_and_sizes_raise():
+    """Every scheme of the reference is ported (wide and strdict decode
+    here); what stays refused: an unknown scheme, a 64-bit dtype on a
+    scheme other than wide, n_pad >= 2^31 (the chunked decode) and a device
+    that is neither the card nor the CPU."""
+    assert gtt.registry.PENDING == {}
     rng = np.random.default_rng(9)
-    wide = gt.encode(gen_column("wide", 100, rng), "wide")
-    with pytest.raises(NotImplementedError, match="item 4"):
-        gtt.decode(gtt.from_reference(wide), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 4"):
-        gtt.encode(np.zeros(10, np.int64), "wide")
+    v = gen_column("wide", 100, rng)
+    wide = gt.encode(v, "wide")
+    got = gtt.decode(gtt.from_reference(wide), device="cpu")
+    assert got.dtype == torch.int64 and np.array_equal(got.numpy(), v)
+    port = gtt.encode(np.zeros(10, np.int64), "wide")
+    ref = gt.encode(np.zeros(10, np.int64), "wide")
+    assert port.params == ref.params and all(port.streams[k].tobytes() == ref.streams[k].tobytes() for k in ref.streams)
+    strs = gt.strings.encode_strings(["b", "a", "b"])
+    assert list(gtt.decode(gtt.from_reference(strs), device="cpu")) == ["b", "a", "b"]
     with pytest.raises(KeyError, match="not registered"):
         gtt.get("no_such_scheme")
     col = gtt.encode(np.zeros(10, np.int32), "nbit")
     col.dtype = "int64"
-    with pytest.raises(NotImplementedError, match="item 4"):
+    with pytest.raises(NotImplementedError, match="'wide' scheme"):
         gtt.decode(col, device="cpu")
     col = gtt.encode(np.zeros(10, np.int32), "nbit")
     col.n = 2**31
@@ -131,6 +140,31 @@ def test_unported_schemes_dtypes_and_sizes_raise():
         gtt.decode(col, device="cpu")
     with pytest.raises(ValueError, match="no decoder for device"):
         gtt.decode(gtt.encode(np.zeros(10, np.int32), "nbit"), device="meta")
+
+
+def test_entry_points_default_to_the_card():
+    """Called without ``device``, every entry point runs on the card: here,
+    with none, it raises rather than falling back to the CPU."""
+    from giddy_tpu_torch import aggregate, groupby, nulls, partial, query, strings, topk, zonemap
+
+    col = gtt.encode(np.arange(GROUP + 5, dtype=np.int32), "nbit")
+    keys = gtt.encode(np.arange(GROUP + 5, dtype=np.int32) % 7, "dict")
+    strs = gtt.from_reference(gt.strings.encode_strings(["x", "y"] * 3))
+    calls = [
+        lambda: gtt.decode(col), lambda: gtt.decode_columns([col]), lambda: query.count_where(col, "lt", 3),
+        lambda: query.filter_bitmap(col, "lt", 3), lambda: query.isin_bitmap(col, [1]),
+        lambda: query.select_where(col, "lt", 3), lambda: aggregate.sum_(col), lambda: aggregate.min_(col),
+        lambda: nulls.decode_masked(col), lambda: groupby.group_reduce(keys, col, ("sum",)),
+        lambda: topk.top_k(col, 3), lambda: partial.take(col, [1]), lambda: partial.decode_groups(col, 0, 1),
+        lambda: zonemap.count_where_pruned(col, "eq", GROUP + 1), lambda: strings.decode(strs),
+        lambda: strings.filter_bitmap_str(strs, "eq", "x"),
+    ]
+    for call in calls:
+        if torch.cuda.is_available():
+            call()
+        else:
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                call()
 
 
 def test_decode_on_cuda_without_gpu_raises(columns):
@@ -146,7 +180,9 @@ def test_decode_on_cuda_without_gpu_raises(columns):
 def test_import_leaves_jax_out():
     code = (
         "import sys, giddy_tpu_torch, chip_smoke; "
-        "import giddy_tpu_torch.query, giddy_tpu_torch.aggregate, giddy_tpu_torch.nulls, giddy_tpu_torch.groupby; "
+        "import giddy_tpu_torch.query, giddy_tpu_torch.aggregate, giddy_tpu_torch.nulls, giddy_tpu_torch.groupby, "
+        "giddy_tpu_torch.wide, giddy_tpu_torch.strings, giddy_tpu_torch.dist, giddy_tpu_torch.partial, "
+        "giddy_tpu_torch.zonemap, giddy_tpu_torch.topk, giddy_tpu_torch.layout; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'giddy_tpu')); "
         "assert not bad, bad"
     )

@@ -20,8 +20,9 @@ from giddy_tpu_torch.ref import lmp as ref_lmp
 from giddy_tpu_torch.util import GROUP, LANES, np_dtype, pad_to_groups
 
 from test_torch_inputs import (
-    DICT_KINDS, OPS, SCAN_DTYPES, WINDOW_HEAD, assert_same_column, bitmap_values, dict_values, dzbv_values, for_values,
-    rng_of, salted_prices, scan_thresholds, scan_values, want_agg, want_mask, wrapping_walk,
+    DICT_KINDS, OPS, SCAN_DTYPES, STRING_KINDS, WIDE_KINDS, WINDOW_HEAD, assert_same_column, bitmap_values, dict_values,
+    dzbv_values, for_values, rng_of, salted_prices, scan_thresholds, scan_values, string_values, want_agg, want_mask,
+    wide_thresholds, wide_values, wrapping_walk,
 )
 
 pytestmark = pytest.mark.cuda
@@ -951,3 +952,176 @@ def test_lmp_pack_rejects_bad_arguments_on_cuda(cuda):
         encode.lmp_pack(values, 33)
     with pytest.raises(ValueError):
         encode.lmp_pack(values[:, 1:], 9)
+
+
+# -- 64-bit and string columns, partial decode, zone maps, GROUP BY, top-k --
+# Each new path on the card against the same call on the CPU (whose plain
+# versions the CPU tests hold to the JAX package), and the launches it made.
+
+
+def _same(a, b) -> bool:
+    """Equal results of the new paths: tensors and arrays by dtype, shape and
+    bytes (object arrays by element), tuples and GroupResults field by
+    field, scalars by type and value (floats by their bits)."""
+    if isinstance(a, torch.Tensor):
+        return a.dtype == b.dtype and a.shape == b.shape and a.cpu().numpy().tobytes() == b.cpu().numpy().tobytes()
+    if isinstance(a, np.ndarray):
+        if a.dtype == object:
+            return b.dtype == object and a.shape == b.shape and all(
+                type(x) is type(y) and x == y for x, y in zip(a.reshape(-1), b.reshape(-1)))
+        return a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes()
+    if isinstance(a, tuple):
+        return len(a) == len(b) and all(_same(x, y) for x, y in zip(a, b))
+    if hasattr(a, "__dataclass_fields__"):
+        return all((getattr(a, f) is None and getattr(b, f) is None) or _same(getattr(a, f), getattr(b, f))
+                   for f in a.__dataclass_fields__)
+    if isinstance(a, float):
+        return type(b) is float and np.float64(a).view(np.uint64) == np.float64(b).view(np.uint64)
+    return type(a) is type(b) and a == b
+
+
+def _on_card_like_cpu(cuda, fn, expect: tuple = ()):
+    """fn(device) on the card equals fn on the CPU, and the card run
+    launched every kernel of ``expect``."""
+    kernels.reset_launches()
+    got = fn(cuda)
+    torch.cuda.synchronize()
+    launched = {k: c for k, c in kernels.launches().items() if c}
+    assert all(launched.get(k) for k in expect), launched
+    want = fn(torch.device("cpu"))
+    assert _same(got, want)
+    return got
+
+
+@pytest.mark.parametrize("kind", WIDE_KINDS)
+def test_wide_paths_on_card_match_cpu(cuda, kind):
+    from giddy_tpu_torch import partial, topk, wide, zonemap
+
+    rng = rng_of(f"cuda/wide/{kind}")
+    v = wide_values(kind, N, rng)
+    valid = rng.random(N) > 0.1 if kind == "orderkey" else None
+    col = gtt.encode(v, "wide", valid=valid, base_scheme="delta" if kind == "orderkey" else "nbit", hi_scheme="nbit")
+    out = _on_card_like_cpu(cuda, lambda d: gtt.decode(col, device=d), ("lmp_unpack",))
+    assert out.is_cuda and out.dtype == wide.TORCH_DTYPES[col.dtype]
+    _on_card_like_cpu(cuda, lambda d: gtt.decode_columns([col], device=d)["col"])
+    fv = v if valid is None else nulls.fill_nulls(v, valid)
+    for op in OPS:
+        for value in wide_thresholds(fv)[:2]:
+            _on_card_like_cpu(cuda, lambda d: query.filter_bitmap(col, op, value, device=d))
+    _on_card_like_cpu(cuda, lambda d: query.isin_bitmap(col, list(fv[:20]), device=d))
+    for fn in ("sum_", "min_", "max_", "avg_", "distinct_count"):
+        _on_card_like_cpu(cuda, lambda d: getattr(aggregate, fn)(col, device=d))
+    idx = rng.integers(0, N, 100)
+    _on_card_like_cpu(cuda, lambda d: partial.take(col, idx, device=d))
+    _on_card_like_cpu(cuda, lambda d: partial.decode_groups(col, 1, 3, device=d))
+    _on_card_like_cpu(cuda, lambda d: topk.top_k(col, 50, device=d))
+    if kind == "orderkey":
+        _on_card_like_cpu(cuda, lambda d: zonemap.count_where_pruned(col, "lt", int(fv[N // 2]), device=d))
+        _on_card_like_cpu(cuda, lambda d: zonemap.searchsorted(col, fv[idx], device=d))
+        _on_card_like_cpu(cuda, lambda d: query.select_where(col, "lt", int(fv[100]), device=d))
+
+
+@pytest.mark.parametrize("kind", list(STRING_KINDS))
+def test_string_paths_on_card_match_cpu(cuda, kind):
+    from giddy_tpu_torch import strings
+
+    vals = string_values(kind, N, rng_of(f"cuda/strings/{kind}"))
+    col = strings.encode_strings(vals, valid=np.arange(N) % 9 != 0 if kind == "priority" else None)
+    assert col.params["codes_scheme"] == STRING_KINDS[kind]
+    got = _on_card_like_cpu(cuda, lambda d: strings.decode(col, device=d))
+    assert got.dtype == object and (kind == "priority" or list(got) == vals)
+    mid = vals[N // 2]
+    for op, value in (("eq", mid), ("lt", mid), ("ge", mid), ("startswith", mid[:4]), ("contains", mid[2:4])):
+        _on_card_like_cpu(cuda, lambda d: strings.filter_bitmap_str(col, op, value, device=d))
+    dic = strings.dictionary(col)
+    for picks in (list(dic[:2]), list(dic[::2])):
+        _on_card_like_cpu(cuda, lambda d: strings.isin_bitmap_str(col, picks, device=d))
+    _on_card_like_cpu(cuda, lambda d: strings.select_where_str(col, "lt", vals[N // 3], device=d))
+
+
+@pytest.mark.parametrize("scheme,kind", [
+    ("nbit", None), ("for", None), ("delta", None), ("delta2", None), ("xordelta", None), ("dict", None),
+    ("rle", None), ("rle", "dense"), ("rpe", None), ("model", None), ("bitmap", None), ("raw", None),
+    ("alp", None), ("cascade", None), ("patched", None), ("patched", "compressed"),
+    ("dzbv", "mixed"), ("dzbv", "skewed"), ("dzbv", "group_skewed"),
+])
+def test_partial_decode_on_card_matches_cpu(cuda, scheme, kind):
+    from giddy_tpu_torch import partial
+    from giddy_tpu_torch.datagen import gen_column
+
+    rng = rng_of(f"cuda/partial/{scheme}/{kind}")
+    if scheme == "dzbv":
+        v = dzbv_values(kind, N, rng).view(np.int32)
+    elif kind == "dense":
+        v = _run_values("dense", rng)
+    else:
+        v = gen_column(scheme, N, rng)
+    col = gtt.encode(v, scheme, **({"kind": "compressed"} if kind == "compressed" else {}))
+    for g0, g1 in ((0, 1), (1, 3), (0, 4)):
+        got = _on_card_like_cpu(cuda, lambda d: partial.decode_groups(col, g0, g1, device=d))
+        assert got.tobytes() == v[g0 * GROUP : g1 * GROUP].tobytes()
+    idx = rng.integers(0, N, 200)
+    assert _on_card_like_cpu(cuda, lambda d: partial.take(col, idx, device=d)).tobytes() == v[idx].tobytes()
+
+
+@pytest.mark.parametrize("filtered", [False, True])
+@pytest.mark.parametrize("keys,vals", [
+    ("dict", "int32"), ("strdict", "int16"), ("cascade", "float32"), ("dict", "uint32"), ("strdict", "wide-int64"),
+    ("dict", "wide-float64"),
+])
+def test_group_reduce_on_card_matches_cpu(cuda, keys, vals, filtered):
+    from giddy_tpu_torch import groupby, strings
+
+    rng = rng_of(f"cuda/groupby/{keys}/{vals}")
+    if keys == "strdict":
+        kcol = strings.encode_strings(string_values("priority", N, rng))
+    else:
+        kcol = gtt.encode(rng.integers(-500, 500, 1000)[rng.integers(0, 1000, N)].astype(np.int32), keys)
+    if vals.startswith("wide"):
+        vcol = gtt.encode(wide_values(vals[5:], N, rng), "wide")
+    else:
+        vcol = gtt.encode(scan_values(vals, N, rng), "nbit", valid=rng.random(N) > 0.05)
+    bm = None
+    if filtered:
+        bm = query.filter_bitmap(gtt.encode(scan_values("int32", N, rng), "nbit"), "lt", 0, device=cuda)
+    _on_card_like_cpu(cuda, lambda d: groupby.group_reduce(
+        kcol, vcol, ("count", "sum", "min", "max"), None if bm is None else bm.to(d), device=d), ("lmp_unpack",))
+    _on_card_like_cpu(cuda, lambda d: groupby.group_count(kcol, device=d))
+    if keys != "strdict":  # the code counts of a dictionary column's sum
+        _on_card_like_cpu(cuda, lambda d: aggregate.sum_(kcol, device=d))
+
+
+@pytest.mark.parametrize("dtype", ["int32", "int8", "uint16", "float32"])
+def test_top_k_on_card_matches_cpu(cuda, dtype):
+    """Equal keys come back lowest position first on the card too: int8 and
+    uint16 draw from seven values, so every selection ties."""
+    from giddy_tpu_torch import topk
+
+    rng = rng_of(f"cuda/topk/{dtype}")
+    v = scan_values(dtype, N, rng)
+    if dtype in ("int8", "uint16"):
+        v = v[rng.integers(0, 7, N)]
+    col = gtt.encode(v, "nbit", valid=rng.random(N) > 0.1 if dtype == "float32" else None)
+    for k, largest in ((100, True), (100, False), (5000, False)):
+        _on_card_like_cpu(cuda, lambda d: topk.top_k(col, k, largest=largest, device=d), ("lmp_unpack",))
+    _on_card_like_cpu(cuda, lambda d: topk.order_by(col, ascending=False, device=d))
+
+
+def test_zonemap_and_layout_on_card_match_cpu(cuda):
+    from giddy_tpu_torch import layout, zonemap
+
+    rng = rng_of("cuda/zonemap")
+    v = np.sort(rng.integers(-(2**31), 2**31, N, dtype=np.int64)).astype(np.int32)
+    col = gtt.encode(v, "delta")
+    for op in OPS:
+        _on_card_like_cpu(cuda, lambda d: zonemap.count_where_pruned(col, op, int(v[N // 2]), device=d))
+    q = v[rng.integers(0, N, 50)]
+    for side in ("left", "right"):
+        _on_card_like_cpu(cuda, lambda d: zonemap.searchsorted(col, q, side=side, device=d))
+    bits = torch.from_numpy((rng.random(N) < 0.1).astype(np.int32))
+    _on_card_like_cpu(cuda, lambda d: layout.bitmap_to_indices(bits.to(d), 8192))
+    idx = torch.from_numpy(rng.permutation(N).astype(np.int32))
+    data = torch.from_numpy(v)
+    _on_card_like_cpu(cuda, lambda d: layout.gather(data.to(d), idx.to(d)))
+    _on_card_like_cpu(cuda, lambda d: layout.scatter(torch.zeros(N, dtype=torch.int32, device=d), idx.to(d), data.to(d)))
+    _on_card_like_cpu(cuda, lambda d: layout.indices_to_bitmap(idx[:100].to(d), N))

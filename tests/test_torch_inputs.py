@@ -140,6 +140,81 @@ def want_mask(v: np.ndarray, op: str, value, valid: np.ndarray | None = None) ->
     return hit if valid is None else hit & valid
 
 
+WIDE_KINDS = ["int64", "orderkey", "uint64", "float64"]
+
+
+def wide_values(kind: str, n: int, rng: np.random.Generator) -> np.ndarray:
+    """n 64-bit values: ``int64`` over the whole range with both ends, -1
+    and 0 salted in; ``orderkey`` sorted int64 keys with 1-7 rows a key
+    (TPC-H's l_orderkey) that start at -3 * 2^32 and cross 0, so the hi
+    plane takes several values of both signs and the lo plane wraps;
+    ``uint64`` over the whole range with 0, 2^63 and 2^64 - 1 salted in;
+    ``float64`` normal values with NaN, -NaN, ±Inf, ±0.0, the smallest
+    subnormal and the largest finite value salted in."""
+    salt = rng.integers(0, max(n, 1), min(n, 40))
+    if kind == "orderkey":
+        keys = -3 * 2**32 + np.cumsum(rng.integers(1, 4, n)) * 2**20
+        return np.repeat(keys, rng.integers(1, 8, n))[:n].astype(np.int64)
+    if kind == "float64":
+        v = rng.normal(0, 1e6, n)
+        specials = np.array([np.nan, -np.nan, np.inf, -np.inf, 0.0, -0.0, 5e-324, np.finfo(np.float64).max])
+        v[salt] = specials[rng.integers(0, specials.shape[0], salt.shape[0])]
+        return v
+    info = np.iinfo(np.dtype(kind))
+    v = rng.integers(info.min, info.max, n, dtype=np.dtype(kind), endpoint=True)
+    ends = [info.min, info.max, 0, 2**63] if kind == "uint64" else [info.min, info.max, -1, 0]
+    v[salt] = np.array(ends, np.dtype(kind))[rng.integers(0, len(ends), salt.shape[0])]
+    return v
+
+
+def wide_thresholds(v: np.ndarray) -> list:
+    """Comparison values for a 64-bit column: one of its values, the
+    dtype's ends, and for floats ±0.0, ±Inf and NaN."""
+    mid = v[len(v) // 2].item() if len(v) else 7
+    if v.dtype.kind == "f":
+        return [mid, 0.0, -0.0, np.inf, -np.inf, np.nan]
+    info = np.iinfo(v.dtype)
+    return [mid, int(info.min), int(info.max), 0]
+
+
+def wide_key(v: np.ndarray) -> np.ndarray:
+    """64-bit logical values as keys in the scan's order: integers as they
+    are, float64 as uint64 keys in IEEE total order."""
+    if v.dtype.kind != "f":
+        return v
+    u = v.view(np.uint64)
+    return np.where(u >> np.uint64(63), ~u, u | np.uint64(2**63))
+
+
+def want_wide_mask(v: np.ndarray, op: str, value, valid: np.ndarray | None = None) -> np.ndarray:
+    """bool[n]: the predicate on each 64-bit value, False at null rows."""
+    k, c = wide_key(v), wide_key(np.array([value], v.dtype))[0]
+    hit = {"eq": k == c, "ne": k != c, "lt": k < c, "le": k <= c, "gt": k > c, "ge": k >= c}[op]
+    return hit if valid is None else hit & valid
+
+
+PRIORITIES = ["1-URGENT", "2-HIGH", "3-MEDIUM", "4-NOT SPECIFIED", "5-LOW"]
+# Each string kind -> the inner scheme that codes_scheme="auto" picks for it.
+STRING_KINDS = {"runs": "rle", "priority": "nbit", "distinct": "delta", "banded": "for"}
+
+
+def string_values(kind: str, n: int, rng: np.random.Generator) -> list:
+    """n strings: ``runs`` TPC-H's o_orderpriority in runs of ~50; ``priority``
+    the same five drawn at random with a few multibyte ones; ``distinct``
+    sorted strings all different (codes 0..n-1); ``banded`` 16 strings a
+    group, each group's 16 after the last one's (codes that a frame of
+    reference packs narrower than nbit or delta)."""
+    if kind == "runs":
+        return [PRIORITIES[i] for i in np.repeat(rng.integers(0, 5, n // 50 + 1), 50)[:n]]
+    if kind == "priority":
+        vocab = PRIORITIES + ["ünïcødé", "日本語"]
+        return [vocab[i] for i in rng.integers(0, len(vocab), n)]
+    if kind == "distinct":
+        return [f"Clerk#{i:09d}" for i in range(n)]
+    band = np.arange(n) // GROUP * 16 + rng.integers(0, 16, n)
+    return [f"s{c:05d}" for c in band]
+
+
 def want_agg(v: np.ndarray, agg: str, valid: np.ndarray | None = None):
     """sum (exact int, or float64 in NumPy's order), min or max (total order
     for floats) of the non-null values."""

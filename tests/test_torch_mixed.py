@@ -111,9 +111,10 @@ def test_device_argument():
     cols = [gtt.encode(np.arange(10, dtype=np.int32), "raw")]
     with pytest.raises(ValueError, match="no decoder for device"):
         gtt.decode_columns(cols, device="meta")
-    with pytest.raises(TypeError):
-        gtt.decode_columns(cols)  # the device is required
-    if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="no CUDA device"):
-            gtt.decode_columns(cols, device="cuda")
+    if not torch.cuda.is_available():  # the card is the default: without one, no CPU fallback
+        for call in (lambda: gtt.decode_columns(cols), lambda: gtt.decode_columns(cols, device="cuda")):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                call()
+    else:
+        assert gtt.decode_columns(cols)["col"].is_cuda
     assert gtt.decode_columns([], device="cpu") == {}

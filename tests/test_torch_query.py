@@ -268,18 +268,25 @@ def test_scan_plan_fits_and_keeps_bytes_in_flight(bits, nullable):
 
 
 def test_scan_entry_points_refuse_what_is_not_ported():
+    """select/select_where and wide columns now scan; what stays refused:
+    an unknown op, n_pad >= 2^31 (the chunked decode), the column-vs-column
+    compare of wide columns and the card where there is none."""
     col = gtt.encode(np.arange(10, dtype=np.int32), "nbit")
+    ref = gt.encode(np.arange(10, dtype=np.int32), "nbit")
     with pytest.raises(ValueError, match="op must be one of"):
         query.filter_bitmap(col, "lte", 3, device="cpu")
     with pytest.raises(ValueError, match="op must be one of"):
         query.count_where(gtt.encode(np.zeros(0, np.int32), "nbit"), "lte", 3, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        query.select_where(col, "lt", 3)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        query.select(col, query.filter_bitmap(col, "lt", 3, device="cpu"))
-    wide = gtt.from_reference(gt.encode(np.arange(10, dtype=np.int64), "wide"))
-    with pytest.raises(NotImplementedError, match="item 4"):
-        query.count_where(wide, "lt", 3, device="cpu")
+    got = query.select_where(col, "lt", 3, device="cpu")
+    assert got.dtype == np.int32 and np.array_equal(got, jq.select_where(ref, "lt", 3))
+    bm = query.filter_bitmap(col, "ge", 7, device="cpu")
+    assert np.array_equal(query.select(col, bm, device="cpu"), jq.select(ref, jq.filter_bitmap(ref, "ge", 7)))
+    wref = gt.encode(np.arange(10, dtype=np.int64) - 5, "wide")
+    wide = gtt.from_reference(wref)
+    assert query.count_where(wide, "lt", 3, device="cpu") == jq.count_where(wref, "lt", 3) == 8
+    assert np.array_equal(query.select_where(wide, "ge", 3, device="cpu"), jq.select_where(wref, "ge", 3))
+    with pytest.raises(NotImplementedError, match="64-bit"):
+        query.count_where_cols(wide, wide, "lt", device="cpu")
     col.n = 2**31
     with pytest.raises(NotImplementedError, match="item 6"):
         query.filter_bitmap(col, "lt", 3, device="cpu")
