@@ -23,7 +23,16 @@ n = 2^24: ``decode`` of wide and strdict columns, the wide branches of
 ``query`` and ``aggregate``, ``zonemap.count_where_pruned`` /
 ``searchsorted``, ``query.select_where`` / ``partial.take``,
 ``groupby.group_reduce``, ``topk.top_k`` and the ``strings`` scans, each
-held exactly against NumPy on the input), and times them.
+held exactly against NumPy on the input), the tables phase (a TPC-H
+customer table at SF 11 through ``Table.from_arrays`` and the advisor; the
+customer-orders ``semi_join`` / ``anti_join`` / ``join_indices`` /
+``Table.join``; ``count``, ``where_all``/``where_any``, ``agg``, ``groupby``,
+``select``, ``top_k`` and ``sort_by`` on the Tables; a four-partition
+lineitem ``Dataset`` with ``_plan``, ``count``, ``agg``, ``groupby``,
+``select`` and ``compact``; ``stream_count_where`` / ``decode_streamed`` /
+``stream_decode`` with their peak card memory; ``advisor.suggest(...,
+measure=True)``; the CLI in-process; ``selftest.run_selftest``), and times
+them.
 
     python3 chip_smoke.py
 
@@ -35,18 +44,22 @@ last line of standard output is
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
 import giddy_tpu_torch as gtt
-from giddy_tpu_torch import aggregate, groupby, kernels, nulls, partial, query, strings, topk, wide, zonemap
+from giddy_tpu_torch import aggregate, groupby, kernels, nulls, partial, query, stream, strings, topk, wide, zonemap
 from giddy_tpu_torch.datagen import gen_column
 from giddy_tpu_torch.kernels import (
     _build, agg, alp, bitmap, cascade, cumsum, delta, delta2, dict_, dzbv, encode, filter_, for_, lanes, model, nbit,
@@ -1131,7 +1144,7 @@ def same_on_card(out: torch.Tensor, v: np.ndarray) -> bool:
 
 
 def main_path(cols: list, x: torch.Tensor, container: list, casc: tuple, epilogue: list,
-              dz: tuple, scan: dict, analytic: tuple) -> tuple[dict[str, int], str]:
+              dz: tuple, scan: dict, analytic: tuple, tables: Tables) -> tuple[dict[str, int], str]:
     """Phase 4: each main path -- every column through decode(col,
     device=cuda), scan.group_prefix_sum(x), the configs[4] container
     through decode_columns(cols, device=cuda), the cascade column through
@@ -1198,6 +1211,7 @@ def main_path(cols: list, x: torch.Tensor, container: list, casc: tuple, epilogu
     scan_main_path(scan, drive)
     encode_main_path({label: (v, col) for label, v, col in cols}, drive)
     analytic_main_path(*analytic, drive)
+    tables_main_path(tables, drive)
     return totals, picked
 
 
@@ -1883,6 +1897,547 @@ def time_analytic(li: dict, od: dict, smi: str) -> None:
     torch.cuda.empty_cache()
 
 
+# -- the tables phase -----------------------------------------------------------
+# The table engine on the card: a TPC-H customer table at SF 11 built through
+# the advisor, the customer-orders joins, Table calls over the analytic
+# phase's lineitem and orders columns, a four-partition lineitem dataset,
+# streamed scans of configs[0] with their peak memory, the advisor, the CLI
+# and the port's selftest. Every result is held exactly against NumPy on the
+# input values (floats by their bits).
+
+CUSTOMER_N = 1_650_000  # TPC-H customer at SF 11
+SEGMENTS = ["AUTOMOBILE", "BUILDING", "FURNITURE", "HOUSEHOLD", "MACHINERY"]
+PARTITIONS = 4
+CLI_N = 2**22 + 999
+SELFTEST_N = 2**22 + 999
+
+
+@dataclasses.dataclass
+class Tables:
+    """The tables phase's inputs: the Tables, the customer arrays, and the
+    configs[0]/[1]/[3] columns (values, encoded column) it streams and
+    advises on."""
+
+    customer: object
+    cust: dict
+    lineitem: object
+    orders: object
+    li: dict
+    od: dict
+    c0: tuple
+    ts: tuple
+    flags: tuple
+
+
+def customer_arrays() -> dict:
+    """TPC-H customer at SF 11, seed 22: c_custkey 1..n in order,
+    c_nationkey 0-24, c_mktsegment one of five strings, c_acctbal float64
+    in [-999.99, 9999.99] at cent steps."""
+    n, rng = CUSTOMER_N, np.random.default_rng(22)
+    return {
+        "c_custkey": np.arange(1, n + 1, dtype=np.int32),
+        "c_nationkey": rng.integers(0, 25, n).astype(np.int32),
+        "c_mktsegment": np.array(SEGMENTS, dtype=object)[rng.integers(0, 5, n)],
+        "c_acctbal": rng.integers(-99_999, 1_000_000, n) / 100.0,
+    }
+
+
+def picks(t) -> str:
+    """Each column's scheme (a wide column's plane schemes, a strdict's codes)."""
+    def one(c):
+        if c.scheme == "wide":
+            return f"wide({c.params['lo_scheme']}/{c.params['hi_scheme']})"
+        if c.scheme == "strdict":
+            return f"strdict({c.params['codes_scheme']})"
+        return c.scheme
+    return ", ".join(f"{nm}={one(t[nm])}" for nm in t.names)
+
+
+def tables_setup(li: dict, od: dict, cols: list) -> Tables:
+    """The customer Table through Table.from_arrays (the advisor picks) and
+    its container round trip; lineitem and orders as Tables over shallow
+    copies of the analytic phase's encoded columns, renamed to their TPC-H
+    names (nothing is re-encoded)."""
+    cust = customer_arrays()
+    t0 = time.perf_counter()
+    customer = gtt.Table.from_arrays(cust, device=CUDA)
+    print(f"[encode] customer SF 11 n={CUSTOMER_N}: Table.from_arrays {time.perf_counter() - t0:.2f} s on the host, "
+          f"advisor picks {picks(customer)}")
+    with tempfile.TemporaryDirectory() as d:
+        customer.save(f"{d}/customer.gtp")
+        again = gtt.Table.open(f"{d}/customer.gtp", device=CUDA)
+        check(again.to_bytes() == customer.to_bytes() and again.names == customer.names, "customer save/open round trip")
+    print("[main] customer save/open: the reopened container's bytes are equal")
+    lineitem = gtt.Table([dataclasses.replace(c.col, name=name) for name, c in li.items()], device=CUDA)
+    orders = gtt.Table([dataclasses.replace(c.col, name=name) for name, c in od.items()], device=CUDA)
+    by_label = {label: (v, col) for label, v, col in cols}
+    return Tables(customer, cust, lineitem, orders, li, od, by_label["configs[0] nbit 9-bit n=2^28"],
+                  by_label["configs[1] delta n=2^26"], by_label["configs[3] rle n=2^26"])
+
+
+def rows_of(bm, n: int) -> np.ndarray:
+    """The set rows of a bitmap over n rows (pad bits ignored)."""
+    return gtt.table._bitmap_indices(bm, n)
+
+
+def host_only(label: str, what: str, fn) -> None:
+    """A call that must answer on the host alone: exact, and no kernel."""
+    kernels.reset_launches()
+    ok = fn()
+    launched = {k: c for k, c in kernels.launches().items() if c}
+    check(ok, f"{label}: {what} is wrong")
+    check(not launched, f"{label}: launched {launched}, where the host answers alone")
+    print(f"[main] {label}: {what} exact; no kernel (the host answers)")
+
+
+def join_pairs(left: np.ndarray, right_keys: np.ndarray, how: str) -> tuple[np.ndarray, np.ndarray]:
+    """NumPy sort-merge of an equi-join whose right keys are unique: pairs
+    in left-major order, unmatched left rows with -1 (``how="left"``)."""
+    order = np.argsort(right_keys, kind="stable")
+    pos = np.minimum(np.searchsorted(right_keys[order], left), right_keys.shape[0] - 1)
+    hit = right_keys[order][pos] == left
+    if how == "inner":
+        return np.flatnonzero(hit).astype(np.int64), order[pos[hit]].astype(np.int64)
+    return np.arange(left.shape[0], dtype=np.int64), np.where(hit, order[pos], -1).astype(np.int64)
+
+
+def tables_main_path(tb: Tables, drive) -> None:
+    """The tables phase's paths, each driven once with the launch counts
+    reset and read around it, each exact against NumPy on the input."""
+    cust, customer, orders, lineitem = tb.cust, tb.customer, tb.orders, tb.lineitem
+    ckey, ocust = cust["c_custkey"], tb.od["o_custkey"].values
+    drive("orders.semi_join(o_custkey, customer, c_custkey)", "Table.semi_join(device=cuda) vs np.isin",
+          lambda: np.array_equal(rows_of(orders.semi_join("o_custkey", customer, "c_custkey"), ORDERS_N),
+                                 np.flatnonzero(np.isin(ocust, ckey))), ("lmp_unpack",))
+    seg = cust["c_mktsegment"]
+    building = customer.filter(("c_mktsegment", "eq", "BUILDING"))
+    bkeys = ckey[seg == "BUILDING"]
+    check(building.n == bkeys.shape[0] and np.array_equal(building.take("c_custkey", np.arange(building.n)), bkeys),
+          "customer.filter(c_mktsegment eq BUILDING)")
+    print(f"[main] customer.filter(c_mktsegment eq BUILDING): {building.n} rows re-encoded, picks {picks(building)}")
+    drive("orders.semi_join(o_custkey, BUILDING customers)", "Table.semi_join(device=cuda) vs np.isin",
+          lambda: np.array_equal(rows_of(orders.semi_join("o_custkey", building, "c_custkey"), ORDERS_N),
+                                 np.flatnonzero(np.isin(ocust, bkeys))), ("lmp_unpack",))
+    no_order = np.flatnonzero(~np.isin(ckey, ocust))
+    drive("customer.anti_join(c_custkey, orders, o_custkey)", f"Table.anti_join(device=cuda) vs NumPy ({no_order.size} "
+          f"customers without an order)",
+          lambda: np.array_equal(rows_of(customer.anti_join("c_custkey", orders, "o_custkey"), CUSTOMER_N), no_order),
+          ("lmp_unpack",))
+    for how in ("inner", "left"):
+        want = join_pairs(ocust, bkeys, how)
+        drive(f"join_indices(o_custkey, BUILDING c_custkey, how={how})",
+              f"join.join_indices(device=cuda) vs a NumPy sort-merge, {want[0].size} pairs in left-major order",
+              lambda: all(np.array_equal(g, w) for g, w in zip(
+                  gtt.join_indices(orders["o_custkey"], building["c_custkey"], how=how, device=CUDA), want)),
+              ("lmp_unpack",))
+    li_w, ri_w = join_pairs(ocust, bkeys, "inner")
+    bal = building.take("c_acctbal", np.arange(building.n))
+    check(same_bits(bal, cust["c_acctbal"][seg == "BUILDING"]), "BUILDING c_acctbal")
+
+    def joined() -> bool:
+        rows, li_g, ri_g = orders.join("o_custkey", building, "c_custkey", select=["o_custkey", "o_orderpriority"],
+                                       other_select=["c_mktsegment", "c_acctbal"])
+        pri = tb.od["o_orderpriority"]
+        return (np.array_equal(li_g, li_w) and np.array_equal(ri_g, ri_w)
+                and np.array_equal(rows["o_custkey"], ocust[li_w])
+                and np.array_equal(rows["o_orderpriority"], pri.values[li_w])
+                and bool((rows["c_mktsegment"] == "BUILDING").all()) and same_bits(rows["c_acctbal"], bal[ri_w]))
+
+    drive("orders.join(building, other_select=[c_mktsegment, c_acctbal])",
+          "Table.join(device=cuda) vs NumPy rows", joined, ("lmp_unpack",))
+
+    nation = cust["c_nationkey"]
+    m_all, m_any = (seg == "BUILDING") & (nation < 5), (seg == "MACHINERY") | (nation == 24)
+    drive("customer.count(c_mktsegment eq BUILDING, c_nationkey lt 5)", "Table.count(device=cuda) vs NumPy",
+          lambda: customer.count(("c_mktsegment", "eq", "BUILDING"), ("c_nationkey", "lt", 5)) == int(m_all.sum()))
+    drive("customer.where_all(...)", "Table.where_all(device=cuda) rows vs NumPy",
+          lambda: np.array_equal(rows_of(customer.where_all(("c_mktsegment", "eq", "BUILDING"), ("c_nationkey", "lt", 5)),
+                                         CUSTOMER_N), np.flatnonzero(m_all)))
+    drive("customer.where_any(c_mktsegment eq MACHINERY, c_nationkey eq 24)", "Table.where_any(device=cuda) rows vs NumPy",
+          lambda: np.array_equal(rows_of(customer.where_any(("c_mktsegment", "eq", "MACHINERY"), ("c_nationkey", "eq", 24)),
+                                         CUSTOMER_N), np.flatnonzero(m_any)))
+    qty, price = tb.li["l_quantity"].values, tb.li["l_extendedprice"].values
+    qsum = int(qty.astype(np.int64).sum())
+    # (column, aggregate, NumPy's answer, whether the card computes it: the
+    # rest answer from a dictionary, a zone map or the validity count)
+    for name, agg_, want, on_card in (
+            ("l_quantity", "sum", qsum, True), ("l_quantity", "min", int(qty.min()), True),
+            ("l_quantity", "max", int(qty.max()), True), ("l_quantity", "avg", qsum / qty.size, True),
+            ("l_quantity", "count", qty.size, False), ("l_quantity", "distinct", int(np.unique(qty).size), True),
+            ("l_extendedprice", "sum", float(np.sum(price, dtype=np.float64)), True),
+            ("l_extendedprice", "max", float(price.max()), False),
+            ("l_orderkey", "min", int(tb.li["l_orderkey"].values[0]), False),
+            ("l_suppkey", "distinct", int(np.unique(tb.li["l_suppkey"].values).size), False)):
+        (drive if on_card else host_only)(
+            f"lineitem.agg({name}, {agg_})", "Table.agg(device=cuda) vs NumPy",
+            lambda: (lambda got: type(got) is type(want) and got == want)(lineitem.agg(name, agg_)))
+    pidx = tb.od["o_orderpriority"].idx
+    want_g = (np.bincount(pidx, minlength=5), np.bincount(pidx, weights=ocust, minlength=5).astype(np.int64))
+    drive("orders.groupby(o_orderpriority, o_custkey, (count, sum))", "Table.groupby(device=cuda) vs NumPy",
+          lambda: (lambda r: np.array_equal(r.keys, np.array(PRIORITIES, object)) and np.array_equal(r.count, want_g[0])
+                   and np.array_equal(r.sum, want_g[1]))(orders.groupby("o_orderpriority", "o_custkey", ("count", "sum"))))
+    ok = tb.li["l_orderkey"].values
+    k = LINEITEM_N // 1000
+    drive("lineitem.select([l_quantity, l_suppkey], l_orderkey 0.1% bitmap)", "Table.select(device=cuda) vs NumPy",
+          lambda: (lambda r: np.array_equal(r["l_quantity"], qty[ok < ok[k]]) and np.array_equal(
+              r["l_suppkey"], tb.li["l_suppkey"].values[ok < ok[k]]))(
+              lineitem.select(["l_quantity", "l_suppkey"], lineitem.where("l_orderkey", "lt", int(ok[k])))))
+    top = np.lexsort((np.arange(ORDERS_N), -ocust.astype(np.int64)))[:10]  # lax.top_k's order: lowest position first
+    od = tb.od
+
+    def topk_ok() -> bool:
+        vals, pos, rows = orders.top_k("o_custkey", 10, select=["o_clerk", "o_orderpriority"])
+        return (np.array_equal(pos, top) and np.array_equal(vals, ocust[top])
+                and np.array_equal(rows["o_clerk"], od["o_clerk"].values[top])
+                and np.array_equal(rows["o_orderpriority"], od["o_orderpriority"].values[top]))
+
+    drive("orders.top_k(o_custkey, 10, select=[o_clerk, o_orderpriority])", "Table.top_k(device=cuda) vs NumPy",
+          topk_ok, ("lmp_unpack",))
+    bal_all = cust["c_acctbal"]
+    key = bal_all.view(np.uint64)
+    key = np.where(key >> np.uint64(63), ~key, key | np.uint64(2**63))  # IEEE total order
+    order = np.lexsort((np.arange(CUSTOMER_N), key, nation))
+
+    def sorted_ok() -> bool:
+        t = customer.sort_by(["c_nationkey", "c_acctbal"])
+        got = t.select()
+        return (all(np.array_equal(got[nm], cust[nm][order]) for nm in ("c_custkey", "c_nationkey", "c_mktsegment"))
+                and same_bits(got["c_acctbal"], bal_all[order]))
+
+    drive("customer.sort_by([c_nationkey, c_acctbal])", "Table.sort_by(device=cuda), decoded, vs np.lexsort", sorted_ok)
+    dataset_main_path(tb, drive)
+    stream_main_path(tb, drive)
+    advisor_main_path(tb, drive)
+    cli_main_path(drive)
+    selftest_main_path(drive)
+
+
+def lineitem_partitions(tb: Tables) -> list:
+    """lineitem's l_orderkey, l_quantity and l_suppkey in PARTITIONS equal
+    partitions, each a Table.from_arrays (the advisor picks)."""
+    size = LINEITEM_N // PARTITIONS
+    return [gtt.Table.from_arrays({nm: tb.li[nm].values[p * size : (p + 1) * size]
+                                   for nm in ("l_orderkey", "l_quantity", "l_suppkey")}, device=CUDA)
+            for p in range(PARTITIONS)]
+
+
+DATASET_DIR: list = []  # the tables phase's scratch directory (a TemporaryDirectory), removed at exit
+
+
+def dataset_main_path(tb: Tables, drive) -> None:
+    """Dataset.write of four lineitem partitions, then _plan, count, agg,
+    groupby, select and compact on it."""
+    from giddy_tpu_torch.dataset import Dataset
+
+    tmp = tempfile.TemporaryDirectory()
+    DATASET_DIR.append(tmp)
+    t0 = time.perf_counter()
+    parts = lineitem_partitions(tb)
+    enc_s = time.perf_counter() - t0
+    print(f"[encode] lineitem {PARTITIONS} partitions x {LINEITEM_N // PARTITIONS}: Table.from_arrays {enc_s:.2f} s, "
+          f"advisor picks {picks(parts[0])}")
+    drive("lineitem Dataset.write (4 partitions)", "Dataset.write(device=cuda): zones vs NumPy",
+          lambda: write_ok(Dataset.write(f"{tmp.name}/lineitem", parts, device=CUDA), tb))
+    ds = Dataset.open(f"{tmp.name}/lineitem", device=CUDA)
+    mb = sum(os.path.getsize(f"{tmp.name}/lineitem/{f}") for f in os.listdir(f"{tmp.name}/lineitem")) / 1e6
+    print(f"[main] lineitem dataset: {mb:.1f} MB written in {PARTITIONS} partitions + manifest "
+          f"(l_orderkey, l_quantity, l_suppkey raw: {LINEITEM_N * 16 / 1e6:.1f} MB)")
+    ok, qty, supp = (tb.li[nm].values for nm in ("l_orderkey", "l_quantity", "l_suppkey"))
+    q25 = int(ok[LINEITEM_N // 4])
+    plan = ds._plan([("l_orderkey", "lt", q25)])
+    print(f"[main] lineitem dataset _plan(l_orderkey lt {q25}, its 25th percentile): {plan}")
+    check([v for _, v in plan[1:]] == ["skip"] * (PARTITIONS - 1), "partitions 2-4 skip")
+    drive(f"lineitem dataset count(l_orderkey lt {q25})", "Dataset.count(device=cuda) vs NumPy",
+          lambda: ds.count(("l_orderkey", "lt", q25)) == int((ok < q25).sum()))
+    host_only("lineitem dataset agg(l_orderkey, min/max)", "Dataset.agg from the manifest zones vs NumPy",
+              lambda: ds.agg("l_orderkey", "min") == int(ok.min()) and ds.agg("l_orderkey", "max") == int(ok.max()))
+    skeys = np.unique(supp)
+    codes = np.searchsorted(skeys, supp)
+    want = (np.bincount(codes, minlength=skeys.size), np.bincount(codes, weights=qty, minlength=skeys.size).astype(np.int64))
+    drive("lineitem dataset groupby(l_suppkey, l_quantity, (count, sum))", "Dataset.groupby(device=cuda) vs NumPy",
+          lambda: (lambda r: np.array_equal(r.keys, skeys) and np.array_equal(r.count, want[0])
+                   and np.array_equal(r.sum, want[1]))(ds.groupby("l_suppkey", "l_quantity", ("count", "sum"))),
+          ("lmp_unpack",))
+    k = int(ok[LINEITEM_N // 1000])
+    drive("lineitem dataset select (0.1%)", "Dataset.select(device=cuda) vs NumPy",
+          lambda: (lambda r: np.array_equal(r["l_quantity"], qty[ok < k]) and np.array_equal(r["l_suppkey"], supp[ok < k]))(
+              ds.select(["l_quantity", "l_suppkey"], ("l_orderkey", "lt", k))))
+
+    def compacted() -> bool:
+        ds.compact(f"{tmp.name}/compact", rows_per_partition=LINEITEM_N // 2)
+        again = Dataset.open(f"{tmp.name}/compact", device=CUDA)
+        return (again.n_partitions == 2 and len(again) == LINEITEM_N
+                and again.count(("l_orderkey", "lt", q25)) == int((ok < q25).sum())
+                and again.agg("l_quantity", "sum") == int(qty.astype(np.int64).sum()))
+
+    drive("lineitem dataset compact to 2 partitions, reopened", "Dataset.compact(device=cuda) + open vs NumPy",
+          compacted)
+
+
+def write_ok(ds, tb: Tables) -> bool:
+    size = LINEITEM_N // PARTITIONS
+    for p, part in enumerate(ds.manifest["partitions"]):
+        for nm in ("l_orderkey", "l_quantity", "l_suppkey"):
+            v = tb.li[nm].values[p * size : (p + 1) * size]
+            if part["zones"][nm] != [int(v.min()), int(v.max())] or part["rows"] != size:
+                return False
+    return True
+
+
+def peak_mib(fn) -> tuple[object, float]:
+    """fn()'s result and the card memory it allocated at its peak, MiB
+    above what was allocated before it."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (torch.cuda.max_memory_allocated() - base) / 2**20
+
+
+PEAKS: dict[str, float] = {}
+
+
+def stream_main_path(tb: Tables, drive) -> None:
+    """Streamed scans of the 1 GiB configs[0] column (count at two chunk
+    sizes, the whole column back to the host) and of the wide l_orderkey,
+    each with its peak card memory beside the whole-column decode's."""
+    v0, c0 = tb.c0
+    want = int((v0 < 256).sum())
+    _, PEAKS["whole-column decode of configs[0]"] = peak_mib(lambda: gtt.decode(c0, device=CUDA))
+    _, PEAKS["whole-column count_where of configs[0]"] = peak_mib(lambda: query.count_where(c0, "lt", 256, device=CUDA))
+    chunk_packed = c0.nbytes_compressed / num_groups(c0.n)
+    for cg in (64, 4096):
+        got = []
+        drive(f"configs[0] stream_count_where lt 256, chunk_groups={cg}",
+              "stream.stream_count_where(device=cuda) vs count_where and NumPy",
+              lambda: got.append(peak_mib(lambda: stream.stream_count_where(c0, "lt", 256, chunk_groups=cg, device=CUDA)))
+              or got[0][0] == want == query.count_where(c0, "lt", 256, device=CUDA), ("filter_fold",))
+        peak = PEAKS[f"stream_count_where chunk_groups={cg}"] = got[0][1]
+        bound_mib = (stream.COUNT_DEPTH + 2) * cg * (chunk_packed + GROUP / 8) / 2**20
+        check(peak <= bound_mib, f"stream_count_where chunk_groups={cg}: peak {peak:.1f} MiB > {bound_mib:.1f} MiB")
+    got = []
+    drive("configs[0] decode_streamed, chunk_groups=64", "stream.decode_streamed(device=cuda) vs the input",
+          lambda: got.append(peak_mib(lambda: stream.decode_streamed(c0, chunk_groups=64, device=CUDA)))
+          or same_bits(got[0][0], v0), ("lmp_unpack",))
+    peak = PEAKS["decode_streamed chunk_groups=64"] = got[0][1]
+    bound_mib = (stream.DECODE_DEPTH + 2) * 64 * (chunk_packed + GROUP * 4) / 2**20
+    check(peak <= bound_mib, f"decode_streamed: peak {peak:.1f} MiB > {bound_mib:.1f} MiB")
+    ok, okc = tb.li["l_orderkey"].values, tb.lineitem["l_orderkey"]
+    got = []
+    drive("lineitem l_orderkey (wide) stream_decode, chunk_groups=64", "stream.stream_decode(device=cuda) vs the input",
+          lambda: got.append(peak_mib(lambda: np.concatenate(list(stream.stream_decode(okc, chunk_groups=64, device=CUDA)))))
+          or same_bits(got[0][0], ok), ("delta_decode", "lmp_unpack"))
+    PEAKS["wide l_orderkey stream_decode chunk_groups=64"] = got[0][1]
+    _, PEAKS["whole-column decode of l_orderkey"] = peak_mib(lambda: gtt.decode(okc, device=CUDA))
+    for label, mib in PEAKS.items():
+        print(f"[memory] {label}: peak {mib:.1f} MiB of card memory above the resident columns "
+              f"(torch.cuda.max_memory_allocated after reset_peak_memory_stats)")
+    torch.cuda.empty_cache()
+
+
+def advisor_main_path(tb: Tables, drive) -> None:
+    """suggest(measure=True) on the configs[1] timestamps and the configs[3]
+    flags (their near-ties timed on the card), and encode(v, "auto") against
+    encode(v, top pick), byte for byte."""
+    from giddy_tpu_torch import advisor
+
+    for label, (v, _) in (("configs[1] timestamps", tb.ts), ("configs[3] flags", tb.flags)):
+        ranked, measured = advisor.suggest(v), []
+        ties = sum(r >= ranked[0][1] * 0.9 for _, r in ranked)  # suggest's tie_tol: the near-ties it times
+        (drive if ties > 1 else host_only)(
+            f"advisor.suggest({label}, measure=True), {ties} near-tied", "its ranking holds the static one's ratios",
+            lambda: measured.append(advisor.suggest(v, measure=True, device=CUDA)) or dict(measured[0]) == dict(ranked))
+        print(f"[main] advisor {label}: static {[(s, round(r, 2)) for s, r in ranked[:5]]}; measured on the card "
+              f"{[(s, round(r, 2)) for s, r in measured[0][:5]]}")
+        host_only(f"encode({label}, 'auto')", f"container bytes == encode(v, {ranked[0][0]!r})'s",
+                  lambda: gtt.container_bytes([gtt.encode(v, "auto", name="c")])
+                  == gtt.container_bytes([gtt.encode(v, ranked[0][0], name="c")]))
+        host_only(f"encode_best({label}, measured ranking)", f"container bytes == encode(v, {measured[0][0][0]!r})'s",
+                  lambda: gtt.container_bytes([advisor.encode_best(v, name="c", ranked=measured[0])])
+                  == gtt.container_bytes([gtt.encode(v, measured[0][0][0], name="c")]))
+
+
+def cli_run(argv: list) -> tuple[str, int]:
+    """cli.main(argv) in this process: its standard output and exit code."""
+    from giddy_tpu_torch import cli
+
+    out = io.StringIO()
+    code = 0
+    with contextlib.redirect_stdout(out):
+        try:
+            cli.main(argv)
+        except SystemExit as e:
+            code = e.code
+    return out.getvalue(), code
+
+
+def cli_main_path(drive) -> None:
+    """giddy-tpu-torch's subcommands in a temporary directory on a
+    2^22 + 999 column, each output held against the library call's."""
+    from giddy_tpu_torch import cli  # noqa: F401  (imported before the calls are timed)
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        n = str(CLI_N)
+        host_only("cli gen dict / gen nbit", "the .npy files vs datagen.gen_column",
+                  lambda: cli_run(["gen", "dict", "--n", n, "--seed", "7", "--out", f"{d}/k.npy"])[1] == 0
+                  and cli_run(["gen", "nbit", "--n", n, "--seed", "8", "--out", f"{d}/v.npy"])[1] == 0
+                  and np.array_equal(np.load(f"{d}/k.npy"), gen_column("dict", CLI_N, np.random.default_rng(7)))
+                  and np.array_equal(np.load(f"{d}/v.npy"), gen_column("nbit", CLI_N, np.random.default_rng(8))))
+        k, v = np.load(f"{d}/k.npy"), np.load(f"{d}/v.npy")
+        host_only("cli encode auto", "the container vs encode(v, 'auto')",
+                  lambda: cli_run(["encode", f"{d}/v.npy", "auto", "--out", f"{d}/v.gtp"])[1] == 0
+                  and open(f"{d}/v.gtp", "rb").read() == gtt.container_bytes([gtt.encode(v, "auto", name="col")]))
+        host_only("cli pack", "the container vs encode of each column",
+                  lambda: cli_run(["pack", f"k=dict:{d}/k.npy", f"v=nbit:{d}/v.npy", "--out", f"{d}/t.gtp"])[1] == 0
+                  and open(f"{d}/t.gtp", "rb").read() == gtt.container_bytes(
+                      [gtt.encode(k, "dict", name="k"), gtt.encode(v, "nbit", name="v")]))
+        cols = gtt.open_container(f"{d}/t.gtp")
+        host_only("cli info", "one JSON line a column, schemes and sizes vs the container",
+                  lambda: [(j["name"], j["scheme"], j["compressed_bytes"]) for j in map(
+                      json.loads, cli_run(["info", f"{d}/t.gtp"])[0].splitlines())]
+                  == [(c.name, c.scheme, c.nbytes_compressed) for c in cols])
+        drive("cli decode --column 1", "the .npy vs the input",
+              lambda: cli_run(["decode", f"{d}/t.gtp", "--column", "1", "--out", f"{d}/d.npy"])[1] == 0
+              and np.array_equal(np.load(f"{d}/d.npy"), v), ("lmp_unpack",))
+        drive("cli validate", "BIT-EXACT for both columns, exit code 0",
+              lambda: (lambda r: r[1] == 0 and r[0].count("BIT-EXACT") == 2)(cli_run(["validate", f"{d}/t.gtp"])))
+        drive("cli query --column 1 --op lt --value 256", "the count vs query.count_where and NumPy",
+              lambda: json.loads(cli_run(["query", f"{d}/t.gtp", "--column", "1", "--op", "lt", "--value", "256"])[0])[
+                  "count"] == int((v < 256).sum()), ("filter_fold",))
+        r = groupby.group_reduce(cols[0], cols[1], ("count", "sum"), device=CUDA)
+        drive("cli groupby --keys 0 --vals 1 --aggs count,sum", "the rows vs groupby.group_reduce",
+              lambda: [json.loads(x) for x in cli_run(["groupby", f"{d}/t.gtp", "--keys", "0", "--vals", "1", "--aggs",
+                                                       "count,sum"])[0].splitlines()]
+              == [{"key": key.item(), "count": int(c), "sum": s.item()} for key, c, s in zip(r.keys, r.count, r.sum)])
+        drive("cli agg sum --column 1", "the value vs NumPy",
+              lambda: json.loads(cli_run(["agg", f"{d}/t.gtp", "sum", "--column", "1"])[0])["value"]
+              == int(v.astype(np.int64).sum()), ("agg_fold",))
+    ONE_RUN_MS[f"cli: gen x2, encode auto, pack, info, decode, validate, query, groupby, agg at n={CLI_N}"] = (
+        time.perf_counter() - t0) * 1e3
+
+
+SELFTEST: list = []
+ONE_RUN_MS: dict[str, float] = {}  # calls timed once, where the main path drove them
+
+
+def selftest_main_path(drive) -> None:
+    """The port's selftest at 2^22 + 999 on the card: every core scheme and
+    check exact; its JSON line printed."""
+    from giddy_tpu_torch import selftest
+
+    t0 = time.perf_counter()
+    drive(f"selftest.run_selftest({SELFTEST_N})", "every scheme and check exact",
+          lambda: SELFTEST.append(selftest.run_selftest(SELFTEST_N, device=CUDA)) or SELFTEST[-1]["pass"])
+    ONE_RUN_MS[f"selftest.run_selftest({SELFTEST_N}), with its checks"] = (time.perf_counter() - t0) * 1e3
+    print(json.dumps(SELFTEST[-1]))
+
+
+def time_tables(tb: Tables, smi: str) -> None:
+    """Phase 5 for the tables phase: each call's host-clock ms, the median
+    of 10 (3 where a host step takes seconds; 1 for the dataset's write
+    and compact), beside the raw H2D of the values it reads."""
+    from giddy_tpu_torch import advisor
+    from giddy_tpu_torch.dataset import Dataset
+
+    def h2d(a: np.ndarray) -> float:
+        host = np.ascontiguousarray(a).view(np.uint8)
+        return host_ms(lambda: torch.from_numpy(host).to(CUDA))
+
+    # strings as fixed-width bytes (ASCII here)
+    raw = {nm: h2d(np.array(a.tolist(), dtype="S") if a.dtype == object else a) for nm, a in tb.cust.items()}
+    raw.update({nm: h2d(c.values) for nm, c in tb.li.items()})
+    raw.update({nm: h2d(c.values if c.vocab is None else np.array([s.encode() for s in c.vocab], dtype="S")[c.idx])
+                for nm, c in tb.od.items()})
+    raw["configs[0]"] = h2d(tb.c0[0])
+    raw["configs[1]"] = h2d(tb.ts[0])
+    raw["configs[3]"] = h2d(tb.flags[0])
+    customer, orders, lineitem = tb.customer, tb.orders, tb.lineitem
+    building = customer.filter(("c_mktsegment", "eq", "BUILDING"))
+    ok = tb.li["l_orderkey"].values
+    k, q25 = int(ok[LINEITEM_N // 1000]), int(ok[LINEITEM_N // 4])
+    ds = Dataset.open(f"{DATASET_DIR[0].name}/lineitem", device=CUDA)
+    c0 = tb.c0[1]
+    cells = [
+        ("customer Table.from_arrays (advisor + host encode)", lambda: gtt.Table.from_arrays(tb.cust, device=CUDA), 3,
+         list(tb.cust)),
+        ("orders.semi_join(o_custkey, customer)", lambda: orders.semi_join("o_custkey", customer, "c_custkey"), 3,
+         ["o_custkey", "c_custkey"]),
+        ("customer.filter(c_mktsegment eq BUILDING)", lambda: customer.filter(("c_mktsegment", "eq", "BUILDING")), 3,
+         list(tb.cust)),
+        ("orders.semi_join(o_custkey, BUILDING)", lambda: orders.semi_join("o_custkey", building, "c_custkey"), 3,
+         ["o_custkey", "c_custkey"]),
+        ("customer.anti_join(c_custkey, orders)", lambda: customer.anti_join("c_custkey", orders, "o_custkey"), 3,
+         ["o_custkey", "c_custkey"]),
+        ("join_indices(o_custkey, BUILDING c_custkey, inner)",
+         lambda: gtt.join_indices(orders["o_custkey"], building["c_custkey"], device=CUDA), 3, ["o_custkey", "c_custkey"]),
+        ("join_indices(..., left)", lambda: gtt.join_indices(orders["o_custkey"], building["c_custkey"], how="left",
+                                                             device=CUDA), 3, ["o_custkey", "c_custkey"]),
+        ("orders.join(BUILDING, other_select=[c_mktsegment, c_acctbal])",
+         lambda: orders.join("o_custkey", building, "c_custkey", select=["o_custkey", "o_orderpriority"],
+                             other_select=["c_mktsegment", "c_acctbal"]), 3,
+         ["o_custkey", "o_orderpriority", "c_custkey", "c_mktsegment", "c_acctbal"]),
+        ("customer.count(BUILDING, c_nationkey lt 5)",
+         lambda: customer.count(("c_mktsegment", "eq", "BUILDING"), ("c_nationkey", "lt", 5)), 10,
+         ["c_mktsegment", "c_nationkey"]),
+        ("customer.where_any(MACHINERY, c_nationkey eq 24)",
+         lambda: customer.where_any(("c_mktsegment", "eq", "MACHINERY"), ("c_nationkey", "eq", 24)), 10,
+         ["c_mktsegment", "c_nationkey"]),
+        ("lineitem.agg(l_quantity, sum)", lambda: lineitem.agg("l_quantity", "sum"), 10, ["l_quantity"]),
+        ("lineitem.agg(l_quantity, distinct)", lambda: lineitem.agg("l_quantity", "distinct"), 10, ["l_quantity"]),
+        ("lineitem.agg(l_extendedprice, sum)", lambda: lineitem.agg("l_extendedprice", "sum"), 10, ["l_extendedprice"]),
+        ("orders.groupby(o_orderpriority, o_custkey, (count, sum))",
+         lambda: orders.groupby("o_orderpriority", "o_custkey", ("count", "sum")), 10, ["o_orderpriority", "o_custkey"]),
+        ("lineitem.select([l_quantity, l_suppkey], 0.1%)",
+         lambda: lineitem.select(["l_quantity", "l_suppkey"], lineitem.where("l_orderkey", "lt", k)), 3,
+         ["l_orderkey", "l_quantity", "l_suppkey"]),
+        ("orders.top_k(o_custkey, 10, select=[o_clerk, o_orderpriority])",
+         lambda: orders.top_k("o_custkey", 10, select=["o_clerk", "o_orderpriority"]), 10, ["o_custkey"]),
+        ("customer.sort_by([c_nationkey, c_acctbal])", lambda: customer.sort_by(["c_nationkey", "c_acctbal"]), 3,
+         list(tb.cust)),
+        ("lineitem dataset _plan (l_orderkey lt q25)", lambda: ds._plan([("l_orderkey", "lt", q25)]), 10, []),
+        ("lineitem dataset count(l_orderkey lt q25)", lambda: ds.count(("l_orderkey", "lt", q25)), 10, ["l_orderkey"]),
+        ("lineitem dataset agg(l_orderkey, min) (manifest)", lambda: ds.agg("l_orderkey", "min"), 10, []),
+        ("lineitem dataset groupby(l_suppkey, l_quantity)", lambda: ds.groupby("l_suppkey", "l_quantity", ("count", "sum")),
+         3, ["l_suppkey", "l_quantity"]),
+        ("lineitem dataset select 0.1%", lambda: ds.select(["l_quantity", "l_suppkey"], ("l_orderkey", "lt", k)), 3,
+         ["l_orderkey", "l_quantity", "l_suppkey"]),
+        ("configs[0] count_where lt 256 (whole column)", lambda: query.count_where(c0, "lt", 256, device=CUDA), 10,
+         ["configs[0]"]),
+        ("configs[0] stream_count_where lt 256, chunk_groups=64",
+         lambda: stream.stream_count_where(c0, "lt", 256, chunk_groups=64, device=CUDA), 3, ["configs[0]"]),
+        ("configs[0] stream_count_where lt 256, chunk_groups=4096",
+         lambda: stream.stream_count_where(c0, "lt", 256, chunk_groups=4096, device=CUDA), 3, ["configs[0]"]),
+        ("configs[0] decode(col) to the host (whole column)", lambda: gtt.decode(c0, device=CUDA).cpu(), 3, ["configs[0]"]),
+        ("configs[0] decode_streamed, chunk_groups=64", lambda: stream.decode_streamed(c0, chunk_groups=64, device=CUDA), 3,
+         ["configs[0]"]),
+        ("l_orderkey (wide) stream_decode, chunk_groups=64",
+         lambda: list(stream.stream_decode(tb.lineitem["l_orderkey"], chunk_groups=64, device=CUDA)), 3, ["l_orderkey"]),
+        ("advisor.suggest(configs[1] timestamps, measure=True)",
+         lambda: advisor.suggest(tb.ts[0], measure=True, device=CUDA), 3, []),
+        ("advisor.suggest(configs[3] flags, measure=True)", lambda: advisor.suggest(tb.flags[0], measure=True,
+                                                                                    device=CUDA), 3, []),
+        ("encode(configs[1] timestamps, 'auto')", lambda: gtt.encode(tb.ts[0], "auto"), 3, ["configs[1]"]),
+    ]
+    for what, fn, runs, reads in cells:
+        ms = host_ms(fn, runs=runs, warmup=0 if runs == 3 else 1)
+        print(f"[time] tables {what} on {smi}: {ms:.3f} ms (host clock, median of {runs}); "
+              f"H2D of the raw {'+'.join(reads) if reads else 'nothing'} {sum(raw[r] for r in reads):.3f} ms")
+    with tempfile.TemporaryDirectory() as d:
+        parts = lineitem_partitions(tb)
+        for what, fn in (("lineitem Dataset.write, 4 partitions (zones on the card)",
+                          lambda: Dataset.write(f"{d}/w", parts, device=CUDA)),
+                         ("lineitem dataset compact to 2 partitions",
+                          lambda: ds.compact(f"{d}/c", rows_per_partition=LINEITEM_N // 2))):
+            ms = host_ms(fn, runs=1, warmup=0)
+            print(f"[time] tables {what} on {smi}: {ms:.3f} ms (host clock, one run); H2D of the raw l_orderkey+"
+                  f"l_quantity+l_suppkey {raw['l_orderkey'] + raw['l_quantity'] + raw['l_suppkey']:.3f} ms")
+    for what, ms in ONE_RUN_MS.items():
+        print(f"[time] tables {what} on {smi}: {ms:.3f} ms (host clock, one run)")
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     smi = environment()
     build()
@@ -1896,8 +2451,9 @@ def main() -> int:
     scan = scan_columns(cols)
     li, od = lineitem_table(), orders_table()
     analytic_kernel_checks(li, od)
+    tables = tables_setup(li, od, cols)
     counts, picked = main_path(cols + epilogue, x, container, casc, [(v, col) for _, v, col in epilogue], dz, scan,
-                               (li, od))
+                               (li, od), tables)
     container_without_sync("configs[4]", container)
     container_without_sync("model + bitmap + alp", [(v, col) for _, v, col in epilogue])
     timings = dict(time_column(label, v, col, smi) for label, v, col in cols + epilogue)
@@ -1911,6 +2467,9 @@ def main() -> int:
     timings.update(time_scan_layer(scan, smi))
     timings.update(time_encode({label: (v, col) for label, v, col in cols}, smi))
     time_analytic(li, od, smi)
+    time_tables(tables, smi)
+    for d in DATASET_DIR:
+        d.cleanup()
     for name, count in counts.items():
         check(count >= 1, f"{name} was launched {count} times on the main path")
     rows = [

@@ -14,12 +14,19 @@ scan layer's filters (``query.count_where`` / ``filter_bitmap`` / ``select``
 and the bitmap algebra) and aggregates (``aggregate.sum_`` / ``min_`` /
 ``max_`` / ``avg_`` / ``distinct_count``), GROUP BY (``groupby``), top-k
 (``topk``), zone maps (``zonemap``), random-access decode (``partial``) and
-the layout ops (``layout``). Every entry point runs on the card unless the
-caller asks for ``device="cpu"``.
+the layout ops (``layout``), the ``Table`` API (``table``), joins
+(``join``), partitioned datasets (``dataset``), streamed decode
+(``stream``), the scheme advisor (``advisor``, ``encode(v, "auto")``), the
+command line (``cli``) and a selftest (``selftest``). Every entry point
+runs on the card unless the caller asks for ``device="cpu"``.
 """
 
-from . import aggregate, datagen, groupby, layout, nulls, partial, query, scan, strings, topk, wide, zonemap
+from . import (
+    advisor, aggregate, datagen, dataset, groupby, join, layout, nulls, partial, query, scan, stream, strings, table,
+    topk, wide, zonemap,
+)
 from .api import decode, decode_columns, decode_ref, device_streams, encode, get_decoder, narrow_store_dtype, upload
+from .dataset import Dataset
 from .format import (
     EncodedColumn,
     container_bytes,
@@ -29,10 +36,14 @@ from .format import (
     write_container,
 )
 from .nulls import count_valid, decode_masked, null_count, valid_mask
+from .join import join_indices, join_tables
 from .registry import get, schemes
+from .table import Table
+from .topk import order_by, top_k
 from .util import GROUP, LANES, SLOTS
 
 __all__ = [
+    "Dataset",
     "EncodedColumn",
     "GROUP",
     "LANES",

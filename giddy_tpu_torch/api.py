@@ -50,7 +50,17 @@ def encode(values: np.ndarray, scheme: str, *, valid=None, **opts) -> EncodedCol
     ``valid``: optional bool[n] mask (True = non-null) making the column
     nullable: null slots take the canonical fill (the previous valid
     value) before encoding, and a ``valid`` LMP(1) stream is attached
-    (nulls.py). ``scheme="auto"`` (the reference's advisor) is not ported."""
+    (nulls.py). ``scheme="auto"`` routes through the advisor
+    (advisor.encode_best: trial encodes on a sample, best ratio wins)."""
+    if scheme == "auto":
+        from .advisor import encode_best
+
+        if valid is not None:
+            from . import nulls
+
+            mask = np.asarray(valid, bool)
+            return nulls.attach_valid(encode_best(nulls.fill_nulls(np.asarray(values), mask), **opts), mask)
+        return encode_best(np.asarray(values), **opts)
     if valid is not None:
         from . import nulls
 

@@ -23,11 +23,13 @@ from .format import EncodedColumn
 from .util import GROUP, np_dtype, num_groups
 
 
-def _device_streams(streams: dict[str, np.ndarray], device: torch.device) -> dict[str, torch.Tensor]:
-    """A slice's streams on ``device``: the dist form's (ng, 1) per-group
-    side streams (anchors, refs, slopes, coefficients) become the (ng,)
-    vectors the kernel wrappers take."""
-    from .api import upload
+def _device_streams(streams: dict[str, np.ndarray], device: torch.device, upload=None) -> dict[str, torch.Tensor]:
+    """A slice's streams on ``device`` (through ``upload``, api.upload by
+    default): the dist form's (ng, 1) per-group side streams (anchors,
+    refs, slopes, coefficients) become the (ng,) vectors the kernel
+    wrappers take."""
+    if upload is None:
+        from .api import upload
 
     return {k: t.reshape(-1) if t.dim() == 2 and t.shape[1] == 1 else t for k, t in upload(streams, device).items()}
 
@@ -206,8 +208,10 @@ class GroupSlicer:
         u = get_decoder(sub)(self._streams(sub))
         return _to_logical(u, self.col.dtype)[: sub.n].cpu().numpy()
 
-    def _streams(self, sub: EncodedColumn) -> dict[str, torch.Tensor]:
-        streams = _device_streams(sub.streams, self.device)
+    def _streams(self, sub: EncodedColumn, upload=None) -> dict[str, torch.Tensor]:
+        """A slice's streams on the slicer's device, ready for its decoder
+        (slices skip the registry's prep: they are in device form)."""
+        streams = _device_streams(sub.streams, self.device, upload)
         if sub.scheme == "alp":  # the slice's exceptions are written after the decode
             streams.setdefault("patch_pos", torch.zeros(0, dtype=torch.int32, device=self.device))
             streams.setdefault("patch_val", torch.zeros(0, dtype=torch.int32, device=self.device))

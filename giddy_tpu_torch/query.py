@@ -145,7 +145,17 @@ def _dict_code_ranges(col: EncodedColumn, op: str, value) -> list[tuple[int, int
     return ranges if len(ranges) <= 4 else None
 
 
-def _dict_filter_bitmap(col: EncodedColumn, op: str, value, device: torch.device) -> torch.Tensor | None:
+def _code_streams(col: EncodedColumn, streams: dict | None) -> dict | None:
+    """The code column's device streams within a dict/cascade column's."""
+    if streams is None:
+        return None
+    if col.scheme == "dict":
+        return {"packed": streams["codes"]}
+    return {k[2:]: v for k, v in streams.items() if k.startswith("c_")}
+
+
+def _dict_filter_bitmap(col: EncodedColumn, op: str, value, device: torch.device,
+                        streams: dict | None = None) -> torch.Tensor | None:
     """filter_bitmap for dict/cascade columns via code range scans (K16
     over the code column where its scheme is fused)."""
     from .groupby import _codes_device_column
@@ -153,32 +163,37 @@ def _dict_filter_bitmap(col: EncodedColumn, op: str, value, device: torch.device
     ranges = _dict_code_ranges(col, op, value)
     if ranges is None:
         return None  # the caller falls back to decode + compare
-    inner = _codes_device_column(col)
+    inner, inner_streams = _codes_device_column(col), _code_streams(col, streams)
     acc = None
     for s, e in ranges:
         if e - s == 1:
-            bm = filter_bitmap(inner, "eq", s, device=device)
+            bm = filter_bitmap(inner, "eq", s, device=device, streams=inner_streams)
         elif s == 0:
-            bm = filter_bitmap(inner, "lt", e, device=device)
+            bm = filter_bitmap(inner, "lt", e, device=device, streams=inner_streams)
         elif e == col.params["dict_size"]:
-            bm = filter_bitmap(inner, "ge", s, device=device)
+            bm = filter_bitmap(inner, "ge", s, device=device, streams=inner_streams)
         else:
-            bm = between_bitmap(inner, s, e - 1, device=device)
+            bm = between_bitmap(inner, s, e - 1, device=device, streams=inner_streams)
         acc = bm if acc is None else acc | bm
     return _zeros(col, device) if acc is None else acc
 
 
-def filter_bitmap(col: EncodedColumn, op: str, value, *, device: torch.device | str = "cuda") -> torch.Tensor:
+def filter_bitmap(col: EncodedColumn, op: str, value, *, device: torch.device | str = "cuda",
+                  streams: dict | None = None) -> torch.Tensor:
     """(ng, LANES) int32 bitmap words in LMP(1) layout: bit i of word
     [g, c] = predicate(col[g*GROUP + i*LANES + c]). Pad positions past n
-    are garbage; count_where masks them."""
+    are garbage; count_where masks them. ``streams``: the column's streams
+    already on ``device`` in device form (a partial.GroupSlicer slice's,
+    which skip the registry's prep); uploaded here when None."""
     if op not in OPS:
         raise ValueError(f"op must be one of {OPS}, got {op!r}")
     device = _decode_device(device)
     _check_supported(col)
-    valid = nulls.valid_words_device(col, device) if nulls.is_nullable(col) else None
+    valid = None
+    if nulls.is_nullable(col):
+        valid = streams["valid"] if streams is not None and "valid" in streams else nulls.valid_words_device(col, device)
     if col.scheme in ("cascade", "dict"):
-        bm = _dict_filter_bitmap(col, op, value, device)
+        bm = _dict_filter_bitmap(col, op, value, device, streams)
         if bm is not None:
             return bm if valid is None else bm & valid
         # fragmented match set: fall through to decode + compare
@@ -192,7 +207,8 @@ def filter_bitmap(col: EncodedColumn, op: str, value, *, device: torch.device | 
                                         *_stage_value_wide(col.dtype, value), dt.kind, op))
         return bm if valid is None else bm & valid
     key = _stage_key(col.dtype, value)
-    streams = device_streams(col, device)
+    if streams is None:
+        streams = device_streams(col, device)
     if col.scheme in FUSED:  # one launch, the validity AND included
         bits = col.params["bits"] if col.scheme != "dzbf" else 8 * col.params["width"]
         return filter_fold(streams["packed"], streams.get("refs_g"), valid, bits, dt.kind, dt.itemsize, op, key)
@@ -266,9 +282,12 @@ def bitmap_not(words: torch.Tensor, n: int) -> torch.Tensor:
     return _mask_pad(~words, n)
 
 
-def between_bitmap(col: EncodedColumn, lo, hi, *, device: torch.device | str = "cuda") -> torch.Tensor:
-    """Bitmap of lo <= col[i] <= hi (inclusive both ends)."""
-    return bitmap_and(filter_bitmap(col, "ge", lo, device=device), filter_bitmap(col, "le", hi, device=device))
+def between_bitmap(col: EncodedColumn, lo, hi, *, device: torch.device | str = "cuda",
+                   streams: dict | None = None) -> torch.Tensor:
+    """Bitmap of lo <= col[i] <= hi (inclusive both ends); ``streams`` as
+    in filter_bitmap."""
+    return bitmap_and(filter_bitmap(col, "ge", lo, device=device, streams=streams),
+                      filter_bitmap(col, "le", hi, device=device, streams=streams))
 
 
 def count_between(col: EncodedColumn, lo, hi, *, device: torch.device | str = "cuda") -> int:

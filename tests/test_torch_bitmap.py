@@ -14,9 +14,25 @@ from giddy_tpu_torch.kernels import bitmap, lanes
 from giddy_tpu_torch.util import GROUP, LANES
 
 from test_torch_host import assert_same_column
-from test_torch_inputs import bitmap_values, rng_of
+from test_torch_inputs import FreshProcess, bitmap_values, rng_of
 
 N = 2 * GROUP + 999  # three groups, the last one ragged
+
+
+# The JAX decodes run in a fresh process of this module's (FreshProcess in
+# test_torch_inputs.py), so that the xdist worker keeps none of their
+# interpret-mode programs.
+JAX = FreshProcess()
+
+
+@pytest.fixture(autouse=True, scope="module")
+def jax_process():
+    yield
+    JAX.close()
+
+
+def jax_decode(ref, **kw) -> np.ndarray:
+    return np.asarray(gt.decode(ref, **kw))
 
 
 def values(d: int, n: int, seed: str, dtype: str = "int32") -> np.ndarray:
@@ -25,7 +41,7 @@ def values(d: int, n: int, seed: str, dtype: str = "int32") -> np.ndarray:
 
 def _decode_both(ref, **kw):
     out = gtt.decode(gtt.from_reference(ref), device="cpu", **kw)
-    return out, np.asarray(gt.decode(ref, **kw))
+    return out, JAX(jax_decode, ref, **kw)
 
 
 def check_all(v: np.ndarray) -> gtt.EncodedColumn:

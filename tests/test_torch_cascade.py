@@ -21,8 +21,25 @@ from giddy_tpu_torch.ref.cascade import INNER_SCHEMES
 from giddy_tpu_torch.util import GROUP
 
 from test_torch_host import assert_same_column
+from test_torch_inputs import FreshProcess
 
 N = 2 * GROUP + 999  # three groups, the last one ragged
+
+
+# The JAX decodes run in a fresh process of this module's (FreshProcess in
+# test_torch_inputs.py), so that the xdist worker keeps none of their
+# interpret-mode programs.
+JAX = FreshProcess()
+
+
+@pytest.fixture(autouse=True, scope="module")
+def jax_process():
+    yield
+    JAX.close()
+
+
+def jax_decode(ref, **kw) -> np.ndarray:
+    return np.asarray(gt.decode(ref, **kw))
 
 
 def values(d: int, seed: str, n: int = N, run: int = 50) -> tuple[np.ndarray, np.ndarray]:
@@ -34,7 +51,7 @@ def values(d: int, seed: str, n: int = N, run: int = 50) -> tuple[np.ndarray, np
 
 def _decode_both(ref, **kw):
     out = gtt.decode(gtt.from_reference(ref), device="cpu", **kw)
-    return out, np.asarray(gt.decode(ref, **kw))
+    return out, JAX(jax_decode, ref, **kw)
 
 
 def assert_same_streams(got: dict, want: dict):

@@ -20,7 +20,7 @@ from giddy_tpu_torch.ref import lmp as ref_lmp
 from giddy_tpu_torch.util import GROUP, LANES, np_dtype, pad_to_groups
 
 from test_torch_inputs import (
-    DICT_KINDS, OPS, SCAN_DTYPES, STRING_KINDS, WIDE_KINDS, WINDOW_HEAD, assert_same_column, bitmap_values, dict_values,
+    DICT_KINDS, OPS, PRIORITIES, SCAN_DTYPES, STRING_KINDS, WIDE_KINDS, WINDOW_HEAD, assert_same_column, bitmap_values, dict_values,
     dzbv_values, for_values, rng_of, salted_prices, scan_thresholds, scan_values, string_values, want_agg, want_mask,
     wide_thresholds, wide_values, wrapping_walk,
 )
@@ -970,8 +970,10 @@ def _same(a, b) -> bool:
             return b.dtype == object and a.shape == b.shape and all(
                 type(x) is type(y) and x == y for x, y in zip(a.reshape(-1), b.reshape(-1)))
         return a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes()
-    if isinstance(a, tuple):
-        return len(a) == len(b) and all(_same(x, y) for x, y in zip(a, b))
+    if isinstance(a, (tuple, list)):
+        return type(a) is type(b) and len(a) == len(b) and all(_same(x, y) for x, y in zip(a, b))
+    if isinstance(a, dict):
+        return list(a) == list(b) and all(_same(a[k], b[k]) for k in a)
     if hasattr(a, "__dataclass_fields__"):
         return all((getattr(a, f) is None and getattr(b, f) is None) or _same(getattr(a, f), getattr(b, f))
                    for f in a.__dataclass_fields__)
@@ -1125,3 +1127,184 @@ def test_zonemap_and_layout_on_card_match_cpu(cuda):
     _on_card_like_cpu(cuda, lambda d: layout.gather(data.to(d), idx.to(d)))
     _on_card_like_cpu(cuda, lambda d: layout.scatter(torch.zeros(N, dtype=torch.int32, device=d), idx.to(d), data.to(d)))
     _on_card_like_cpu(cuda, lambda d: layout.indices_to_bitmap(idx[:100].to(d), N))
+
+
+# -- the table engine: stream, advisor, table, join, dataset, cli, selftest ----
+
+
+@pytest.mark.parametrize("kind", ["nbit", "for", "delta", "dict", "rle", "cascade", "dzbv", "patched", "alp",
+                                  "wide", "nullable"])
+def test_stream_on_card_matches_decode(cuda, kind):
+    """Streamed chunks (pinned staging, the copy stream) equal the
+    whole-column decode on the card, chunk for chunk; the streamed counts
+    equal count_where on the card and the CPU's."""
+    from giddy_tpu_torch import stream
+    from giddy_tpu_torch.datagen import gen_column
+
+    rng = rng_of(f"cuda/stream/{kind}")
+    n = 5 * GROUP + 321
+    if kind == "wide":
+        v = wide_values("orderkey", n, rng)
+        col = gtt.encode(v, "wide", base_scheme="delta", hi_scheme="nbit")
+    elif kind == "nullable":
+        v = gen_column("for", n, rng)
+        col = gtt.encode(v, "for", valid=rng.random(n) > 0.1)
+    else:
+        v = gen_column(kind, n, rng)
+        col = gtt.encode(v, kind)
+    whole = gtt.decode(col, device=cuda).cpu().numpy()
+    chunks = list(stream.stream_decode(col, chunk_groups=2, device=cuda))
+    assert [c.shape[0] for c in chunks] == [2 * GROUP, 2 * GROUP, GROUP + 321]
+    if kind != "wide":
+        assert all(c.is_cuda for c in chunks)
+    host = np.concatenate([c.cpu().numpy() if isinstance(c, torch.Tensor) else c for c in chunks])
+    assert host.tobytes() == whole.tobytes() == stream.decode_streamed(col, chunk_groups=3, device=cuda).tobytes()
+    pivot = v[n // 2].item()
+    for op in ("lt", "eq", "ne"):
+        got = _on_card_like_cpu(cuda, lambda d: stream.stream_count_where(col, op, pivot, chunk_groups=2, device=d))
+        assert got == query.count_where(col, op, pivot, device=cuda)
+
+
+def test_advisor_on_card(cuda):
+    from giddy_tpu_torch import advisor
+    from giddy_tpu_torch.datagen import gen_column
+
+    v = gen_column("delta", 4 * GROUP, rng_of("cuda/advisor"))
+    assert advisor._measure_decode_gbps(v, "delta", device=cuda) > 0.0
+    plain, measured = advisor.suggest(v), advisor.suggest(v, measure=True, device=cuda)
+    assert dict(plain) == dict(measured)
+    assert gtt.container_bytes([gtt.encode(v, "auto")]) == gtt.container_bytes([advisor.encode_best(v, ranked=plain)])
+
+
+def _table_arrays(n: int = N) -> dict:
+    rng = rng_of(f"cuda/table/{n}")
+    return {
+        "x": rng.integers(-(2**19), 2**19, n).astype(np.int32),
+        "price": np.round(rng.uniform(0, 500, n), 2).astype(np.float32),
+        "ts": (1_700_000_000_000 + np.cumsum(rng.integers(0, 50, n))).astype(np.int64),
+        "prio": np.array([PRIORITIES[i] for i in rng.integers(0, 5, n)], dtype=object),
+        "k": rng.integers(0, 17, n).astype(np.int32) * 3,
+        "nx": (rng.integers(0, 100, n).astype(np.int32), rng.random(n) > 0.15),
+    }
+
+
+def test_table_on_card_matches_cpu(cuda):
+    from giddy_tpu_torch.table import Table
+
+    a = _table_arrays()
+    cpu = torch.device("cpu")
+    t = {d: Table.from_arrays(a, {"k": "dict"}, device=d) for d in (cuda, cpu)}
+    assert t[cuda].to_bytes() == t[cpu].to_bytes()
+
+    def on(fn, expect=()):
+        return _on_card_like_cpu(cuda, lambda d: fn(t[d]), expect)
+
+    preds = [("x", "lt", 0), ("price", "between", (10.0, 20.0)), ("ts", "gt", int(a["ts"][N // 2])),
+             ("prio", "eq", "2-HIGH"), ("k", "isin", [3, 9, 30]), ("x", "isin", list(range(-50, 50, 7))),
+             ("nx", "le", 40)]
+    for p in preds:
+        on(lambda tb: tb.where(*p))
+    on(lambda tb: tb.where_all(*preds[:3]), ("delta_decode", "alp_decode", "lmp_unpack"))
+    on(lambda tb: tb.where_any(*preds[3:]))
+    on(lambda tb: tb.count(preds[3], preds[6]), ("filter_fold",))
+    for name, agg in (("x", "sum"), ("x", "min"), ("price", "sum"), ("ts", "max"), ("nx", "avg"), ("prio", "min"),
+                      ("k", "distinct"), ("price", "distinct")):
+        on(lambda tb: tb.agg(name, agg))
+    on(lambda tb: tb.groupby("k", "x", ("count", "sum", "min", "max"), ("nx", "ge", 5)))
+    on(lambda tb: tb.groupby(["prio", "k"], "price", ("count", "sum")))
+    on(lambda tb: tb.select(["x", "prio", "ts"], tb.where("x", "ge", 500_000)))
+    on(lambda tb: tb.top_k("price", 20, select=["prio", "ts"]))
+    on(lambda tb: tb.sort_by(["k", "price"], ascending=[True, False]).to_bytes())
+    on(lambda tb: tb.filter(("prio", "eq", "1-URGENT")).to_bytes())
+    build = {d: Table.from_arrays({"kk": np.array([3, 6, 7, 48], np.int32)}, device=d) for d in (cuda, cpu)}
+    for probe in ("k", "x"):
+        on(lambda tb: tb.semi_join(probe, build[tb.device], "kk"))
+        on(lambda tb: tb.anti_join(probe, build[tb.device], "kk"))
+
+
+@pytest.mark.parametrize("kind", ["int32", "float32", "wide", "dict", "strdict", "nullable"])
+def test_join_on_card_matches_cpu(cuda, kind):
+    """join_indices on the card (the prunes' scans there) gives the CPU's
+    pairs in the CPU's order, for every join type."""
+    from giddy_tpu_torch import join, strings
+
+    cols = []
+    for side, (lo, hi) in (("left", (0, 3000)), ("right", (2000, 6000))):
+        rng = rng_of(f"cuda/join/{kind}/{side}")
+        v = rng.integers(lo, hi, N)
+        if kind == "strdict":
+            cols.append(strings.encode_strings([f"k{x}" for x in v], name="key"))
+        elif kind == "float32":
+            cols.append(gtt.encode((v / 8.0).astype(np.float32), "raw", name="key"))
+        elif kind == "wide":
+            cols.append(gtt.encode(v.astype(np.int64) * 2**33, "wide", name="key"))
+        else:
+            cols.append(gtt.encode(v.astype(np.int32), "dict" if kind == "dict" else "nbit", name="key",
+                                   valid=rng.random(N) > 0.1 if kind == "nullable" else None))
+    for how in ("inner", "left", "outer"):
+        _on_card_like_cpu(cuda, lambda d: join.join_indices(*cols, how=how, device=d))
+    _on_card_like_cpu(cuda, lambda d: join.anti_join_bitmap(*cols, device=d))
+
+
+def test_dataset_on_card_matches_cpu(cuda, tmp_path):
+    """A dataset written on the card has the CPU-written one's files; its
+    scans on the card equal the CPU's."""
+    import os
+
+    from giddy_tpu_torch.dataset import Dataset
+    from giddy_tpu_torch.table import Table
+
+    parts = []
+    for i in range(3):
+        a = _table_arrays()
+        a["x"] = a["x"] + i * 2**20
+        parts.append(a)
+    cpu = torch.device("cpu")
+    for d, sub in ((cuda, "card"), (cpu, "host")):
+        Dataset.write(str(tmp_path / sub), [Table.from_arrays(a, {"k": "dict"}, device=d) for a in parts], device=d)
+    for name in os.listdir(tmp_path / "host"):
+        assert (tmp_path / "card" / name).read_bytes() == (tmp_path / "host" / name).read_bytes(), name
+    ds = {d: Dataset.open(str(tmp_path / "host"), device=d) for d in (cuda, cpu)}
+
+    def on(fn):
+        return _on_card_like_cpu(cuda, lambda d: fn(ds[d]))
+
+    on(lambda s: s._plan([("x", "lt", 2**19)]))
+    on(lambda s: s.count(("x", "lt", 2**19), ("prio", "ne", "5-LOW")))
+    for agg in ("sum", "min", "max", "count", "distinct"):
+        on(lambda s: s.agg("x", agg))
+    on(lambda s: s.groupby("k", "nx", ("count", "sum", "min", "max")))
+    on(lambda s: s.select(["x", "prio"], ("x", "ge", 2**21 + 2**19 - 100)))
+    compacted = iter(("compact_card", "compact_host"))
+    on(lambda s: s.compact(str(tmp_path / next(compacted)), rows_per_partition=2 * N).part(0).to_bytes())
+
+
+def test_cli_on_card_matches_cpu(cuda, tmp_path, capsys):
+    from giddy_tpu_torch import cli
+
+    np.save(tmp_path / "v.npy", scan_values("int32", N, rng_of("cuda/cli")))
+    cli.main(["encode", str(tmp_path / "v.npy"), "auto", "--out", str(tmp_path / "v.gtp"), "--measure",
+              "--device", str(cuda)])
+    capsys.readouterr()
+    for argv in (["query", str(tmp_path / "v.gtp"), "--op", "lt", "--value", "0"],
+                 ["agg", str(tmp_path / "v.gtp"), "sum"], ["agg", str(tmp_path / "v.gtp"), "max"],
+                 ["validate", str(tmp_path / "v.gtp")]):
+        outs = []
+        for d in (str(cuda), "cpu"):
+            try:
+                cli.main(argv + ["--device", d])
+            except SystemExit as e:
+                assert e.code == 0
+            outs.append(capsys.readouterr().out)
+        assert outs[0] == outs[1] and outs[0]
+    for d, out in ((str(cuda), "card.npy"), ("cpu", "host.npy")):
+        cli.main(["decode", str(tmp_path / "v.gtp"), "--device", d, "--out", str(tmp_path / out)])
+    assert (tmp_path / "card.npy").read_bytes() == (tmp_path / "host.npy").read_bytes()
+
+
+def test_selftest_on_card(cuda):
+    from giddy_tpu_torch import selftest
+
+    r = selftest.run_selftest(2 * GROUP + 999, device=cuda)
+    assert r["pass"], {k: v.get("error") for k, v in r["schemes"].items() if not v["exact"]}
+    assert r["device"] == "cuda" and r["device_kind"] == torch.cuda.get_device_name(0)

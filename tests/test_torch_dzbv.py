@@ -26,9 +26,25 @@ from giddy_tpu_torch.ref.lmp import lmp_unpack
 from giddy_tpu_torch.util import GROUP, LANES
 
 from test_torch_host import assert_same_streams
-from test_torch_inputs import dzbv_values, rng_of
+from test_torch_inputs import FreshProcess, dzbv_values, rng_of
 
 N = 3 * GROUP + 17  # four groups, the last one ragged
+
+
+# The JAX calls run in a fresh process of this module's (FreshProcess in
+# test_torch_inputs.py), so that the xdist worker keeps none of their
+# interpret-mode programs.
+JAX = FreshProcess()
+
+
+@pytest.fixture(autouse=True, scope="module")
+def jax_process():
+    yield
+    JAX.close()
+
+
+def jax_decode_column(ref, **kw) -> np.ndarray:
+    return np.asarray(gt.decode(ref, **kw))
 FORMS = {"tile": "dzbv_tile_decode", "group": "dzbv_group_decode", "plane": "dzbv_plane_decode"}
 
 
@@ -69,7 +85,7 @@ def check_form(v: np.ndarray, form: str, jax: bool = True, streams: dict | None 
     if jax:
         want = reference_form(ref, streams, form)
         assert_same_streams(streams, want)
-        assert got.tobytes() == jax_decode(ref, want).tobytes()
+        assert got.tobytes() == JAX(jax_decode, ref, want).tobytes()
     return col, streams
 
 
@@ -107,7 +123,7 @@ def test_prep_picks_the_form(kind, form):
     assert_same_streams(streams, gt_dzbv._prep(ref))
     assert kernels.kernel_call(col, gtt.upload(streams, "cpu"), torch.int32)[0] == FORMS[form]
     out = gtt.decode(col, device="cpu")
-    assert out.numpy().tobytes() == np.asarray(gt.decode(ref)).tobytes() == v.tobytes()
+    assert out.numpy().tobytes() == JAX(jax_decode_column, ref).tobytes() == v.tobytes()
     assert dzbv.prep(dataclasses.replace(col, streams=streams)) is streams or form == "plane"
 
 
@@ -133,7 +149,7 @@ def test_narrow_stores_and_dtypes(dtype):
     out = gtt.decode(col, device="cpu")
     signed = {4: torch.int32, 2: torch.int16, 1: torch.int8}[v.itemsize]
     assert out.dtype == getattr(torch, dtype)
-    assert out.view(signed).numpy().tobytes() == np.asarray(gt.decode(ref)).tobytes() == v.tobytes()
+    assert out.view(signed).numpy().tobytes() == JAX(jax_decode_column, ref).tobytes() == v.tobytes()
     for form in FORMS:
         name, args = kernels.kernel_call(col, gtt.upload(dzbv.form_streams(col, form), "cpu"), store)
         got = getattr(kernels.WRAPPERS[name], name)(*args)
@@ -146,7 +162,7 @@ def test_empty_column():
     assert col.params["plane_lens"] == [0, 0, 0, 0]
     assert gtt.decode(col, device="cpu").shape == (0,)
     padded = gtt.decode(col, device="cpu", pad=True)
-    assert padded.shape == (GROUP,) and padded.numpy().tobytes() == np.asarray(gt.decode(ref, pad=True)).tobytes()
+    assert padded.shape == (GROUP,) and padded.numpy().tobytes() == JAX(jax_decode_column, ref, pad=True).tobytes()
     for form in FORMS:
         _, out = port_decode(col, dzbv.form_streams(col, form))
         assert out.shape == (1, GROUP) and not out.any()

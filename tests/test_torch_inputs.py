@@ -239,6 +239,42 @@ def assert_same_column(port, ref):
         assert p.tobytes() == s.tobytes(), k
 
 
+class FreshProcess:
+    """A fresh Python process (multiprocessing's spawn) that runs importable
+    functions (a test module's top-level ones) and pickles their results
+    back: started at the first call, ended by close(). The CPU tests run
+    the JAX reference there where they trace many programs: an xdist worker
+    keeps every program it compiles, and one that maps more than
+    vm.max_map_count (65530) dies in LLVM and can hang the run (ROADMAP.md,
+    "Working conditions").
+    A process that dies fails the call (BrokenProcessPool) instead."""
+
+    def __init__(self):
+        self._pool = None
+
+    def __call__(self, fn, *args, **kwargs):
+        if self._pool is None:
+            import concurrent.futures
+            import multiprocessing
+
+            self._pool = concurrent.futures.ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn"))
+        return self._pool.submit(fn, *args, **kwargs).result()
+
+    def close(self) -> None:
+        if self._pool is not None:
+            self._pool.shutdown()
+            self._pool = None
+
+
+def in_fresh_process(fn, *args):
+    """fn(*args) in a FreshProcess of its own."""
+    process = FreshProcess()
+    try:
+        return process(fn, *args)
+    finally:
+        process.close()
+
+
 def wrapping_walk(n: int, rng: np.random.Generator) -> np.ndarray:
     """An int32 random walk whose steps span the whole int32 range, so it
     wraps past both ends and its deltas take both signs at full width."""

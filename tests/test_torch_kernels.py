@@ -18,7 +18,25 @@ from giddy_tpu_torch import kernels
 from giddy_tpu_torch.kernels import lanes
 from giddy_tpu_torch.util import GROUP
 
+from test_torch_inputs import FreshProcess
+
 N = 2 * GROUP + 999  # three groups, the last one ragged
+
+
+# The JAX decodes run in a fresh process of this module's (FreshProcess in
+# test_torch_inputs.py), so that the xdist worker keeps none of their
+# interpret-mode programs.
+JAX = FreshProcess()
+
+
+@pytest.fixture(autouse=True, scope="module")
+def jax_process():
+    yield
+    JAX.close()
+
+
+def jax_decode(ref, **kw) -> np.ndarray:
+    return np.asarray(gt.decode(ref, **kw))
 
 
 def _uint(rng, bits, n=N):
@@ -93,7 +111,7 @@ def test_plain_kernel_matches_jax_decode(label):
     assert kernels.launches() == before  # the CPU path launches no kernel
     assert out.dtype == store and out.shape == (args[0].shape[0], GROUP)
     got = as_logical(out, col.dtype)
-    want = np.asarray(gt.decode(ref, pad=True))
+    want = JAX(jax_decode, ref, pad=True)
     assert got.dtype == want.dtype
     assert got.tobytes() == want.tobytes()
     assert got[: col.n].tobytes() == v.tobytes()

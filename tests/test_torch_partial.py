@@ -17,9 +17,29 @@ from giddy_tpu_torch import dist, partial
 from giddy_tpu_torch.datagen import gen_column
 from giddy_tpu_torch.util import GROUP
 
-from test_torch_inputs import dzbv_values, rng_of, wide_values
+from test_torch_inputs import FreshProcess, dzbv_values, rng_of, wide_values
 
 N = 2 * GROUP + 999  # three groups, the last one ragged
+
+
+# The JAX calls run in a fresh process of this module's (FreshProcess in
+# test_torch_inputs.py), so that the xdist worker keeps none of their
+# interpret-mode programs.
+JAX = FreshProcess()
+
+
+@pytest.fixture(autouse=True, scope="module")
+def jax_process():
+    yield
+    JAX.close()
+
+
+def jax_decode_groups(ref, g0: int, g1: int) -> np.ndarray:
+    return np.asarray(jpartial.decode_groups(ref, g0, g1))
+
+
+def jax_take(ref, idx) -> np.ndarray:
+    return np.asarray(jpartial.take(ref, idx))
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -110,13 +130,13 @@ def test_decode_groups_and_take_match_jax(case):
         assert got.dtype == v.dtype and bits(got) == bits(partial.decode_ref_groups(col, g0, g1))
         assert bits(got) == bits(v[g0 * GROUP : g1 * GROUP])
     g0, g1 = ranges[1 % len(ranges)]
-    assert bits(partial.decode_groups(col, g0, g1, device="cpu")) == bits(jpartial.decode_groups(ref, g0, g1))
+    assert bits(partial.decode_groups(col, g0, g1, device="cpu")) == bits(JAX(jax_decode_groups, ref, g0, g1))
     rng = rng_of(f"partial/take/{IDS[case]}")
     if col.n:
         idx = np.concatenate([rng.integers(0, col.n, 40), [0, col.n - 1, GROUP - 1, GROUP, 2 * GROUP + 7]])
         rng.shuffle(idx)
         got = partial.take(col, idx, device="cpu")
-        assert got.dtype == v.dtype and bits(got) == bits(jpartial.take(ref, idx)) == bits(v[idx])
+        assert got.dtype == v.dtype and bits(got) == bits(JAX(jax_take, ref, idx)) == bits(v[idx])
         shaped = partial.take(col, idx[:40].reshape(5, 8), device="cpu")
         assert shaped.shape == (5, 8) and bits(shaped) == bits(v[idx[:40]].reshape(5, 8))
         with pytest.raises(IndexError):
@@ -149,9 +169,9 @@ def test_wide_decode_groups_and_take_match_jax(kind):
     ref = gt.encode(v, "wide", base_scheme="delta" if kind == "orderkey" else "nbit")
     col = gtt.from_reference(ref)
     got = partial.decode_groups(col, 1, 3, device="cpu")
-    assert got.dtype == v.dtype and bits(got) == bits(jpartial.decode_groups(ref, 1, 3)) == bits(v[GROUP:])
+    assert got.dtype == v.dtype and bits(got) == bits(JAX(jax_decode_groups, ref, 1, 3)) == bits(v[GROUP:])
     idx = rng.integers(0, N, 64)
-    assert bits(partial.take(col, idx, device="cpu")) == bits(jpartial.take(ref, idx)) == bits(v[idx])
+    assert bits(partial.take(col, idx, device="cpu")) == bits(JAX(jax_take, ref, idx)) == bits(v[idx])
     with pytest.raises(NotImplementedError, match="32-bit planes"):
         partial.GroupSlicer(col, device="cpu")
 

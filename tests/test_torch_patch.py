@@ -19,8 +19,25 @@ from giddy_tpu_torch.kernels import lanes, patch
 from giddy_tpu_torch.util import GROUP
 
 from test_torch_host import assert_same_column
+from test_torch_inputs import FreshProcess
 
 N = 2 * GROUP + 999  # three groups, the last one ragged
+
+
+# The JAX decodes run in a fresh process of this module's (FreshProcess in
+# test_torch_inputs.py), so that the xdist worker keeps none of their
+# interpret-mode programs.
+JAX = FreshProcess()
+
+
+@pytest.fixture(autouse=True, scope="module")
+def jax_process():
+    yield
+    JAX.close()
+
+
+def jax_decode(ref, **kw) -> np.ndarray:
+    return np.asarray(gt.decode(ref, **kw))
 DTYPES = ["int32", "int8", "int16", "uint16", "float32"]
 
 
@@ -39,7 +56,7 @@ def values(dtype: str, n: int, seed: str, exceptions: bool = True) -> np.ndarray
 
 def _decode_both(ref, **kw):
     out = gtt.decode(gtt.from_reference(ref), device="cpu", **kw)
-    return out, np.asarray(gt.decode(ref, **kw))
+    return out, JAX(jax_decode, ref, **kw)
 
 
 @pytest.mark.parametrize("n", [N, GROUP, 0])
