@@ -31,8 +31,13 @@ customer-orders ``semi_join`` / ``anti_join`` / ``join_indices`` /
 lineitem ``Dataset`` with ``_plan``, ``count``, ``agg``, ``groupby``,
 ``select`` and ``compact``; ``stream_count_where`` / ``decode_streamed`` /
 ``stream_decode`` with their peak card memory; ``advisor.suggest(...,
-measure=True)``; the CLI in-process; ``selftest.run_selftest``), and times
-them.
+measure=True)``; the CLI in-process; ``selftest.run_selftest``), the dist
+phase (the sharded layer: ``dist.decode_columns_sharded`` of configs[4] on
+``dist.default_mesh()`` and on ``dist.Mesh([cuda:0] * 4)``, whose four
+shards launch each kernel four times; ``dist_query`` count, sum and min of
+configs[0], ``group_reduce_sharded`` and the wide ``sum_sharded`` on the
+lineitem columns, ``Table.join(mesh=)`` and ``Dataset.count(mesh=)``; a
+two-rank torch.distributed (gloo) drill on the card), and times them.
 
     python3 chip_smoke.py
 
@@ -1212,6 +1217,7 @@ def main_path(cols: list, x: torch.Tensor, container: list, casc: tuple, epilogu
     encode_main_path({label: (v, col) for label, v, col in cols}, drive)
     analytic_main_path(*analytic, drive)
     tables_main_path(tables, drive)
+    dist_main_path(tables, container, drive)
     return totals, picked
 
 
@@ -2438,6 +2444,265 @@ def time_tables(tb: Tables, smi: str) -> None:
     torch.cuda.empty_cache()
 
 
+# -- the dist phase ---------------------------------------------------------------
+# The sharded layer on the card (dist.py, dist_query.py, mesh= of joins and
+# datasets): every shard runs the single-GPU decoder or scan of its group
+# slice, so a mesh that lists the card four times, dist.Mesh([cuda:0] * 4),
+# launches each kernel once a shard. Every result is exact against NumPy; a
+# two-rank gloo drill on the card checks each rank's shards and an
+# all-reduced count.
+
+DIST_SHARDS = 4
+DRILL_N = 2**24
+DRILL_SCHEMES = ("nbit", "dict", "rle", "patched")
+DRILL_KERNELS = {"nbit": "lmp_unpack", "dict": "dict_decode", "rle": "run_expand", "patched": "patched_decode"}
+
+
+def dist_meshes() -> dict:
+    """The phase's meshes: every visible card, and the card four times."""
+    from giddy_tpu_torch import dist
+
+    return {"default_mesh()": dist.default_mesh(), f"Mesh([cuda:0] * {DIST_SHARDS})":
+            dist.Mesh([torch.device("cuda", 0)] * DIST_SHARDS)}
+
+
+def per_shard(label: str, launched: dict, want: dict) -> None:
+    """The [dist] line of a sharded call: its launches equal ``want``."""
+    check(launched == want, f"{label}: launched {launched}, want {want}")
+    print(f"[dist] {label}: exact; launches {launched}, once a shard as the single-GPU call's")
+
+
+def twin_launches(fn) -> dict[str, int]:
+    """The launches of a single-GPU twin ``fn()``, counted from a reset:
+    what a sharded call launches once a shard."""
+    kernels.reset_launches()
+    fn()
+    torch.cuda.synchronize()
+    return {k: c for k, c in kernels.launches().items() if c}
+
+
+@contextlib.contextmanager
+def counted_prunes():
+    """Counts, into the dict it yields, the launches made inside
+    join._match_bitmap (a join's two prunes) while the block runs."""
+    from giddy_tpu_torch import join
+
+    inner, pruned = join._match_bitmap, {}
+
+    def counted(*args, **kwargs):
+        before = kernels.launches()
+        out = inner(*args, **kwargs)
+        for k, c in kernels.launches().items():
+            if c > before[k]:
+                pruned[k] = pruned.get(k, 0) + c - before[k]
+        return out
+
+    join._match_bitmap = counted
+    try:
+        yield pruned
+    finally:
+        join._match_bitmap = inner
+
+
+def dist_main_path(tb: Tables, container: list, drive) -> None:
+    """The dist phase's paths, each driven once with the launch counts reset
+    and read around it, exact against NumPy, its launches checked against
+    the single-GPU call's times the shard count."""
+    from giddy_tpu_torch import dist, dist_query
+    from giddy_tpu_torch.dataset import Dataset
+
+    t0 = time.perf_counter()
+    meshes = dist_meshes()
+    cols = [col for _, col in container]
+    kernels.reset_launches()
+    gtt.decode_columns(cols, device=CUDA)
+    torch.cuda.synchronize()
+    single = {k: c for k, c in kernels.launches().items() if c}
+
+    def columns_ok(mesh) -> bool:
+        outs = dist.decode_columns_sharded(cols, mesh)
+        return sorted(outs) == sorted(c.name for c in cols) and all(same_on_card(outs[c.name], v) for v, c in container)
+
+    for label, mesh in meshes.items():
+        name = f"configs[4] decode_columns_sharded on {label}"
+        per_shard(name, drive(name, "dist.decode_columns_sharded vs inputs", lambda: columns_ok(mesh)),
+                  {k: c * mesh.size for k, c in single.items()})
+    four = meshes[f"Mesh([cuda:0] * {DIST_SHARDS})"]
+    v0, c0 = tb.c0
+    for name, fn, want, kernel in (
+            ("count_where_sharded(configs[0], lt, 256)", lambda: dist_query.count_where_sharded(c0, "lt", 256, four),
+             int((v0 < 256).sum()), "filter_fold"),
+            ("sum_sharded(configs[0])", lambda: dist_query.sum_sharded(c0, four), int(v0.sum(dtype=np.int64)),
+             "agg_fold"),
+            ("min_sharded(configs[0])", lambda: dist_query.min_sharded(c0, four), int(v0.min()), "agg_fold")):
+        per_shard(name, drive(name, f"dist_query on {four!r} vs NumPy", lambda: fn() == want),
+                  {kernel: DIST_SHARDS})
+    supp, qty = tb.li["l_suppkey"], tb.li["l_quantity"]
+    skeys = np.unique(supp.values)
+    want_g = group_oracle(np.searchsorted(skeys, supp.values), qty.values, skeys.shape[0], 51)
+    name = "group_reduce_sharded(l_suppkey, l_quantity, (count, sum, min, max))"
+    per_shard(name, drive(name, "dist_query.group_reduce_sharded vs NumPy", lambda: same_group(
+        dist_query.group_reduce_sharded(supp.col, qty.col, AGGS, mesh=four), skeys, want_g)),
+        {"lmp_unpack": 2 * DIST_SHARDS})
+    ok = tb.li["l_orderkey"]
+    want = {k: c * DIST_SHARDS for k, c in twin_launches(lambda: aggregate.sum_(ok.col, device=CUDA)).items()}
+    per_shard("sum_sharded(l_orderkey, wide)", drive("sum_sharded(l_orderkey, wide)", "dist_query.sum_sharded vs NumPy",
+              lambda: dist_query.sum_sharded(ok.col, four) == int(ok.values.sum(dtype=np.int64))), want)
+    cust, customer, orders = tb.cust, tb.customer, tb.orders
+    building = customer.filter(("c_mktsegment", "eq", "BUILDING"))
+    bkeys = cust["c_custkey"][cust["c_mktsegment"] == "BUILDING"]
+    li_w, ri_w = join_pairs(tb.od["o_custkey"].values, bkeys, "inner")
+
+    def join_ok(mesh) -> bool:
+        r = orders.join("o_custkey", building, "c_custkey", select=["o_custkey"], other_select=[], mesh=mesh)
+        return np.array_equal(r[1], li_w) and np.array_equal(r[2], ri_w)
+
+    # the two prunes run once a shard; the key takes and the host merge after them stay on one device
+    with counted_prunes() as pruned:
+        total = twin_launches(lambda: check(join_ok(None), "orders.join(BUILDING): the single-GPU twin is wrong"))
+    prune_one, rest_one = dict(pruned), {k: c - pruned.get(k, 0) for k, c in total.items() if c > pruned.get(k, 0)}
+    name = f"orders.join(BUILDING, mesh={four!r})"
+    with counted_prunes() as pruned:
+        launched = drive(name, "Table.join(mesh=...) pairs vs a NumPy sort-merge", lambda: join_ok(four))
+    prune_four = dict(pruned)
+    rest_four = {k: c - pruned.get(k, 0) for k, c in launched.items() if c > pruned.get(k, 0)}
+    check(bool(prune_one) and rest_four == rest_one
+          and prune_four == {k: c * DIST_SHARDS for k, c in prune_one.items()},
+          f"{name}: prunes launched {prune_four}, the rest {rest_four}; single-GPU prunes {prune_one}, rest {rest_one}")
+    print(f"[dist] orders.join(BUILDING, mesh=...): exact, {li_w.size} pairs; launches {launched}: the prunes "
+          f"{prune_four}, once a shard as the single-GPU call's {prune_one}, the key takes {rest_four} as its")
+    ds = Dataset.open(f"{DATASET_DIR[0].name}/lineitem", device=CUDA)
+    q25 = int(ok.values[LINEITEM_N // 4])
+    want_n = int((ok.values < q25).sum())
+    want = {k: c * DIST_SHARDS for k, c in twin_launches(lambda: check(
+        ds.count(("l_orderkey", "lt", q25)) == want_n, "lineitem dataset count: the single-GPU twin is wrong")).items()}
+    name = f"lineitem dataset count(l_orderkey lt {q25}, mesh=...)"
+    per_shard(name, drive(name, "Dataset.count(mesh=...) vs NumPy",
+                          lambda: ds.count(("l_orderkey", "lt", q25), mesh=four) == want_n), want)
+    dist_query._ARGS_CACHE.clear()
+    torch.cuda.empty_cache()
+    print(f"[dist] the phase's main paths: {time.perf_counter() - t0:.1f} s")
+
+
+def drill_worker(rank: int, port: int, results) -> None:
+    """One rank of the two-rank drill on cuda:0: torch.distributed over
+    gloo, host_chip_mesh(2, 2) of the one card, so two shards a rank. Each
+    rank checks its shards of an nbit, dict, rle and patched column at
+    2^24 against the input on the card, with two launches of the column's
+    kernel, and one count all-reduced across the ranks."""
+    import torch.distributed as tdist
+
+    from giddy_tpu_torch import dist, dist_query
+
+    try:
+        torch.cuda.set_device(0)
+        tdist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=2, rank=rank)
+        mesh, axes = dist.host_chip_mesh(2, 2, [torch.device("cuda", 0)] * 4)
+        lines = []
+        for i, scheme in enumerate(DRILL_SCHEMES):
+            v = gen_column(scheme, DRILL_N, np.random.default_rng(40 + i))
+            col = gtt.encode(v, scheme, name=f"drill_{scheme}")
+            fn, args = dist.build_sharded_decoder(col, mesh, axes)
+            kernels.reset_launches()
+            outs = fn(*args)
+            torch.cuda.synchronize()
+            launched = {k: c for k, c in kernels.launches().items() if c}
+            check(launched == {DRILL_KERNELS[scheme]: 2}, f"drill {scheme} rank {rank}: launched {launched}")
+            for g0, u in outs:
+                rows = min(col.n - g0 * GROUP, u.numel())
+                check(same_on_card(u[:rows].view(torch.int32), v[g0 * GROUP : g0 * GROUP + rows].view(np.int32)),
+                      f"drill {scheme} rank {rank} shard at group {g0}")
+            lines.append(f"{scheme} groups {[g0 for g0, _ in outs]} exact, launches {launched}")
+            if scheme == "nbit":
+                count = dist_query.count_where_sharded(col, "lt", int(np.median(v)), mesh, axes)
+                check(count == int((v < int(np.median(v))).sum()), f"drill all-reduced count rank {rank}")
+                lines.append(f"count_where_sharded all-reduced {count} exact")
+        tdist.barrier()
+        tdist.destroy_process_group()
+        results.put((rank, "; ".join(lines)))
+    except BaseException as e:  # the parent reports it and fails
+        results.put((rank, f"FAILED: {type(e).__name__}: {e}"))
+
+
+def dist_drill() -> None:
+    """The two-rank gloo drill (drill_worker) in two spawned processes."""
+    import multiprocessing
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=drill_worker, args=(r, port, results)) for r in range(2)]
+    for p in procs:
+        p.start()
+    try:
+        got = dict(results.get(timeout=300) for _ in procs)
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+    for rank in (0, 1):
+        check(not got[rank].startswith("FAILED") and all(p.exitcode == 0 for p in procs), f"drill rank {rank}: {got[rank]}")
+        print(f"[dist] two-rank gloo drill, rank {rank} (2 shards on cuda:0): {got[rank]}")
+    print(f"[dist] two-rank gloo drill: passed in {time.perf_counter() - t0:.1f} s (two processes, start-up included)")
+
+
+def time_dist(tb: Tables, container: list, smi: str) -> None:
+    """Phase 5 for the dist phase: each sharded call's host-clock ms beside
+    the single-GPU call's (medians of 5 for the decode, 3 for the scans).
+    The scans' placements are cached
+    (dist_query), so each sharded scan is timed with its cache kept and
+    with it cleared before every run (placed anew, as the single-GPU call
+    uploads every time)."""
+    from giddy_tpu_torch import dist, dist_query
+    from giddy_tpu_torch.dataset import Dataset
+
+    t0 = time.perf_counter()
+    meshes = dist_meshes()
+    cols = [col for _, col in container]
+    one = host_ms(lambda: gtt.decode_columns(cols, device=CUDA), runs=5)
+    for label, mesh in meshes.items():
+        ms = host_ms(lambda: dist.decode_columns_sharded(cols, mesh), runs=5)
+        print(f"[time] dist configs[4] 4 x 2^26 decode_columns_sharded on {label} on {smi}: {ms:.3f} ms; "
+              f"single-GPU decode_columns {one:.3f} ms (host clock, medians of 5)")
+    c0 = tb.c0[1]
+    ok, supp, qty = tb.li["l_orderkey"].col, tb.li["l_suppkey"].col, tb.li["l_quantity"].col
+    customer, orders = tb.customer, tb.orders
+    building = customer.filter(("c_mktsegment", "eq", "BUILDING"))
+    ds = Dataset.open(f"{DATASET_DIR[0].name}/lineitem", device=CUDA)
+    q25 = int(tb.li["l_orderkey"].values[LINEITEM_N // 4])
+    cells = [
+        ("count_where configs[0] lt 256", lambda m: dist_query.count_where_sharded(c0, "lt", 256, m),
+         lambda: query.count_where(c0, "lt", 256, device=CUDA)),
+        ("sum configs[0]", lambda m: dist_query.sum_sharded(c0, m), lambda: aggregate.sum_(c0, device=CUDA)),
+        ("min configs[0]", lambda m: dist_query.min_sharded(c0, m), lambda: aggregate.min_(c0, device=CUDA)),
+        ("group_reduce(l_suppkey, l_quantity, 4 aggs)", lambda m: dist_query.group_reduce_sharded(supp, qty, AGGS, mesh=m),
+         lambda: groupby.group_reduce(supp, qty, AGGS, device=CUDA)),
+        ("sum l_orderkey (wide)", lambda m: dist_query.sum_sharded(ok, m), lambda: aggregate.sum_(ok, device=CUDA)),
+        ("orders.join(BUILDING)", lambda m: orders.join("o_custkey", building, "c_custkey", select=["o_custkey"],
+                                                        other_select=[], mesh=m),
+         lambda: orders.join("o_custkey", building, "c_custkey", select=["o_custkey"], other_select=[])),
+        (f"lineitem dataset count(l_orderkey lt {q25})", lambda m: ds.count(("l_orderkey", "lt", q25), mesh=m),
+         lambda: ds.count(("l_orderkey", "lt", q25))),
+    ]
+    for what, sharded, single in cells:
+        one = host_ms(single, runs=3)
+        out = []
+        for label, mesh in meshes.items():
+            kept = host_ms(lambda: sharded(mesh), runs=3)
+            anew = host_ms(lambda: (dist_query._ARGS_CACHE.clear(), sharded(mesh)), runs=3)
+            out.append(f"on {label} {kept:.3f} ms placements cached, {anew:.3f} ms placed anew")
+        print(f"[time] dist {what} on {smi}: sharded {'; '.join(out)}; single-GPU {one:.3f} ms "
+              f"(host clock, medians of 3)")
+    dist_query._ARGS_CACHE.clear()
+    torch.cuda.empty_cache()
+    print(f"[time] dist: the phase's timings took {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     smi = environment()
     build()
@@ -2468,6 +2733,8 @@ def main() -> int:
     timings.update(time_encode({label: (v, col) for label, v, col in cols}, smi))
     time_analytic(li, od, smi)
     time_tables(tables, smi)
+    dist_drill()
+    time_dist(tables, container, smi)
     for d in DATASET_DIR:
         d.cleanup()
     for name, count in counts.items():

@@ -17,13 +17,16 @@ and the bitmap algebra) and aggregates (``aggregate.sum_`` / ``min_`` /
 the layout ops (``layout``), the ``Table`` API (``table``), joins
 (``join``), partitioned datasets (``dataset``), streamed decode
 (``stream``), the scheme advisor (``advisor``, ``encode(v, "auto")``), the
-command line (``cli``) and a selftest (``selftest``). Every entry point
-runs on the card unless the caller asks for ``device="cpu"``.
+command line (``cli``), a selftest (``selftest``), and the sharded layer
+over a mesh of one or more GPUs (``dist.Mesh``, ``dist.decode_sharded``,
+the ``dist_query`` scans, ``mesh=`` on joins and datasets). Every entry
+point runs on the card unless the caller asks for ``device="cpu"`` (or
+passes a mesh of CPU devices).
 """
 
 from . import (
-    advisor, aggregate, datagen, dataset, groupby, join, layout, nulls, partial, query, scan, stream, strings, table,
-    topk, wide, zonemap,
+    advisor, aggregate, datagen, dataset, dist, dist_query, groupby, join, layout, nulls, partial, query, scan, stream,
+    strings, table, topk, wide, zonemap,
 )
 from .api import decode, decode_columns, decode_ref, device_streams, encode, get_decoder, narrow_store_dtype, upload
 from .dataset import Dataset
@@ -57,6 +60,8 @@ __all__ = [
     "decode_masked",
     "decode_ref",
     "device_streams",
+    "dist",
+    "dist_query",
     "encode",
     "from_reference",
     "get",

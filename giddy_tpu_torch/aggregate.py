@@ -37,7 +37,7 @@ from .groupby import group_count, key_values
 from .kernels import lanes
 from .kernels.agg import agg_fold
 from .query import FUSED, _host_key_u32
-from .util import GROUP, np_dtype, num_groups, u32_to_dtype
+from .util import GROUP, check_device_addressable, np_dtype, num_groups, u32_to_dtype
 
 
 def _key_unmap_host(key: int, dtype: str):
@@ -55,14 +55,21 @@ def _key_unmap_host(key: int, dtype: str):
     return int(u)
 
 
-def _run(col: EncodedColumn, agg: str, device: torch.device) -> tuple:
+def _run(col: EncodedColumn, agg: str, device: torch.device, streams: dict | None = None) -> tuple:
     """The (ng, LANES) partials of ``agg`` (lanes.slot_fold): K17 for the
     fused schemes, the column's decoder and the slot fold otherwise. Null
     rows drop out of the sum; min/max read the canonical fill, which only
-    repeats valid values."""
+    repeats valid values. ``streams``: the column's streams already on
+    ``device`` in device form (a partial.GroupSlicer slice's, validity
+    window included), uploaded here when None."""
+    check_device_addressable(col.n, f"aggregate of {col.name!r}")
+    _check_supported(col)
     dt = np_dtype(col.dtype)
-    valid = nulls.valid_words_device(col, device) if agg == "sum" and nulls.is_nullable(col) else None
-    streams = device_streams(col, device)
+    if streams is None:
+        streams = device_streams(col, device)
+    valid = None
+    if agg == "sum" and nulls.is_nullable(col):
+        valid = streams["valid"] if "valid" in streams else nulls.valid_words_device(col, device)
     if col.scheme in FUSED:
         bits = col.params["bits"] if col.scheme != "dzbf" else 8 * col.params["width"]
         return agg_fold(streams["packed"], streams.get("refs_g"), valid, bits, col.n, dt.kind, dt.itemsize, agg)
@@ -74,7 +81,6 @@ def sum_(col: EncodedColumn, *, device: torch.device | str = "cuda") -> int | fl
     """Exact column sum: Python ints for integer columns, a float64 host sum
     for floats. Nullable columns sum the non-null rows (SQL SUM)."""
     device = _decode_device(device)
-    _check_supported(col)
     dt = np_dtype(col.dtype)
     if col.scheme in ("cascade", "dict") and dt.kind != "f":
         # rows per code (null rows drop out: group_count ANDs the validity
@@ -83,7 +89,8 @@ def sum_(col: EncodedColumn, *, device: torch.device | str = "cuda") -> int | fl
         vals = key_values(col).astype(np.int64)
         return int(sum(int(c) * int(v) for c, v in zip(counts, vals)))
     if dt.kind == "f":
-        v = decode(col, device=device).cpu().numpy()
+        v = decode(col, device=device)  # NumPy already for a column decoded in chunks
+        v = v if isinstance(v, np.ndarray) else v.cpu().numpy()
         if nulls.is_nullable(col):
             v = v[nulls.valid_mask(col)]
         return float(np.sum(v, dtype=np.float64))
@@ -114,7 +121,6 @@ def _minmax(col: EncodedColumn, agg: str, device: torch.device | str):
     if col.n == 0:  # same contract as the all-null case: no valid rows
         raise ValueError(f"{agg} of an empty column")
     device = _decode_device(device)
-    _check_supported(col)
     if nulls.is_nullable(col) and nulls.count_valid(col) == 0:
         raise ValueError(f"{agg} of an all-null column")
     dt = np_dtype(col.dtype)

@@ -23,9 +23,9 @@ from . import kernels as _kernels  # noqa: F401  (installs device decoders)
 from . import ref as _ref  # noqa: F401  (installs host codecs)
 from . import strings as _strings  # noqa: F401  (installs the string-dictionary scheme)
 from . import wide as _wide  # noqa: F401  (installs the 64-bit plane wrapper)
-from . import registry
+from . import registry, util
 from .format import EncodedColumn
-from .util import check_device_addressable
+from .util import GROUP, check_device_addressable, num_groups
 
 _DECODER_CACHE: dict[tuple, object] = {}
 
@@ -145,14 +145,38 @@ def _decode_device(device: torch.device | str) -> torch.device:
     return device
 
 
+def _decode_chunked(col: EncodedColumn, *, pad: bool, device: torch.device) -> np.ndarray:
+    """Decode of a column past the single-call addressing limit
+    (giddy_tpu/api.py:105-129): group chunks of half the limit through
+    partial.GroupSlicer, each an independent decode on ``device``,
+    assembled on the host (a decoded column of 2^31 values or more would
+    not fit one device buffer anyway). Wide columns chunk each plane and
+    recombine on the host."""
+    from .partial import GroupSlicer
+
+    if col.scheme == "wide":
+        lo = _decode_chunked(_wide._sub(col, "lo"), pad=pad, device=device)
+        hi = _decode_chunked(_wide._sub(col, "hi"), pad=pad, device=device)
+        return _wide._combine(lo.view(np.uint32), hi.view(np.uint32), col.dtype)
+    ng = num_groups(col.n)
+    chunk = max(1, (util.MAX_DEVICE_ELEMS // GROUP) // 2)
+    slicer = GroupSlicer(col, device=device)
+    out = np.concatenate([slicer.decode(g0, min(g0 + chunk, ng)) for g0 in range(0, ng, chunk)])
+    return np.pad(out, (0, ng * GROUP - col.n)) if pad else out
+
+
 def decode(col: EncodedColumn, *, device: torch.device | str = "cuda", pad: bool = False):
     """Decode a column on ``device`` (the card unless ``"cpu"`` is asked).
 
     Returns a tensor of the column's logical dtype on that device, of
     length n, or n_pad (whole groups) when ``pad=True``; a wide column's is
     int64, uint64 or float64. A strdict column returns the NumPy object
-    array of its strings (``pad`` does not apply)."""
+    array of its strings (``pad`` does not apply). A column whose padded
+    length reaches ``util.MAX_DEVICE_ELEMS`` decodes in group chunks on
+    ``device`` and returns a NumPy array (the reference's behaviour)."""
     device = _decode_device(device)
+    if col.scheme != "strdict" and num_groups(col.n) * GROUP >= util.MAX_DEVICE_ELEMS:
+        return _decode_chunked(col, pad=pad, device=device)
     _check_supported(col)
     if col.scheme == "strdict":
         return _strings.decode(col, device=device)

@@ -14,9 +14,9 @@ Table scan lifts to the dataset:
 - GROUP BY merges per-partition results by key on the host.
 
 A Dataset lives on one device (the card unless opened or written with
-``device="cpu"``), and so do the Tables of its partitions. The sharded
-scans (the reference's ``mesh=``) wait for the port's multi-GPU layer
-(ROADMAP.md queue 1, item 8).
+``device="cpu"``), and so do the Tables of its partitions; ``count`` and
+``agg`` take ``mesh=`` (dist.Mesh) to spread one partition's groups over
+several devices (dist_query).
 """
 
 from __future__ import annotations
@@ -303,10 +303,11 @@ class Dataset:
 
     # --- scans ------------------------------------------------------------
 
-    def count(self, *predicates) -> int:
+    def count(self, *predicates, mesh=None) -> int:
         """Rows matching the AND of (name, op, value) predicates. Skipped
         partitions cost nothing; proven-all ones a manifest lookup (unless
-        a predicate column is nullable there: null rows never match)."""
+        a predicate column is nullable there: null rows never match). With
+        ``mesh``, each scanned partition's predicates run sharded."""
         if not predicates:
             return len(self)
         total = 0
@@ -316,12 +317,32 @@ class Dataset:
             if verdict == "all" and not self._nullable_involved(i, predicates):
                 total += self.manifest["partitions"][i]["rows"]
                 continue
-            total += self.part(i).count(*predicates)
+            if mesh is not None:
+                total += self._count_sharded(i, predicates, mesh)
+            else:
+                total += self.part(i).count(*predicates)
         return total
 
-    def agg(self, name: str, agg: str):
+    def _count_sharded(self, i: int, predicates, mesh) -> int:
+        from .dist_query import filter_bitmap_sharded
+        from .query import count_bits
+        from .strings import filter_bitmap_str_sharded
+
+        t = self.part(i)
+        if any(op in ("between", "isin") for _, op, _ in predicates):
+            return t.count(*predicates)  # compound ops: the single-GPU path
+        bm = None
+        for name, op, value in predicates:
+            col = t[name]
+            fb = filter_bitmap_str_sharded if col.scheme == "strdict" else filter_bitmap_sharded
+            b = fb(col, op, value, mesh)
+            bm = b if bm is None else bm & b
+        return count_bits(bm, t.n)
+
+    def agg(self, name: str, agg: str, *, mesh=None):
         """sum/min/max/avg/count/distinct across all partitions; min/max of
-        numeric columns from the manifest zones (exact)."""
+        numeric columns from the manifest zones (exact). With ``mesh``,
+        each partition's sum folds sharded."""
         from .table import _distinct_values
 
         parts = self.manifest["partitions"]
@@ -335,11 +356,15 @@ class Dataset:
             rs = [self.part(i).agg(name, agg) for i in range(len(parts))]
             rs = [r for r in rs if r is not None]
             return (min(rs) if agg == "min" else max(rs)) if rs else None
+        if agg == "sum" and mesh is not None:
+            from .dist_query import sum_sharded
+
+            return sum(sum_sharded(self.part(i)[name], mesh) for i in range(len(parts)))
         if agg in ("count", "sum"):
             return sum(self.part(i).agg(name, agg) for i in range(len(parts)))
         if agg == "avg":
             cnt = self.agg(name, "count")
-            return float(self.agg(name, "sum")) / cnt if cnt else float("nan")
+            return float(self.agg(name, "sum", mesh=mesh)) / cnt if cnt else float("nan")
         if agg == "distinct":
             seen: set = set()
             for i in range(len(parts)):

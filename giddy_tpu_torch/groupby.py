@@ -151,23 +151,35 @@ def _run_device(keys, vals, bitmap, device, *, want_count: bool, want_sum: bool,
     """One pass over the key codes (and the decoded measure): a dict of
     (d + 1,) host partials, bucket d the dropped rows."""
     from .api import device_streams, get_decoder
+
+    seg = _segments(keys, bitmap, device)
+    u = None
+    if vals is not None and (want_sum or want_minmax):
+        u = get_decoder(vals)(device_streams(vals, device))
+    parts = _fold(seg, u, vals.dtype if vals is not None else None, keys.params["dict_size"],
+                  want_count=want_count, want_sum=want_sum, want_minmax=want_minmax)
+    return {k: t.cpu().numpy() for k, t in parts.items()}
+
+
+def _fold(seg: torch.Tensor, u: torch.Tensor | None, dtype: str | None, d: int, *, want_count: bool,
+          want_sum: bool, want_minmax: bool) -> dict:
+    """The (d + 1,) device partials of one pass: row counts, int64 sums
+    and order-key extremes of the measure payloads ``u`` (None: counts
+    only) over the buckets ``seg``."""
     from .kernels import lanes
 
-    d = keys.params["dict_size"]
-    seg = _segments(keys, bitmap, device)
     parts = {}
     if want_count:
         parts["count"] = _bucket_sum(seg, torch.ones_like(seg), d)
-    if vals is not None and (want_sum or want_minmax):
-        dt = np_dtype(vals.dtype)
-        u = get_decoder(vals)(device_streams(vals, device))
+    if u is not None:
+        dt = np_dtype(dtype)
         if want_sum:
             parts["sum"] = _bucket_sum(seg, _value_i64(u, dt.kind, dt.itemsize), d)
         if want_minmax:
             k = lanes.order_key(u, dt.kind, dt.itemsize)
             parts["min"] = _bucket_extreme(seg, k, d, "min")
             parts["max"] = _bucket_extreme(seg, k, d, "max")
-    return {k: t.cpu().numpy() for k, t in parts.items()}
+    return parts
 
 
 def _unmap_keys_host(k: np.ndarray, dtype: str) -> np.ndarray:

@@ -13,9 +13,9 @@ Counterpart of giddy_tpu/join.py, in two parts as there:
 Pairs are left-major: ordered by ``li``, and one left row's right
 partners in original right order; outer rows follow the left-major block.
 Floats match on bit patterns (-0.0 does not join +0.0; NaNs join equal
-payloads), and null keys never match. The sharded prune (the reference's
-``mesh=``) waits for the port's multi-GPU layer (ROADMAP.md queue 1,
-item 8).
+payloads), and null keys never match. With ``mesh=`` both prunes run shard
+by shard over a device mesh (dist_query.isin_bitmap_sharded), the O(n) part
+of a join scaling with the decode.
 """
 
 from __future__ import annotations
@@ -27,9 +27,20 @@ from .format import EncodedColumn
 from .table import Table, _bitmap_indices, _distinct_values
 
 
-def _match_bitmap(col: EncodedColumn, values, device: torch.device | str) -> torch.Tensor:
+def _match_bitmap(col: EncodedColumn, values, device: torch.device | str, mesh=None) -> torch.Tensor:
     """Null-aware membership bitmap of ``col`` in ``values`` on ``device``
-    (dictionary-backed columns rewrite over their dictionary)."""
+    (dictionary-backed columns rewrite over their dictionary). With a mesh
+    the scan runs sharded (dist_query), its bitmap on the mesh's first
+    device."""
+    if mesh is not None:
+        from .dist_query import isin_bitmap_sharded
+
+        if col.scheme == "strdict":
+            from .groupby import _codes_device_column
+            from .strings import code_set
+
+            return isin_bitmap_sharded(_codes_device_column(col), code_set(col, values), mesh)
+        return isin_bitmap_sharded(col, values, mesh)
     if col.scheme == "strdict":
         from .strings import isin_bitmap_str
 
@@ -74,16 +85,16 @@ def _common_key_dtype(a: np.ndarray, b: np.ndarray):
     return ct
 
 
-def join_indices(left: EncodedColumn, right: EncodedColumn, *, how: str = "inner",
+def join_indices(left: EncodedColumn, right: EncodedColumn, *, mesh=None, how: str = "inner",
                  device: torch.device | str = "cuda"):
     """Row-index pairs (li, ri), int64 NumPy, of the equi-join ``left ==
-    right``, the prunes on ``device``. ``how="left"`` also emits every
-    unmatched left row (null keys included) once with ``ri = -1``;
-    ``how="outer"`` also appends every unmatched right row once with
-    ``li = -1``, after the left-major block."""
+    right``, the prunes on ``device``, or sharded over ``mesh``.
+    ``how="left"`` also emits every unmatched left row (null keys
+    included) once with ``ri = -1``; ``how="outer"`` also appends every
+    unmatched right row once with ``li = -1``, after the left-major block."""
     if how not in ("inner", "left", "outer"):
         raise ValueError(f"how must be 'inner', 'left' or 'outer', got {how!r}")
-    li, ri = _inner_indices(left, right, device)
+    li, ri = _inner_indices(left, right, device, mesh)
     if how == "inner":
         return li, ri
     unmatched = np.setdiff1d(np.arange(left.n, dtype=np.int64), li)
@@ -98,12 +109,12 @@ def join_indices(left: EncodedColumn, right: EncodedColumn, *, how: str = "inner
     return li_all, ri_all
 
 
-def _inner_indices(left: EncodedColumn, right: EncodedColumn, device: torch.device | str):
+def _inner_indices(left: EncodedColumn, right: EncodedColumn, device: torch.device | str, mesh=None):
     right_set = _distinct_values(right, device)
     if not right_set:
         e = np.empty(0, np.int64)
         return e, e
-    li = _bitmap_indices(_match_bitmap(left, right_set, device), left.n)
+    li = _bitmap_indices(_match_bitmap(left, right_set, device, mesh), left.n)
     if li.size == 0:
         return li, np.empty(0, np.int64)
     lk = _take_keys(left, li, device)
@@ -116,7 +127,7 @@ def _inner_indices(left: EncodedColumn, right: EncodedColumn, device: torch.devi
         probe_vals = [bytes(v)[:-1] for v in np.unique(lk)]  # the \x01 sentinel off
     else:
         probe_vals = [int(v) for v in np.unique(lk)]
-    ri = _bitmap_indices(_match_bitmap(right, probe_vals, device), right.n)
+    ri = _bitmap_indices(_match_bitmap(right, probe_vals, device, mesh), right.n)
     if ri.size == 0:
         return np.empty(0, np.int64), ri
     rk = _take_keys(right, ri, device)
@@ -164,7 +175,7 @@ def anti_join_bitmap(probe: EncodedColumn, build: EncodedColumn, *, device: torc
 
 
 def join_tables(left: Table, on: str, right: Table, right_on: str | None = None,
-                select=None, right_select=None, suffix: str = "_r", *, how: str = "inner"):
+                select=None, right_select=None, suffix: str = "_r", *, mesh=None, how: str = "inner"):
     """Materialized equi-join of two Tables, on the left Table's device.
 
     Returns ``(rows, li, ri)``: a dict of joined output columns (left
@@ -172,9 +183,10 @@ def join_tables(left: Table, on: str, right: Table, right_on: str | None = None,
     collision) and the row-index pairs. ``select`` defaults to all left
     columns, ``right_select`` to all right columns but the key. Unmatched
     outer cells hold placeholder values: mask with ``ri >= 0`` (left join)
-    or ``li >= 0`` (right-only rows of an outer join)."""
+    or ``li >= 0`` (right-only rows of an outer join). ``mesh``: the
+    prunes run sharded over it."""
     right_on = on if right_on is None else right_on
-    li, ri = join_indices(left[on], right[right_on], how=how, device=left.device)
+    li, ri = join_indices(left[on], right[right_on], mesh=mesh, how=how, device=left.device)
     select = left.names if select is None else list(select)
     if right_select is None:
         right_select = [nm for nm in right.names if nm != right_on]
@@ -214,13 +226,13 @@ def _take_valid(tbl: Table, nm: str, idx: np.ndarray) -> np.ndarray:
 
 def join_table(left: Table, on: str, right: Table, right_on: str | None = None,
                select=None, right_select=None, suffix: str = "_r", *,
-               how: str = "inner", schemes=None) -> Table:
+               mesh=None, how: str = "inner", schemes=None) -> Table:
     """Materialized equi-join as an encoded Table on the left Table's
     device: unmatched outer cells, and source nulls, are encoded NULL rows
     (validity bitmaps), so the result round-trips through the container.
     ``schemes`` pins encode schemes per output column (advisor otherwise)."""
     right_on = on if right_on is None else right_on
-    li, ri = join_indices(left[on], right[right_on], how=how, device=left.device)
+    li, ri = join_indices(left[on], right[right_on], mesh=mesh, how=how, device=left.device)
     select = left.names if select is None else list(select)
     if right_select is None:
         right_select = [nm for nm in right.names if nm != right_on]

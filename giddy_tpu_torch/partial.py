@@ -38,7 +38,10 @@ class GroupSlicer:
     """Per-column cache of the dist-form rewrite; slices group ranges and
     decodes them on ``device``."""
 
-    def __init__(self, col: EncodedColumn, *, device: torch.device | str = "cuda"):
+    def __init__(self, col: EncodedColumn, *, device: torch.device | str = "cuda", patches: bool = True):
+        """``patches=False`` leaves a patched or alp column's exceptions out
+        of the slices (``self.df.patch_streams`` holds them): the sharded
+        decode (dist.py) writes them on the card itself."""
         from .api import _decode_device
 
         if col.scheme == "wide":
@@ -58,7 +61,7 @@ class GroupSlicer:
             return
         self.df = dist_form(col, 1)
         self._pos = self._val = None
-        if self.df.patch_params and self.df.patch_params["count"]:
+        if patches and self.df.patch_params and self.df.patch_params["count"]:
             self._pos, self._val = self._decode_patches_once()
 
     def _init_dzbv(self) -> None:
@@ -208,13 +211,15 @@ class GroupSlicer:
         u = get_decoder(sub)(self._streams(sub))
         return _to_logical(u, self.col.dtype)[: sub.n].cpu().numpy()
 
-    def _streams(self, sub: EncodedColumn, upload=None) -> dict[str, torch.Tensor]:
-        """A slice's streams on the slicer's device, ready for its decoder
-        (slices skip the registry's prep: they are in device form)."""
-        streams = _device_streams(sub.streams, self.device, upload)
+    def _streams(self, sub: EncodedColumn, upload=None, device: torch.device | None = None) -> dict[str, torch.Tensor]:
+        """A slice's streams on ``device`` (the slicer's by default), ready
+        for its decoder (slices skip the registry's prep: they are in
+        device form)."""
+        device = self.device if device is None else device
+        streams = _device_streams(sub.streams, device, upload)
         if sub.scheme == "alp":  # the slice's exceptions are written after the decode
-            streams.setdefault("patch_pos", torch.zeros(0, dtype=torch.int32, device=self.device))
-            streams.setdefault("patch_val", torch.zeros(0, dtype=torch.int32, device=self.device))
+            streams.setdefault("patch_pos", torch.zeros(0, dtype=torch.int32, device=device))
+            streams.setdefault("patch_val", torch.zeros(0, dtype=torch.int32, device=device))
         return streams
 
 

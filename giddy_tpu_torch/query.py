@@ -36,7 +36,7 @@ from .format import EncodedColumn
 from .kernels import lanes
 from .kernels.filter_ import OPS, filter_fold
 from .ref.lmp import lmp_unpack
-from .util import GROUP, LANES, NP_CMP, SLOTS, np_dtype, num_groups
+from .util import GROUP, LANES, NP_CMP, SLOTS, check_device_addressable, np_dtype, num_groups
 
 # Schemes that K16 scans from their packed words.
 FUSED = ("nbit", "dzbf", "for")
@@ -188,6 +188,7 @@ def filter_bitmap(col: EncodedColumn, op: str, value, *, device: torch.device | 
     if op not in OPS:
         raise ValueError(f"op must be one of {OPS}, got {op!r}")
     device = _decode_device(device)
+    check_device_addressable(col.n, f"scan of {col.name!r}")
     _check_supported(col)
     valid = None
     if nulls.is_nullable(col):
@@ -294,31 +295,36 @@ def count_between(col: EncodedColumn, lo, hi, *, device: torch.device | str = "c
     return count_bits(between_bitmap(col, lo, hi, device=device), col.n)
 
 
-def isin_bitmap(col: EncodedColumn, values, *, device: torch.device | str = "cuda") -> torch.Tensor:
+def isin_bitmap(col: EncodedColumn, values, *, device: torch.device | str = "cuda",
+                streams: dict | None = None) -> torch.Tensor:
     """Bitmap of membership in a value set. Up to 8 values OR eq scans;
     larger sets run one binary search of each decoded payload in the
     sorted staged set; wide columns always search their (hi, lo) pairs.
     Floats match in bit-pattern space (-0.0 does not match +0.0; NaNs
-    match equal-payload NaNs)."""
+    match equal-payload NaNs). ``streams`` as in filter_bitmap (32-bit
+    columns)."""
     device = _decode_device(device)
     _check_supported(col)
     if col.scheme == "wide":
         return _isin_searched_wide(col, values, device)
+    return isin_apply(col, isin_terms(col, values), device, streams)
+
+
+def isin_terms(col: EncodedColumn, values):
+    """A 32-bit column's membership set as isin_bitmap scans it, staged on
+    the host once: ("eq", up to 8 scalars) for an OR of eq scans,
+    ("search", the _staged_set_u32 table) beyond, None for an empty set."""
     dt = np_dtype(col.dtype)
     if dt.kind == "f":
         fv = np.asarray(np.asarray(values, dtype=object).reshape(-1), np.float32)
         u, ix = np.unique(fv.view(np.uint32), return_index=True)
         if u.size == 0:
-            return _zeros(col, device)
+            return None
         if u.size > 8:
-            return _isin_searched(col, [int(x) for x in u], device)
-        acc = None
-        for i in np.sort(ix):
-            # the float32 scalar itself: a Python float would quiet a
-            # signaling NaN, unlike the searched path's raw bit patterns
-            bm = filter_bitmap(col, "eq", fv[i], device=device)
-            acc = bm if acc is None else acc | bm
-        return acc
+            return "search", _staged_set_u32(col.dtype, [int(x) for x in u])
+        # the float32 scalars themselves: a Python float would quiet a
+        # signaling NaN, unlike the searched path's raw bit patterns
+        return "eq", [fv[i] for i in np.sort(ix)]
     vals = list(dict.fromkeys(int(v) for v in np.asarray(values).reshape(-1)))
     if dt.itemsize < 4 and vals:
         # drop values the logical dtype cannot represent -- the rule of
@@ -327,12 +333,25 @@ def isin_bitmap(col: EncodedColumn, values, *, device: torch.device | str = "cud
         lo, hi = (-(1 << (bits - 1)), (1 << (bits - 1)) - 1) if dt.kind == "i" else (0, (1 << bits) - 1)
         vals = [v for v in vals if lo <= v <= hi]
     if not vals:
-        return _zeros(col, device)
+        return None
     if len(vals) > 8:
-        return _isin_searched(col, vals, device)
-    acc = filter_bitmap(col, "eq", vals[0], device=device)
-    for v in vals[1:]:
-        acc = acc | filter_bitmap(col, "eq", v, device=device)
+        return "search", _staged_set_u32(col.dtype, vals)
+    return "eq", vals
+
+
+def isin_apply(col: EncodedColumn, terms, device: torch.device, streams: dict | None = None,
+               table: torch.Tensor | None = None) -> torch.Tensor:
+    """The membership bitmap of isin_terms' set on ``device``; ``table``:
+    the search table already there (int64, as _isin_searched uploads it)."""
+    if terms is None:
+        return _zeros(col, device)
+    kind, x = terms
+    if kind == "search":
+        return _isin_searched(col, x, device, streams, table)
+    acc = None
+    for v in x:
+        bm = filter_bitmap(col, "eq", v, device=device, streams=streams)
+        acc = bm if acc is None else acc | bm
     return acc
 
 
@@ -353,18 +372,21 @@ def _staged_set_u32(dtype: str, vals) -> np.ndarray | None:
     return np.concatenate([staged, np.repeat(staged[-1:], m - staged.size)])
 
 
-def _isin_searched(col: EncodedColumn, vals, device: torch.device) -> torch.Tensor:
-    """Decode, then searchsorted of each payload into the staged set. The
-    search runs on int64 (payload & 0xFFFFFFFF): an int32-carried table
-    would order payloads >= 2^31 as negatives."""
-    staged = _staged_set_u32(col.dtype, vals)
-    if staged is None:
-        return _zeros(col, device)
-    table = torch.from_numpy(staged.astype(np.int64)).to(device)
-    u = get_decoder(col)(device_streams(col, device)).to(torch.int64) & 0xFFFFFFFF
+def _isin_searched(col: EncodedColumn, staged: np.ndarray, device: torch.device, streams: dict | None = None,
+                   table: torch.Tensor | None = None) -> torch.Tensor:
+    """Decode, then searchsorted of each payload into the staged set
+    (_staged_set_u32). The search runs on int64 (payload & 0xFFFFFFFF): an
+    int32-carried table would order payloads >= 2^31 as negatives."""
+    if table is None:
+        table = torch.from_numpy(staged.astype(np.int64)).to(device)
+    if streams is None:
+        streams = device_streams(col, device)
+    u = get_decoder(col)(streams).to(torch.int64) & 0xFFFFFFFF
     pos = torch.searchsorted(table, u).clamp_(max=table.shape[0] - 1)
     bm = lanes.pack_hits((table[pos] == u).view(num_groups(col.n), GROUP))
-    return bm & nulls.valid_words_device(col, device) if nulls.is_nullable(col) else bm
+    if not nulls.is_nullable(col):
+        return bm
+    return bm & (streams["valid"] if "valid" in streams else nulls.valid_words_device(col, device))
 
 
 def _staged_set_u64(dtype: str, values) -> tuple[np.ndarray, np.ndarray] | None:
@@ -404,14 +426,21 @@ def _isin_searched_wide(col: EncodedColumn, values, device: torch.device) -> tor
     staged = _staged_set_u64(col.dtype, values)
     if staged is None:
         return _zeros(col, device)
+    bm = lanes.pack_hits(_wide_search_hits(*wide.plane_payloads(col, device), staged).view(num_groups(col.n), GROUP))
+    return bm & nulls.valid_words_device(col, device) if nulls.is_nullable(col) else bm
+
+
+def _wide_search_hits(lo: torch.Tensor, hi: torch.Tensor, staged: tuple[np.ndarray, np.ndarray]) -> torch.Tensor:
+    """Membership of each (hi, lo) payload pair in a _staged_set_u64 set,
+    searched on the planes' device."""
+    from . import wide
+
     slo, shi = staged
-    table = torch.from_numpy((slo.astype(np.uint64) | (shi.astype(np.uint64) << np.uint64(32))).view(np.int64)).to(device)
-    table = table ^ -(2**63)
-    lo, hi = wide.plane_payloads(col, device)
+    table = torch.from_numpy((slo.astype(np.uint64) | (shi.astype(np.uint64) << np.uint64(32))).view(np.int64))
+    table = table.to(lo.device) ^ -(2**63)
     v = wide.combine_device(lo, hi, "int64") ^ -(2**63)
     pos = torch.searchsorted(table, v).clamp_(max=table.shape[0] - 1)
-    bm = lanes.pack_hits((table[pos] == v).view(num_groups(col.n), GROUP))
-    return bm & nulls.valid_words_device(col, device) if nulls.is_nullable(col) else bm
+    return table[pos] == v
 
 
 def dict_mask_bitmap(col: EncodedColumn, mask: np.ndarray, *, device: torch.device | str = "cuda") -> torch.Tensor:

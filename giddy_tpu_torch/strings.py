@@ -196,31 +196,51 @@ def _mask_ranges(mask: np.ndarray) -> list[tuple[int, int]]:
     return list(zip(bounds[0::2].tolist(), bounds[1::2].tolist()))
 
 
-def _ranges_bitmap(col: EncodedColumn, ranges, device: torch.device | str) -> torch.Tensor:
+def _ranges_bitmap(col: EncodedColumn, ranges, device: torch.device | str = "cuda", *, sharded: bool = False,
+                   mesh=None, axis="d"):
     """OR of code-range scans over the inner column (query.filter_bitmap).
     The inner column carries the validity words, so every term is already
-    null-masked and the OR stays correct."""
+    null-masked and the OR stays correct. ``sharded=True``: the scans run
+    shard by shard over ``mesh`` (dist_query), and the result is the list
+    of (shard, words) of this process's shards."""
     from .groupby import _codes_device_column
-    from .api import _decode_device
-    from .query import filter_bitmap
 
-    device = _decode_device(device)
     inner = _codes_device_column(col)
     d = col.params["dict_size"]
+    if sharded:
+        from .dist_query import _filter_words
+
+        def scan(op, v):
+            return [w for _, w in _filter_words(inner, op, v, mesh, axis)]
+    else:
+        from .api import _decode_device
+        from .query import filter_bitmap
+
+        device = _decode_device(device)
+
+        def scan(op, v):
+            return [filter_bitmap(inner, op, v, device=device)]
     acc = None
     for s, e in ranges:
         if e - s == 1:
-            bm = filter_bitmap(inner, "eq", s, device=device)
+            bm = scan("eq", s)
         elif s == 0:
-            bm = filter_bitmap(inner, "lt", e, device=device)
+            bm = scan("lt", e)
         elif e == d:
-            bm = filter_bitmap(inner, "ge", s, device=device)
+            bm = scan("ge", s)
         else:
-            bm = filter_bitmap(inner, "ge", s, device=device) & filter_bitmap(inner, "lt", e, device=device)
-        acc = bm if acc is None else acc | bm
+            bm = [a & b for a, b in zip(scan("ge", s), scan("lt", e))]
+        acc = bm if acc is None else [a | b for a, b in zip(acc, bm)]
+    if sharded:
+        from .dist_query import _real
+
+        shards = _real(inner, mesh, axis)
+        if acc is None:
+            acc = [torch.zeros((sh.g1 - sh.g0, LANES), dtype=torch.int32, device=sh.device) for sh in shards]
+        return list(zip(shards, acc))
     if acc is None:
-        acc = torch.zeros((num_groups(col.n), LANES), dtype=torch.int32, device=device)
-    return acc
+        return torch.zeros((num_groups(col.n), LANES), dtype=torch.int32, device=device)
+    return acc[0]
 
 
 def filter_bitmap_str(col: EncodedColumn, op: str, value, *, device: torch.device | str = "cuda") -> torch.Tensor:
@@ -249,6 +269,32 @@ def select_where_str(col: EncodedColumn, op: str, value, *, device: torch.device
     idx = np.flatnonzero(lmp_unpack(words.reshape(num_groups(col.n), LANES), 1, col.n).astype(bool))
     codes = take(codes_column(col), idx, device=device)
     return dictionary(col)[codes.astype(np.int64)]
+
+
+def _str_words(col: EncodedColumn, op: str, value, mesh, axis):
+    from .dist_query import _mesh
+
+    if col.scheme != "strdict":
+        raise ValueError(f"filter_bitmap_str_sharded needs a 'strdict' column, got {col.scheme!r}")
+    mesh = _mesh(mesh, axis)
+    return mesh, _ranges_bitmap(col, _mask_ranges(_dict_mask(col, op, value)), sharded=True, mesh=mesh, axis=axis)
+
+
+def filter_bitmap_str_sharded(col: EncodedColumn, op: str, value, mesh=None, axis="d") -> torch.Tensor:
+    """Sharded twin of filter_bitmap_str: the same code-range rewrite over
+    dist_query's shard-by-shard filter scans; the whole bitmap on the
+    mesh's first device."""
+    from .dist_query import gather_words
+
+    mesh, parts = _str_words(col, op, value, mesh, axis)
+    return gather_words(col.n, mesh, parts)
+
+
+def count_where_str_sharded(col: EncodedColumn, op: str, value, mesh=None, axis="d") -> int:
+    """Sharded string predicate count: one all-reduced scalar."""
+    from .dist_query import count_words
+
+    return count_words(*_str_words(col, op, value, mesh, axis))
 
 
 def isin_bitmap_str(col: EncodedColumn, values, *, device: torch.device | str = "cuda") -> torch.Tensor:

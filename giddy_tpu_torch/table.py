@@ -13,8 +13,7 @@ A Table lives on one device: the card unless it was built with
 ``device="cpu"``; every method runs there, and the Tables a method builds
 (``sort_by``, ``filter``, ``join_table``) stay there. Bitmaps that a
 caller passes in may be tensors or NumPy arrays of the same words. The
-sharded scans (the reference's ``mesh=``) wait for the port's multi-GPU
-layer (ROADMAP.md queue 1, item 8).
+joins take ``mesh=`` (dist.Mesh) to run their prunes sharded.
 """
 
 from __future__ import annotations
@@ -325,22 +324,24 @@ class Table:
         return isin_bitmap(col, list(build_set), device=self.device)
 
     def join(self, on: str, other: "Table", other_on: str | None = None,
-             select=None, other_select=None, suffix: str = "_r", *, how: str = "inner"):
+             select=None, other_select=None, suffix: str = "_r", *, mesh=None, how: str = "inner"):
         """Materialized equi-join (join.join_tables): ``(rows, li, ri)``,
-        the joined output columns and the matched row-index pairs. Null
-        keys never match; ``how`` is "inner", "left" or "outer"."""
+        the joined output columns and the matched row-index pairs (the
+        prunes sharded over ``mesh`` when given). Null keys never match;
+        ``how`` is "inner", "left" or "outer"."""
         from .join import join_tables
 
-        return join_tables(self, on, other, other_on, select, other_select, suffix, how=how)
+        return join_tables(self, on, other, other_on, select, other_select, suffix, mesh=mesh, how=how)
 
     def join_table(self, on: str, other: "Table", other_on: str | None = None,
                    select=None, other_select=None, suffix: str = "_r", *,
-                   how: str = "inner", schemes=None) -> "Table":
+                   mesh=None, how: str = "inner", schemes=None) -> "Table":
         """Like :meth:`join` but an encoded Table, whose unmatched outer
         cells are real NULL rows (join.join_table)."""
         from .join import join_table
 
-        return join_table(self, on, other, other_on, select, other_select, suffix, how=how, schemes=schemes)
+        return join_table(self, on, other, other_on, select, other_select, suffix, mesh=mesh, how=how,
+                          schemes=schemes)
 
     def anti_join(self, name: str, other, other_name: str | None = None) -> torch.Tensor:
         """Bitmap of rows whose non-null ``name`` value has NO match in the

@@ -60,9 +60,10 @@ def num_groups(n: int) -> int:
     return cdiv(max(n, 1), GROUP)
 
 
-# A single device call addresses fewer than 2**31 padded values, as in the
-# reference (giddy_tpu/util.py MAX_DEVICE_ELEMS); larger columns are
-# ROADMAP.md queue 1, item 6.
+# A single device call addresses fewer than 2**31 padded values: the kernels
+# take int32 positions, as in the reference (giddy_tpu/util.py
+# MAX_DEVICE_ELEMS). Larger columns decode in group chunks (api.decode,
+# partial, stream). Read at call time, so a test can lower it.
 MAX_DEVICE_ELEMS = 2**31
 
 NP_CMP = {
@@ -77,8 +78,8 @@ def check_device_addressable(n: int, what: str = "decode") -> None:
     if num_groups(n) * GROUP >= MAX_DEVICE_ELEMS:
         raise NotImplementedError(
             f"{what} of {n} elements exceeds the 2**31 single-call device "
-            "addressing limit; chunked decode is not ported yet (ROADMAP.md "
-            "queue 1, item 6)"
+            "addressing limit (int32 positions); use partial.decode_groups "
+            "or stream.stream_decode to process the column in group chunks"
         )
 
 

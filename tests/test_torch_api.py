@@ -115,8 +115,9 @@ def test_wrappers_reject_bad_arguments(call, exc):
 def test_unported_schemes_dtypes_and_sizes_raise():
     """Every scheme of the reference is ported (wide and strdict decode
     here); what stays refused: an unknown scheme, a 64-bit dtype on a
-    scheme other than wide, n_pad >= 2^31 (the chunked decode) and a device
-    that is neither the card nor the CPU."""
+    scheme other than wide, n_pad >= 2^31 in one device call (decode
+    chunks such a column) and a device that is neither the card nor the
+    CPU."""
     assert gtt.registry.PENDING == {}
     rng = np.random.default_rng(9)
     v = gen_column("wide", 100, rng)
@@ -135,9 +136,9 @@ def test_unported_schemes_dtypes_and_sizes_raise():
     with pytest.raises(NotImplementedError, match="'wide' scheme"):
         gtt.decode(col, device="cpu")
     col = gtt.encode(np.zeros(10, np.int32), "nbit")
-    col.n = 2**31
-    with pytest.raises(NotImplementedError, match="item 6"):
-        gtt.decode(col, device="cpu")
+    col.n = 2**31  # decode takes such a column in chunks (test_torch_bigcolumn.py); one call refuses it
+    with pytest.raises(NotImplementedError, match="addressing limit"):
+        gtt.get_decoder(col)
     with pytest.raises(ValueError, match="no decoder for device"):
         gtt.decode(gtt.encode(np.zeros(10, np.int32), "nbit"), device="meta")
 

@@ -188,8 +188,10 @@ def test_table_join_methods(ref):
     for probe in ("key", "x"):
         assert pl.anti_join(probe, pr, "key").numpy().view(np.uint32).tobytes() == \
             ref["Table.anti_join", probe].tobytes()
-    with pytest.raises(TypeError):  # the sharded prune waits for the multi-GPU layer
-        pl.join("key", pr, mesh=object())
+    # the prunes sharded over a mesh of four CPU shards: the same rows
+    rows, li, ri = pl.join("key", pr, select=["x"], other_select=["s", "x"], mesh=gtt.dist.Mesh([CPU] * 4))
+    same_rows(rows, wrows)
+    assert np.array_equal(li, wli) and np.array_equal(ri, wri)
 
 
 def test_empty_and_mismatched_sides():

@@ -269,7 +269,7 @@ def test_scan_plan_fits_and_keeps_bytes_in_flight(bits, nullable):
 
 def test_scan_entry_points_refuse_what_is_not_ported():
     """select/select_where and wide columns now scan; what stays refused:
-    an unknown op, n_pad >= 2^31 (the chunked decode), the column-vs-column
+    an unknown op, n_pad >= 2^31 (the single-call limit), the column-vs-column
     compare of wide columns and the card where there is none."""
     col = gtt.encode(np.arange(10, dtype=np.int32), "nbit")
     ref = gt.encode(np.arange(10, dtype=np.int32), "nbit")
@@ -288,7 +288,7 @@ def test_scan_entry_points_refuse_what_is_not_ported():
     with pytest.raises(NotImplementedError, match="64-bit"):
         query.count_where_cols(wide, wide, "lt", device="cpu")
     col.n = 2**31
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(NotImplementedError, match="addressing limit"):
         query.filter_bitmap(col, "lt", 3, device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
