@@ -4,7 +4,9 @@ holds each against its plain PyTorch version and the NumPy oracle, drives
 the main paths (single-column ``decode(col, device="cuda")`` at the sizes
 of BASELINE.json configs[0]-[3] plus delta2 and xordelta columns,
 ``scan.group_prefix_sum``, the mixed container of configs[4] through
-``decode_columns``, a cascade (RLE_DICTIONARY) column, model (poly2),
+``decode_columns``, a cascade (RLE_DICTIONARY) column, an rle column at
+the cell of the reference's ``_rank_call`` (K5's rank form; the kernels
+line counts K5's launches by form), model (poly2),
 bitmap and alp columns, alone and through ``decode_columns``, and a dzbv
 column in each of its three stream forms, and beside configs[4] through
 ``decode_columns``), the scan layer (``query.count_where`` /
@@ -331,6 +333,61 @@ def run_checks(rng, n: int) -> None:
         check("pos" in s, f"{scheme} runs ~4 did not reach the scatter form: {list(s)}")
         s = check_kernel(f"{scheme} one run", gtt.encode(one_run, scheme), one_run)
         check("vals_w" in s and s["vals_w"].shape[1] == 1, f"{scheme} one run: {list(s)}")
+    run_table_checks(np.random.default_rng(98), num_groups(n))  # its own seed: the later phases' data stays
+
+
+def edge_run_tables(rng, w_pad: int, tiles: int, ng: int) -> tuple[np.ndarray, np.ndarray]:
+    """(ends_w, vals_w) int32 of ng * tiles tiles of W = GROUP // tiles, in
+    the host prep's form (ends non-decreasing, at most w_pad - 1 below W,
+    the rest W). Row i takes edge case i % 6: random ends, equal ends (the
+    last counted entry among them), ends of 0, no end (an all-pad tile),
+    runs of one (w_pad - 1 ends in 128 positions: more than 32 in one step
+    of a K5 warp), w_pad - 1 consecutive ends across position 1024 (a warp's
+    span edge); the last group is all pad past its middle tile, as a ragged
+    column's."""
+    width = GROUP // tiles
+    ends = np.full((ng * tiles, w_pad), width, np.int64)
+    for i in range(ng * tiles):
+        if i >= (ng - 1) * tiles + tiles // 2:
+            continue
+        case = i % 6
+        if case == 0:
+            real = rng.integers(0, width, rng.integers(0, w_pad))
+        elif case == 1:
+            real = rng.choice([0, 1, width // 2, width // 2 + 1, width - 1], w_pad - 1)
+        elif case == 2:
+            real = np.concatenate([np.zeros(w_pad // 2, np.int64), rng.integers(0, width, w_pad // 2 - 1)])
+        elif case == 3:
+            real = np.zeros(0, np.int64)
+        elif case == 4:
+            real = np.arange(1, w_pad)
+        else:
+            real = min(width - w_pad, max(0, 1024 - w_pad // 2)) + np.arange(w_pad - 1)
+        ends[i, : real.shape[0]] = np.sort(real)
+    vals = rng.integers(0, 2**32, ends.shape, dtype=np.uint64).astype(np.uint32).view(np.int32)
+    return ends.astype(np.int32), vals
+
+
+def run_table_checks(rng, ng: int) -> None:
+    """K5 against its plain version on edge_run_tables over ng groups at
+    every w_pad of both forms (the chain form's 8 and 16, the rank form's
+    32, 64 and 128) and T of 1, 32 and 64 (W of 32768, 1024, 512), at 4-
+    and 1-byte stores, and with a cascade table (codes past its 1000
+    entries clamp) at 2 bytes."""
+    lut = card_words(rng, (1000,))
+    launches = 0
+    for w_pad in (8, 16, 32, 64, 128):
+        for tiles in (1, 32, 64):
+            ends, vals = edge_run_tables(rng, w_pad, tiles, ng)
+            e, v = torch.from_numpy(ends).to(CUDA), torch.from_numpy(vals).to(CUDA)
+            codes = torch.from_numpy((vals.view(np.uint32) % 1200).astype(np.int32)).to(CUDA)
+            for store, table, vv in ((torch.int32, None, v), (torch.uint8, None, v), (torch.int16, lut, codes)):
+                compare(f"K5 edge tables w_pad {w_pad} T {tiles} store {store} table {table is not None}",
+                        "run_expand", rle.run_expand(e, vv, ng, store, table), lanes.run_expand(e, vv, ng, store, table))
+                launches += 1
+    print(f"[kernel] run_expand on edge tables (equal ends, ends of 0, all-pad tiles, runs of one, ends across a "
+          f"warp's span, a padded last group) at w_pad 8..128, T 1/32/64, ng={ng}, stores 4/1 and 2 with a table: "
+          f"{launches} launches bit-exact vs plain")
 
 
 def scan_checks(rng, n: int) -> None:
@@ -1148,12 +1205,12 @@ def same_on_card(out: torch.Tensor, v: np.ndarray) -> bool:
     return out.shape == v.shape and torch.equal(out.view(torch.uint8), torch.from_numpy(v.view(np.uint8)).to(CUDA))
 
 
-def main_path(cols: list, x: torch.Tensor, container: list, casc: tuple, epilogue: list,
-              dz: tuple, scan: dict, analytic: tuple, tables: Tables) -> tuple[dict[str, int], str]:
+def main_path(cols: list, x: torch.Tensor, container: list, casc: tuple, rank: tuple, epilogue: list,
+              dz: tuple, scan: dict, analytic: tuple, tables: Tables) -> tuple[dict[str, int], dict[str, int], str]:
     """Phase 4: each main path -- every column through decode(col,
     device=cuda), scan.group_prefix_sum(x), the configs[4] container
-    through decode_columns(cols, device=cuda), the cascade column through
-    decode, the model, bitmap and alp columns through decode_columns
+    through decode_columns(cols, device=cuda), the cascade column and K5's
+    _rank_call cell through decode, the model, bitmap and alp columns through decode_columns
     together, the dzbv column through decode (the prep's form), in the two
     other forms (the tile and group-row forms through decode of the column
     with those streams, the on-disk planes through its decoder on the
@@ -1161,21 +1218,28 @@ def main_path(cols: list, x: torch.Tensor, container: list, casc: tuple, epilogu
     scan layer's entry points on the ``scan`` columns (scan_main_path) --
     with the launch counts set to 0 just before it and read just after, and
     its output checked against its input (the prefix sum against the plain
-    version on the host). Returns the counts summed over the paths and the
-    dzbv column's prep's form."""
+    version on the host). Returns the counts summed over the paths, K5's
+    counts by form (kernels.form_launches) summed likewise, and the dzbv
+    column's prep's form."""
     totals = dict.fromkeys(KERNELS, 0)
+    forms = dict.fromkeys(kernels.form_launches(), 0)
 
     def drive(label: str, what: str, fn, expect: tuple = ()) -> dict[str, int]:
         kernels.reset_launches()
         ok = fn()
         torch.cuda.synchronize()
         launched = {k: c for k, c in kernels.launches().items() if c}
+        by_form = kernels.form_launches()
         check(ok, f"{label}: {what} is wrong")
         check(bool(launched), f"{label}: no kernel launched")
         check(all(launched.get(k) for k in expect), f"{label}: {expect} not all launched: {launched}")
+        check(sum(by_form.values()) == launched.get("run_expand", 0), f"{label}: K5 forms {by_form} vs {launched}")
         for k, c in launched.items():
             totals[k] += c
-        print(f"[main] {label}: {what} bit-exact; launches {launched}")
+        for k, c in by_form.items():
+            forms[k] += c
+        k5 = f"; K5 by form {by_form}" if launched.get("run_expand") else ""
+        print(f"[main] {label}: {what} bit-exact; launches {launched}{k5}")
         return launched
 
     for label, v, col in cols:
@@ -1197,6 +1261,10 @@ def main_path(cols: list, x: torch.Tensor, container: list, casc: tuple, epilogu
           lambda: container_ok(container))
     v, col = casc
     drive("cascade rle d=8 n=2^26", "decode(col, device=cuda) vs input", lambda: same_on_card(gtt.decode(col, device=CUDA), v))
+    v, col = rank
+    drive(col.name, "decode(col, device=cuda) vs input", lambda: same_on_card(gtt.decode(col, device=CUDA), v),
+          expect=("run_expand",))
+    check(kernels.form_launches()["rank"] >= 1, f"{col.name}: K5 did not take its rank form")
     drive("model + bitmap + alp 3 x 2^26", "decode_columns(cols, device=cuda) vs inputs",
           lambda: container_ok(epilogue))
     v, col = dz
@@ -1218,7 +1286,7 @@ def main_path(cols: list, x: torch.Tensor, container: list, casc: tuple, epilogu
     analytic_main_path(*analytic, drive)
     tables_main_path(tables, drive)
     dist_main_path(tables, container, drive)
-    return totals, picked
+    return totals, forms, picked
 
 
 def scan_main_path(scan: dict, drive) -> None:
@@ -1604,18 +1672,26 @@ def time_container(container: list, smi: str) -> None:
     torch.cuda.empty_cache()
 
 
-def rank_cell(smi: str) -> None:
-    """Phase 5 for K5 at the cell of the reference's _rank_call (runs of
-    ~20, so 16 < w_pad <= 128): 2^26 values, seed 7. Printed only; the
-    kernels line carries K5 at configs[3]."""
+def rank_column() -> tuple[np.ndarray, object]:
+    """K5's cell of the reference's _rank_call: runs of 1-39 over 1000
+    values, 2^26 values, seed 7; the prep picks 16 < w_pad <= 128 (T 32 of
+    w_pad 128)."""
     v = run_column(np.random.default_rng(7), 2**26, 1, 40, vocab=1000)
     col = encoded("rle runs ~20 n=2^26 (_rank_call cell)", v, "rle")
-    streams = gtt.device_streams(col, CUDA)
-    check("vals_w" in streams and rle.RANK_MIN < streams["vals_w"].shape[-1] <= rle.CHAIN_HARD,
-          f"the _rank_call cell missed 16 < w_pad <= 128: {[tuple(t.shape) for t in streams.values()]}")
-    w_pad = streams["vals_w"].shape[-1]
-    del streams
-    time_column(f"rle runs ~20 n=2^26 (_rank_call cell, w_pad {w_pad})", v, col, smi)
+    streams = rle.prep(col, positions=False)
+    check("vals_w" in streams and rle.form(streams["vals_w"].shape[-1]) == "rank",
+          f"the _rank_call cell missed 16 < w_pad <= 128: {[a.shape for a in streams.values()]}")
+    return v, col
+
+
+def rank_cell(rank: tuple, smi: str) -> dict:
+    """Phase 5 for K5 at the _rank_call cell: its timing (time_column), for
+    the run_expand row's rank form, with kernel/bound."""
+    v, col = rank
+    tiles, w_pad = rle.prep(col, positions=False)["vals_w"].shape[1:]
+    _, timing = time_column(f"rle runs ~20 n=2^26 (_rank_call cell, T {tiles}, w_pad {w_pad})", v, col, smi)
+    return {"cell": f"rle runs of 1-39 n=2^26, T {tiles}, w_pad {w_pad}", **timing,
+            "kernel_over_bound": timing["bound_ms"] / timing["ms"]}
 
 
 # -- the analytic phase --------------------------------------------------------
@@ -2711,14 +2787,15 @@ def main() -> int:
     x = scan_input()
     container = container_columns()
     casc = cascade_main()
+    rank = rank_column()
     epilogue = epilogue_columns()
     dz = dzbv_main()
     scan = scan_columns(cols)
     li, od = lineitem_table(), orders_table()
     analytic_kernel_checks(li, od)
     tables = tables_setup(li, od, cols)
-    counts, picked = main_path(cols + epilogue, x, container, casc, [(v, col) for _, v, col in epilogue], dz, scan,
-                               (li, od), tables)
+    counts, forms, picked = main_path(cols + epilogue, x, container, casc, rank, [(v, col) for _, v, col in epilogue],
+                                      dz, scan, (li, od), tables)
     container_without_sync("configs[4]", container)
     container_without_sync("model + bitmap + alp", [(v, col) for _, v, col in epilogue])
     timings = dict(time_column(label, v, col, smi) for label, v, col in cols + epilogue)
@@ -2727,7 +2804,7 @@ def main() -> int:
     timings.update([time_column("configs[4] patched n=2^26", v, col, smi)])
     timings.update([time_column("cascade rle d=8 n=2^26", *casc, smi)])
     time_container(container, smi)
-    rank_cell(smi)
+    rank_timing = rank_cell(rank, smi)
     timings.update(time_dzbv(*dz, picked, smi))
     timings.update(time_scan_layer(scan, smi))
     timings.update(time_encode({label: (v, col) for label, v, col in cols}, smi))
@@ -2739,10 +2816,14 @@ def main() -> int:
         d.cleanup()
     for name, count in counts.items():
         check(count >= 1, f"{name} was launched {count} times on the main path")
+    for form, count in forms.items():
+        check(count >= 1, f"K5's {form} form was launched {count} times on the main path")
+    rank_timing["launches"] = forms["rank"]
+    extra = {"cascade_lut": {"stage_of": "K1/K2/K3/K5/K6/K7"},
+             "run_expand": {"launches_by_form": forms, "rank_form": rank_timing}}
     rows = [
         {"name": name, "route": "cuda", "source": KERNELS[name][3], "replaces": KERNELS[name][2],
-         "launches": counts[name], "max_abs_err": MAX_ABS_ERR[name], **timings[name],
-         **({"stage_of": "K1/K2/K3/K5/K6/K7"} if name == "cascade_lut" else {})}
+         "launches": counts[name], "max_abs_err": MAX_ABS_ERR[name], **timings[name], **extra.get(name, {})}
         for name in KERNELS
     ]
     print(json.dumps({"kernels": rows}))

@@ -1,11 +1,11 @@
 // Run expansion (rle, rpe) and the per-group scan family (dense cumsum
 // rows, delta2, xordelta) of giddy_tpu_torch. Same conventions as
 // lmp_decode.cu: plain C interface bound with ctypes by
-// giddy_tpu_torch/kernels/_build.py; one block of 1024 threads per GROUP
-// (grid = number of groups), thread c owning positions i * 1024 + c (K5:
-// four neighbouring positions per step; K7: 16 consecutive positions in
-// its scan); every entry point launches on the
-// stream it is given, allocates nothing, and
+// giddy_tpu_torch/kernels/_build.py; K6-K8 launch one block of 1024
+// threads per GROUP (grid = number of groups), thread c owning positions
+// i * 1024 + c (K7: 16 consecutive positions in its scan), K5 blocks of 8
+// warps, each warp over 1024 consecutive positions; every entry point
+// launches on the stream it is given, allocates nothing, and
 // returns cudaGetLastError() after the launch, or cudaErrorInvalidValue for
 // arguments it does not take. out_bytes 4/2/1 stores the uint32 payload or
 // its low 16/8 bits. All arithmetic wraps mod 2^32 (FORMAT.md §0). K5, K6
@@ -20,32 +20,53 @@
 
 namespace gt {
 
-// Largest run table one group may bring: T tiles of w_pad runs, T <= 64
-// (tile width W >= 512) and w_pad <= 128 (CHAIN_HARD of the host prep).
-constexpr int kRunTableMax = 8192;
-constexpr int kRunPadMax = 128;
+constexpr int kRunPadMax = 128;  // largest w_pad: CHAIN_HARD of the host prep
 
 // K5. Replaces both Pallas run expansions of giddy_tpu/kernels/rle.py,
-// _chain_call (:153, the select chain) and _rank_call (:216, the 7-probe
-// search); their split is a TPU cost choice.
+// _chain_call (:153, the select chain, w_pad <= 16) and _rank_call (:216,
+// the 7-probe search, 16 < w_pad <= 128); their split is a TPU cost
+// choice, and one kernel serves both here.
 // Input: the tile form of the host prep. Group g owns rows g*T .. g*T+T-1
 // of ends_w / vals_w (rows, w_pad), tile t covering positions
-// [t*W, (t+1)*W) of the group, ends tile-relative, exclusive and
-// non-decreasing. Output at tile position j: vals[r] with
-// r = #{m < w_pad - 1 : ends[m] <= j}, the select chain's result.
-// Bound: device-memory stores (4, 2 or 1 bytes a value; the tables are a
-// few percent of that). Design: the block stages its group's T*w_pad-entry
-// tables in dynamic shared memory (at most 64 KB for both). Thread c then
-// writes 4 neighbouring positions q .. q+3, q = 4 * (i * 1024 + c), as one
-// 16-, 8- or 4-byte store (warp stores stay coalesced): a binary search of
-// log2(w_pad) probes finds the run at q (libgiddy's per-thread search,
-// SURVEY.md CS-4), and the next three positions step forward from it.
-// Neighbouring threads search one tile for neighbouring j, so probes mostly
-// broadcast. With a table, the block maps the run values through it while
-// staging them (Lut kGlobal): expansion only selects run values, so this
-// equals mapping the output, at T*w_pad lookups a group instead of 32768. On NVIDIA H100 80GB HBM3, 700.00 W, the vector store took K5
-// from 0.153 ms to 0.105 ms at configs[3] (PERF.md): with one 4-byte store
-// per value the kernel reached only 56% of a plain fill of the same bytes.
+// [t*W, (t+1)*W) of the group (T <= 64: W >= 512), ends tile-relative,
+// exclusive and non-decreasing (any int32: an end below 0 counts at every
+// position, one at or past W at none). Output at tile position j: vals[r]
+// with r = #{m < w_pad - 1 : ends[m] <= j}, the select chain's result.
+// Bound: device-memory bytes: the stores (4, 2 or 1 bytes a value) and
+// the real runs' ends and values; the tables' padding is the prep's.
+// Design: no block-wide staging and no search (staging a group's tables
+// before any store, at one block of 1024 threads an SM, and a binary
+// search of log2(w_pad) dependent shared loads a quad held a kernel of that
+// shape to 0.49 of its bound at T 32 of w_pad 128; PERF.md §5). A warp
+// owns 1024 consecutive positions of a group, one or two spans of one tile
+// (W >= 1024: part of a tile; W = 512: two tiles), and for each span:
+// (1) reads the tile's w_pad ends, E = max(1, w_pad / 32) a lane in one
+//     vector load, and counts with two warp reductions the runs that end
+//     before the span (`carry`) and those that end before its end
+//     (`last`): the span selects runs carry .. last only, so
+// (2) only the lanes that hold one of those read their values, mapped
+//     through the table (Lut kGlobal: expansion only selects run values, so
+//     this equals mapping the output), into the warp's slice of shared
+//     memory;
+// (3) marks each run end m inside the span in a byte strip of the span
+//     (zeroed first): strip[end - span start] = m + 1, written by the last
+//     of equal ends only, so equal ends follow the #{ends <= j} rule;
+// (4) walks the span in steps of 128 positions: lane l reads the strip's 4
+//     bytes of positions 4l .. 4l+3 in one shared load, takes their running
+//     max and a 5-shuffle max-scan across the warp, seeded by the carry from
+//     the step before: at each position that is #{ends <= j} (the ends are
+//     non-decreasing), the run index. It gathers the 4 values from shared
+//     memory and writes them as one 16-, 8- or 4-byte store (warp stores
+//     stay coalesced; one 4-byte store a value reached only 56% of a plain
+//     fill of the same bytes on the H100, PERF.md).
+// Warps never wait for each other (only __syncwarp), so one warp's table
+// loads overlap the others' stores; blocks are small (8 warps, 12 KiB of
+// static shared memory) and 8 fit an SM at <= 32 registers a thread.
+constexpr int kRunWarps = 8;  // warps a block
+constexpr int kRunThreads = 32 * kRunWarps;
+constexpr int kRunSpan = kGroup / 32;  // positions a warp: 1024
+constexpr int kRunStep = 128;          // positions a warp step: 4 a lane
+
 template <typename T>
 struct Quad;  // four values of T, packed into one vector store
 template <>
@@ -68,42 +89,97 @@ struct Quad<uint8_t> {
   }
 };
 
-template <typename T, LutMode M>
-__global__ void __launch_bounds__(kLanes)
-    run_expand_kernel(const int32_t* __restrict__ ends_w, const uint32_t* __restrict__ vals_w,
-                      T* __restrict__ out, int w_shift, int w_pad, const uint32_t* __restrict__ lut, uint32_t d) {
-  static_assert(M != LutMode::kShared, "K5 maps its run table, with no shared copy of the dictionary");
-  extern __shared__ uint32_t tables[];
-  const Lut<M> map(lut, d, nullptr);
-  const size_t g = blockIdx.x;
-  const int c = threadIdx.x;
-  const int entries = (kGroup >> w_shift) * w_pad;
-  int32_t* ends = reinterpret_cast<int32_t*>(tables);
-  uint32_t* vals = tables + entries;
-  for (int k = c; k < entries; k += kLanes) {
-    ends[k] = __ldg(ends_w + g * entries + k);
-    vals[k] = map(__ldg(vals_w + g * entries + k));
+// x = p[0 .. E-1], one vector load (p is 4E-byte aligned).
+template <int E, typename U>
+__device__ __forceinline__ void load_entries(const U* p, U (&x)[E]) {
+  static_assert(sizeof(U) == 4, "32-bit table entries");
+  if constexpr (E == 4) {
+    const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
+    x[0] = static_cast<U>(v.x), x[1] = static_cast<U>(v.y), x[2] = static_cast<U>(v.z), x[3] = static_cast<U>(v.w);
+  } else if constexpr (E == 2) {
+    const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
+    x[0] = static_cast<U>(v.x), x[1] = static_cast<U>(v.y);
+  } else {
+    x[0] = __ldg(p);
   }
-  __syncthreads();
-  const int w_mask = (1 << w_shift) - 1;
+}
+
+// E entries a lane: w_pad = 32 * E, or w_pad <= 32 for E = 1 (lanes at or
+// past w_pad hold none).
+template <typename T, LutMode M, int E>
+__global__ void __launch_bounds__(kRunThreads, 2048 / kRunThreads)
+    run_strip_kernel(const int32_t* __restrict__ ends_w, const uint32_t* __restrict__ vals_w, T* __restrict__ out,
+                     int w_shift, int w_pad, const uint32_t* __restrict__ lut, uint32_t d) {
+  static_assert(M != LutMode::kShared, "K5 maps its run table, with no shared copy of the dictionary");
+  __shared__ __align__(16) uint8_t strips[kRunWarps][kRunSpan];
+  __shared__ __align__(16) uint32_t runs[kRunWarps][32 * E];
+  const Lut<M> map(lut, d, nullptr);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const size_t span_id = static_cast<size_t>(blockIdx.x) * kRunWarps + warp;
+  const size_t g = span_id >> 5;
+  const int p0 = static_cast<int>(span_id & 31) * kRunSpan;
+  const int width = 1 << w_shift;
+  const int len = min(width, kRunSpan);  // positions a span: 512 or 1024
+  uint8_t* strip = strips[warp];
+  uint32_t* vals = runs[warp];
   using V = typename Quad<T>::V;
-  V* o = reinterpret_cast<V*>(out + g * kGroup) + c;
-  for (int i = 0; i < kGroup / (4 * kLanes); ++i) {
-    const int q = 4 * (i * kLanes + c);  // q .. q+3 lie in one tile: W >= 512
-    const int32_t* e = ends + (q >> w_shift) * w_pad;
-    const uint32_t* tv = vals + (q >> w_shift) * w_pad;
-    const int j = q & w_mask;
-    int r = 0;
-    for (int step = w_pad >> 1; step > 0; step >>= 1)
-      if (e[r + step - 1] <= j) r += step;
-    uint32_t v[4];
-    v[0] = tv[r];
-#pragma unroll
-    for (int k = 1; k < 4; ++k) {
-      while (r < w_pad - 1 && e[r] <= j + k) ++r;
-      v[k] = tv[r];
+  for (int p = p0; p < p0 + kRunSpan; p += len) {
+    const int start = p & (width - 1);  // the span's first position in its tile
+    const size_t row = (g << (15 - w_shift)) + (p >> w_shift);  // g * T + tile
+    int32_t e[E];
+    if (E * lane < w_pad) {
+      load_entries<E>(ends_w + row * w_pad + E * lane, e);
+    } else {
+      e[0] = INT_MAX;  // E = 1 only: no entry, never counted
     }
-    o[i * kLanes] = Quad<T>::pack(v);
+    const int32_t after = __shfl_down_sync(kFullMask, e[0], 1);  // lane l+1's first end
+    int before = 0, upto = 0;
+#pragma unroll
+    for (int k = 0; k < E; ++k) {
+      const bool counted = E * lane + k < w_pad - 1;  // the last entry is never counted
+      before += counted && e[k] < start;
+      upto += counted && e[k] < start + len;
+    }
+    const int carry0 = __reduce_add_sync(kFullMask, before);
+    const int last = __reduce_add_sync(kFullMask, upto);  // <= w_pad - 1
+    __syncwarp();  // the span before has read its strip and values
+    if (E * lane <= last && E * lane + E - 1 >= carry0) {
+      uint32_t v[E];
+      load_entries<E>(vals_w + row * w_pad + E * lane, v);
+#pragma unroll
+      for (int k = 0; k < E; ++k) vals[E * lane + k] = map(v[k]);
+    }
+    for (int b = 16 * lane; b < len; b += 16 * 32) *reinterpret_cast<uint4*>(strip + b) = make_uint4(0u, 0u, 0u, 0u);
+    __syncwarp();
+#pragma unroll
+    for (int k = 0; k < E; ++k) {
+      const int m = E * lane + k;
+      const int32_t next = k + 1 < E ? e[min(k + 1, E - 1)] : after;
+      if (m < w_pad - 1 && e[k] >= start && e[k] < start + len && (m + 1 == w_pad - 1 || next != e[k]))
+        strip[e[k] - start] = static_cast<uint8_t>(m + 1);
+    }
+    __syncwarp();
+    int carry = carry0;
+    V* o = reinterpret_cast<V*>(out + g * kGroup + p) + lane;
+    for (int s = 0; s < len; s += kRunStep) {
+      const uint32_t w = *reinterpret_cast<const uint32_t*>(strip + s + 4 * lane);
+      int r[4];
+      r[0] = w & 0xFFu;
+      r[1] = max(r[0], static_cast<int>((w >> 8) & 0xFFu));
+      r[2] = max(r[1], static_cast<int>((w >> 16) & 0xFFu));
+      r[3] = max(r[2], static_cast<int>(w >> 24));
+      int scan = r[3];  // inclusive max over lanes 0 .. lane
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) scan = max(scan, __shfl_up_sync(kFullMask, scan, off));
+      const int prev = __shfl_up_sync(kFullMask, scan, 1);
+      const int base = lane == 0 ? carry : max(carry, prev);
+      carry = max(carry, __shfl_sync(kFullMask, scan, 31));
+      uint32_t v[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) v[k] = vals[max(base, r[k])];
+      o[s / 4] = Quad<T>::pack(v);
+    }
   }
 }
 
@@ -268,8 +344,28 @@ __global__ void __launch_bounds__(kLanes)
 
 bool valid_run_table(int w_shift, int w_pad) {
   const bool pow2 = w_pad >= 1 && (w_pad & (w_pad - 1)) == 0;
-  return w_shift >= 9 && w_shift <= 15 && pow2 && w_pad <= kRunPadMax &&
-         (kGroup >> w_shift) * w_pad <= kRunTableMax;
+  return w_shift >= 9 && w_shift <= 15 && pow2 && w_pad <= kRunPadMax;
+}
+
+// K5: a grid of warps, 32 a group, each over 1024 positions; the instance
+// with E = max(1, w_pad / 32) entries a lane.
+template <typename T>
+int launch_run_expand(const void* ends_w, const void* vals_w, void* out, long long ng, int w_shift, int w_pad,
+                      const void* lut, long long d, cudaStream_t stream) {
+  using K = void (*)(const int32_t*, const uint32_t*, T*, int, int, const uint32_t*, uint32_t);
+  const bool mapped = lut != nullptr;
+  K kernel;
+  switch (w_pad) {
+    case 64: kernel = mapped ? run_strip_kernel<T, LutMode::kGlobal, 2> : run_strip_kernel<T, LutMode::kNone, 2>; break;
+    case 128: kernel = mapped ? run_strip_kernel<T, LutMode::kGlobal, 4> : run_strip_kernel<T, LutMode::kNone, 4>; break;
+    default: kernel = mapped ? run_strip_kernel<T, LutMode::kGlobal, 1> : run_strip_kernel<T, LutMode::kNone, 1>;
+  }
+  const long long blocks = ng * 32 / kRunWarps;
+  if (blocks > INT_MAX) return cudaErrorInvalidValue;
+  kernel<<<static_cast<unsigned>(blocks), kRunThreads, 0, stream>>>(
+      static_cast<const int32_t*>(ends_w), static_cast<const uint32_t*>(vals_w), static_cast<T*>(out), w_shift,
+      w_pad, static_cast<const uint32_t*>(lut), static_cast<uint32_t>(d));
+  return cudaGetLastError();
 }
 
 }  // namespace gt
@@ -282,17 +378,12 @@ int gt_run_expand(const void* ends_w, const void* vals_w, void* out, long long n
                   int out_bytes, const void* lut, long long d, void* stream) {
   if (!gt::valid(ng, 1) || !gt::valid_run_table(w_shift, w_pad)) return cudaErrorInvalidValue;
   if (lut != nullptr && (d < 1 || d > 0xFFFFFFFFLL)) return cudaErrorInvalidValue;
-  const size_t smem = 2 * sizeof(uint32_t) * static_cast<size_t>((gt::kGroup >> w_shift) * w_pad);
+  const uintptr_t vector = sizeof(uint32_t) * (w_pad > 32 ? w_pad / 32 : 1);  // bytes a lane loads at once
+  if (reinterpret_cast<uintptr_t>(ends_w) % vector || reinterpret_cast<uintptr_t>(vals_w) % vector)
+    return cudaErrorMisalignedAddress;
   return gt::dispatch_out(out_bytes, [&](auto tag) -> int {
-    using T = decltype(tag);
-    auto kernel = lut == nullptr ? gt::run_expand_kernel<T, gt::LutMode::kNone>
-                                 : gt::run_expand_kernel<T, gt::LutMode::kGlobal>;
-    const cudaError_t err = gt::allow_shared(kernel, smem);
-    if (err != cudaSuccess) return err;
-    kernel<<<static_cast<unsigned>(ng), kLanes, smem, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int32_t*>(ends_w), static_cast<const uint32_t*>(vals_w), static_cast<T*>(out), w_shift,
-        w_pad, static_cast<const uint32_t*>(lut), static_cast<uint32_t>(d));
-    return cudaGetLastError();
+    return gt::launch_run_expand<decltype(tag)>(ends_w, vals_w, out, ng, w_shift, w_pad, lut, d,
+                                                static_cast<cudaStream_t>(stream));
   });
 }
 

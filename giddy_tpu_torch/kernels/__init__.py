@@ -52,8 +52,14 @@ def reset_launches() -> None:
             mod.LAUNCHES[name] = 0
         else:
             mod.LAUNCHES = 0
+    rle.FORM_LAUNCHES.update(dict.fromkeys(rle.FORM_LAUNCHES, 0))
 
 
 def launches() -> dict[str, int]:
     return {name: mod.LAUNCHES[name] if isinstance(mod.LAUNCHES, dict) else mod.LAUNCHES
             for name, mod in WRAPPERS.items()}
+
+
+def form_launches() -> dict[str, int]:
+    """K5's launches by form (rle.FORM_LAUNCHES): "chain" and "rank"."""
+    return dict(rle.FORM_LAUNCHES)

@@ -1,4 +1,4 @@
-"""RLE / RPE decode: kernel K5 (csrc/run_decode.cu ``run_expand_kernel``),
+"""RLE / RPE decode: kernel K5 (csrc/run_decode.cu ``run_strip_kernel``),
 or a scatter-add and kernel K6 (kernels/cumsum.py) for dense runs.
 
 Counterpart of giddy_tpu/kernels/rle.py. The host prep is the reference's,
@@ -33,6 +33,15 @@ _W_CANDIDATES = (GROUP, 16384, 8192, 4096, 2048, 1024, 512)
 MAX_TILES = GROUP // _W_CANDIDATES[-1]
 
 LAUNCHES = 0
+# K5's launches by form, as the reference splits its two calls: "chain"
+# (w_pad <= RANK_MIN, _chain_call) and "rank" (_rank_call). One kernel
+# serves both; each launch counts in LAUNCHES too.
+FORM_LAUNCHES = {"chain": 0, "rank": 0}
+
+
+def form(w_pad: int) -> str:
+    """K5's form for tables of ``w_pad`` runs."""
+    return "rank" if w_pad > RANK_MIN else "chain"
 
 
 def _tile_counts(starts, valid, W: int, T: int):
@@ -159,6 +168,11 @@ def run_expand(ends_w: torch.Tensor, vals_w: torch.Tensor, ng: int, out_dtype: t
     table = _wrap.lut_args(lut, ends_w.device)
     if ends_w.device.type == "cpu":
         return lanes.run_expand(ends_w, vals_w, ng, out_dtype, lut)
+    vector = 4 * max(1, w_pad // 32)  # bytes a lane of K5 loads at once
+    for name, t in (("ends_w", ends_w), ("vals_w", vals_w)):
+        if t.data_ptr() % vector:
+            raise ValueError(f"{name} must be {vector}-byte aligned for K5's vector loads at w_pad {w_pad}, "
+                             f"got address {t.data_ptr():#x}")
     out = _wrap.empty_out(ng, out_dtype, ends_w.device)
     w_shift = (GROUP // tiles).bit_length() - 1
     _wrap.launch(
@@ -166,6 +180,7 @@ def run_expand(ends_w: torch.Tensor, vals_w: torch.Tensor, ng: int, out_dtype: t
         ng, w_shift, w_pad, _wrap.OUT_BYTES[out_dtype], *table,
     )
     LAUNCHES += 1
+    FORM_LAUNCHES[form(w_pad)] += 1
     return out
 
 

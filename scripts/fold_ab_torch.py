@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """K16 (filter_fold) and K17 (agg_fold) of giddy_tpu_torch timed side by
 side for two checkouts on one NVIDIA GPU, with K1 (lmp_unpack) as the
-control that neither changes; and K7 (delta2_decode), with K3
-(delta_decode) as its control.
+control that neither changes; K7 (delta2_decode), with K3
+(delta_decode) as its control; and K5 (run_expand) at the reference's
+_rank_call cell, with its chain-form cells as controls.
 
     python3 scripts/fold_ab_torch.py PARENT_ROOT CHANGE_ROOT CHANGE_ROOT PARENT_ROOT
     python3 scripts/fold_ab_torch.py --k7 ROOT [ROOT ...]
+    python3 scripts/fold_ab_torch.py --k5 ROOT [ROOT ...]
     python3 scripts/fold_ab_torch.py --ptxas [ROOT [SASS_FILE]]
     python3 scripts/fold_ab_torch.py --ncu ROOT [ROOT ...]
 
@@ -26,6 +28,21 @@ per root. The bound is the call's bytes (each input read once, each output
 written once) over 3.35 TB/s, which bounds every one of these calls.
 ``--k7`` times the K7 cell and its K3 control alone.
 
+``--k5`` times K5 at chip_smoke.py's K5 cells: the _rank_call cell (rle,
+runs of 1-39 over 1000 values, 2^26, seed 7: T = 32 tiles of w_pad 128),
+configs[3] as rle and rpe and the cascade rle d=8 column (the chain form,
+w_pad <= 16: the controls), and three made-up tables of 2048 groups that
+pull K5's costs apart: one tile of 128 runs (a small table, the deep
+search), 32 tiles of one run padded to 128 (a large table, a short
+search) and 32 tiles of 8 runs (the chain form's small tables). The
+cells' bound counts the real runs' 8 bytes (chip_smoke.py's run_bytes);
+the made-up tables' counts their tables; beside it, the bytes of the
+tables (each read once) and of what run_strip_kernel's warps load of them
+(strip_loads), each with the output. Before timing, it prints each of
+the root's K5 kernels' resident blocks an SM
+(cudaOccupancyMaxActiveBlocksPerMultiprocessor, from a small library that
+includes the root's csrc/run_decode.cu).
+
 ``--ptxas`` compiles csrc/scan_epilogue.cu, csrc/run_decode.cu and
 csrc/lmp_decode.cu of ROOT (this checkout by default) with this checkout's
 nvcc flags and ``-Xptxas -v`` and prints each kernel's registers, spills
@@ -44,6 +61,7 @@ Needs one CUDA GPU and ``nvcc``; imports nothing of JAX.
 
 from __future__ import annotations
 
+import functools
 import json
 import pathlib
 import statistics
@@ -74,6 +92,25 @@ def cuda_ms(torch, fn, runs: int = 20) -> float:
     return statistics.median(a.elapsed_time(b) for a, b in pairs)
 
 
+def timed_cell(torch, cells: dict, label: str, fn, plain) -> None:
+    """Hold fn() against plain() (equal), then time it: cells[label] gets
+    its median ms, the host's us a launch and its output bytes."""
+    out = fn()
+    want = plain()
+    torch.cuda.synchronize()
+    outs, wants = (out, want) if isinstance(out, tuple) else ((out,), (want,))
+    assert all(torch.equal(o, w) for o, w in zip(outs, wants)), f"{label}: kernel != plain version"
+    nbytes = sum(t.numel() * t.element_size() for t in outs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(50):
+        fn()
+    host_us = (time.perf_counter() - t0) / 50 * 1e6
+    torch.cuda.synchronize()
+    cells[label] = {"ms": cuda_ms(torch, fn), "host_us": host_us, "out_bytes": nbytes}
+    del out, want
+
+
 def one(root: str, k7_only: bool = False) -> None:
     """Time every cell (or the K7 cell and its control) with the
     giddy_tpu_torch under ``root``; print one line."""
@@ -93,22 +130,7 @@ def one(root: str, k7_only: bool = False) -> None:
     ts = (np.cumsum(np.random.default_rng(1).integers(0, 4, 2**26)) + 1_700_000_000).astype(np.int32)
     valid = np.random.default_rng(8).random(ts.shape[0]) >= 0.01
     cells = {}
-
-    def timed(label: str, fn, plain) -> None:
-        out = fn()
-        want = plain()
-        torch.cuda.synchronize()
-        outs, wants = (out, want) if isinstance(out, tuple) else ((out,), (want,))
-        assert all(torch.equal(o, w) for o, w in zip(outs, wants)), f"{label}: kernel != plain version"
-        nbytes = sum(t.numel() * t.element_size() for t in outs)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(50):
-            fn()
-        host_us = (time.perf_counter() - t0) / 50 * 1e6
-        torch.cuda.synchronize()
-        cells[label] = {"ms": cuda_ms(torch, fn), "host_us": host_us, "out_bytes": nbytes}
-        del out, want
+    timed = functools.partial(timed_cell, torch, cells)
 
     for cell, v, scheme, opts, mask in [] if k7_only else [
         ("configs[0] nbit 9-bit 2^28", v0, "nbit", {"bits": 9}, None),
@@ -144,6 +166,152 @@ def one(root: str, k7_only: bool = False) -> None:
         cells[label]["bound_ms"] = (in_bytes + cells[label].pop("out_bytes")) / HBM_BYTES_PER_S * 1e3
         del args
         torch.cuda.empty_cache()
+    print(f"[ab] {root} {json.dumps(cells)}", flush=True)
+
+
+# K5's kernels in csrc/run_decode.cu, for the occupancy report: (template,
+# instance, threads a block, dynamic shared bytes, the cell it stands for).
+# run_expand_kernel (K5's earlier kernel) staged T * w_pad ends and values: 32 KiB
+# at the _rank_call cell's T = 32 and w_pad 128.
+K5_KERNELS = [
+    ("run_expand_kernel", "gt::run_expand_kernel<uint32_t, gt::LutMode::kNone>", 1024, 32768, "T 32, w_pad 128"),
+    ("run_expand_kernel", "gt::run_expand_kernel<uint32_t, gt::LutMode::kNone>", 1024, 64, "T 1, w_pad 8"),
+    ("run_strip_kernel", "gt::run_strip_kernel<uint32_t, gt::LutMode::kNone, 4>", "gt::kRunThreads", 0, "w_pad 128"),
+    ("run_strip_kernel", "gt::run_strip_kernel<uint32_t, gt::LutMode::kGlobal, 4>", "gt::kRunThreads", 0,
+     "w_pad 128, a table"),
+    ("run_strip_kernel", "gt::run_strip_kernel<uint32_t, gt::LutMode::kNone, 1>", "gt::kRunThreads", 0,
+     "w_pad <= 32"),
+]
+
+
+def k5_occupancy(root: str) -> None:
+    """Registers, static shared bytes and resident blocks an SM of each K5
+    kernel that ROOT's csrc/run_decode.cu defines, from a small library
+    built with this checkout's nvcc flags that includes that source."""
+    import ctypes
+    import tempfile
+
+    sys.path.insert(0, str(HERE))
+    from giddy_tpu_torch.kernels import _build
+
+    src = pathlib.Path(root).resolve() / "giddy_tpu_torch" / "csrc" / "run_decode.cu"
+    text = src.read_text()
+    rows = [k for k in K5_KERNELS if f"{k[0]}(" in text]
+    cases = "".join(
+        f"    case {i}: {{ auto k = {inst}; cudaFuncGetAttributes(&a, k); out[1] = a.numRegs; "
+        f"out[2] = static_cast<int>(a.sharedSizeBytes); out[3] = {threads}; "
+        f"return cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, k, {threads}, {smem}); }}\n"
+        for i, (_, inst, threads, smem, _) in enumerate(rows))
+    probe = (f'#include "{src}"\nextern "C" int gt_k5_occupancy(int which, int* out) {{\n'
+             f"  cudaFuncAttributes a;\n  switch (which) {{\n{cases}  }}\n  return -1;\n}}\n")
+    with tempfile.TemporaryDirectory() as tmp:
+        (pathlib.Path(tmp) / "probe.cu").write_text(probe)
+        lib = f"{tmp}/probe.so"
+        subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", lib, f"{tmp}/probe.cu"], check=True,
+                       timeout=600)
+        probe_lib = ctypes.CDLL(lib)
+        for i, (_, inst, _, smem, cell) in enumerate(rows):
+            out = (ctypes.c_int * 4)()
+            rc = probe_lib.gt_k5_occupancy(i, out)
+            print(f"[occupancy] {root} {inst} ({cell}): {out[1]} registers a thread, {out[2]} B static + {smem} B "
+                  f"dynamic shared, {out[3]} threads a block: {out[0]} blocks an SM (rc {rc})", flush=True)
+
+
+def run_column(np, rng, n: int, lo: int, hi: int, vocab: int) -> object:
+    """chip_smoke.py's run_column: n int32 values in runs of lo..hi-1, each
+    run one of ``vocab`` random values."""
+    lengths = rng.integers(lo, hi, n // lo + 1)
+    pool = rng.integers(0, 2**32, vocab, dtype=np.uint64).astype(np.uint32).astype(np.int32)
+    return np.repeat(pool[rng.integers(0, vocab, lengths.shape[0])], lengths)[:n]
+
+
+def config3_flags(np) -> object:
+    """chip_smoke.py's configs[3]: flags 0-4 in runs of 100-5000, 2^26, seed 3."""
+    n = 1 << 26
+    rng = np.random.default_rng(3)
+    v = np.zeros(n, dtype=np.int32)
+    pos = 0
+    while pos < n:
+        ln = int(rng.integers(100, 5000))
+        v[pos : pos + ln] = int(rng.integers(0, 5))
+        pos += ln
+    return v
+
+
+def strip_loads(np, ends, width: int) -> int:
+    """Bytes run_strip_kernel's warps load from (rows, w_pad) tables of
+    tiles of ``width``: for each span of min(width, 1024) positions, all
+    w_pad ends, and the values of the lanes (E = max(1, w_pad / 32)
+    entries each) that hold a run the span selects, from the first run
+    ending at or past the span's start to the first ending at or past its
+    end."""
+    rows, w_pad = ends.shape
+    per_lane = max(1, w_pad // 32)
+    span = min(width, 1024)
+    counted = np.arange(w_pad) < w_pad - 1
+    total = 0
+    for start in range(0, width, span):
+        carry = ((ends < start) & counted).sum(axis=1)
+        last = ((ends < start + span) & counted).sum(axis=1)
+        total += rows * w_pad * 4 + int((last // per_lane - carry // per_lane + 1).sum()) * per_lane * 4
+    return total
+
+
+def one_k5(root: str) -> None:
+    """K5 at its cells with the giddy_tpu_torch under ``root``; one line."""
+    sys.path.insert(0, root)
+    import numpy as np
+    import torch
+
+    import giddy_tpu_torch as gtt
+    from giddy_tpu_torch import kernels
+    from giddy_tpu_torch.datagen import gen_column
+    from giddy_tpu_torch.kernels import _build, lanes, rle
+    from giddy_tpu_torch.util import GROUP
+
+    assert pathlib.Path(gtt.__file__).resolve().is_relative_to(pathlib.Path(root).resolve()), gtt.__file__
+    cuda = torch.device("cuda")
+    _build.lib()
+    print(f"[build] {root}: nvcc {_build.build_seconds} s", flush=True)
+    k5_occupancy(root)
+    cells = {}
+    timed = functools.partial(timed_cell, torch, cells)
+    columns = [
+        ("rank cell rle runs ~20 2^26", run_column(np, np.random.default_rng(7), 2**26, 1, 40, 1000), "rle"),
+        ("configs[3] rle 2^26", config3_flags(np), "rle"),
+        ("configs[3] rpe 2^26", config3_flags(np), "rpe"),
+        ("cascade rle d=8 2^26", gen_column("cascade", 2**26, np.random.default_rng(6)), "cascade"),
+    ]
+    for label, v, scheme in columns:
+        col = gtt.encode(v, scheme)
+        name, args = kernels.kernel_call(col, gtt.device_streams(col, cuda), torch.int32)
+        assert name == "run_expand", f"{label}: {name}"
+        tables = sum(t.numel() * t.element_size() for t in args if isinstance(t, torch.Tensor))
+        label = f"{label} T {args[0].shape[0] // args[2]} w_pad {args[0].shape[1]}"
+        timed(label, lambda: rle.run_expand(*args), lambda: lanes.run_expand(*args))
+        runs = int(col.streams["c_run_counts" if scheme == "cascade" else "run_counts"].sum())
+        in_bytes = runs * 8 + (col.streams["values"].nbytes if scheme == "cascade" else 0)
+        out_bytes = cells[label].pop("out_bytes")
+        cells[label]["bound_ms"] = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
+        cells[label]["tables_ms"] = (tables + out_bytes) / HBM_BYTES_PER_S * 1e3
+        loads = strip_loads(np, args[0].cpu().numpy(), GROUP * args[2] // args[0].shape[0])
+        cells[label]["loads_ms"] = (loads + out_bytes) / HBM_BYTES_PER_S * 1e3
+        del args
+        torch.cuda.empty_cache()
+    ng = 2048
+    vals = torch.from_numpy(np.random.default_rng(9).integers(0, 2**32, (ng * 32, 128), dtype=np.uint64)
+                            .astype(np.uint32).view(np.int32)).to(cuda)
+    for label, tiles, w_pad, runs in [("made-up T 1 w_pad 128, 128 runs a tile", 1, 128, 128),
+                                      ("made-up T 32 w_pad 128, 1 run a tile", 32, 128, 1),
+                                      ("made-up T 32 w_pad 8, 8 runs a tile", 32, 8, 8)]:
+        width = GROUP // tiles
+        m = torch.arange(w_pad, dtype=torch.int32, device=cuda)
+        row = torch.where(m < runs - 1, (m + 1) * (width // runs), width)
+        ends = row.expand(ng * tiles, w_pad).contiguous()
+        v = vals[: ng * tiles, :w_pad].contiguous()
+        timed(label, lambda: rle.run_expand(ends, v, ng), lambda: lanes.run_expand(ends, v, ng))
+        cells[label]["bound_ms"] = (2 * ends.numel() * 4 + cells[label].pop("out_bytes")) / HBM_BYTES_PER_S * 1e3
+        del ends, v
     print(f"[ab] {root} {json.dumps(cells)}", flush=True)
 
 
@@ -256,9 +424,12 @@ def main(argv: list[str]) -> int:
     if argv[:1] in (["--one"], ["--one-k7"]):
         one(argv[1], argv[0] == "--one-k7")
         return 0
+    if argv[:1] == ["--one-k5"]:
+        one_k5(argv[1])
+        return 0
     flag = "--one"
-    if argv[:1] == ["--k7"]:
-        flag, argv = "--one-k7", argv[1:]
+    if argv[:1] in (["--k7"], ["--k5"]):
+        flag, argv = f"--one-{argv[0][2:]}", argv[1:]
     if not argv:
         print(__doc__, file=sys.stderr)
         return 2
@@ -277,7 +448,10 @@ def main(argv: list[str]) -> int:
     for label in runs[0][1]:
         row = "  ".join(f"{c[label]['ms']:.4f} ({c[label]['bound_ms'] / c[label]['ms']:.3f}, {c[label]['host_us']:.0f} us)"
                         for _, c in runs)
-        print(f"[ab] {label}: bound {runs[0][1][label]['bound_ms']:.4f} ms | {row}")
+        ceiling = runs[0][1][label].get("tables_ms")
+        loads = runs[0][1][label].get("loads_ms")
+        tables = f" (tables {ceiling:.4f}, run_strip_kernel's loads {loads:.4f})" if ceiling else ""
+        print(f"[ab] {label}: bound {runs[0][1][label]['bound_ms']:.4f} ms{tables} | {row}")
     return 0
 
 

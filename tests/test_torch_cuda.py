@@ -20,9 +20,9 @@ from giddy_tpu_torch.ref import lmp as ref_lmp
 from giddy_tpu_torch.util import GROUP, LANES, np_dtype, pad_to_groups
 
 from test_torch_inputs import (
-    DICT_KINDS, OPS, PRIORITIES, SCAN_DTYPES, STRING_KINDS, WIDE_KINDS, WINDOW_HEAD, assert_same_column, bitmap_values, dict_values,
-    dzbv_values, for_values, rng_of, salted_prices, scan_thresholds, scan_values, string_values, want_agg, want_mask,
-    wide_thresholds, wide_values, wrapping_walk,
+    DICT_KINDS, OPS, PRIORITIES, RUN_TABLE_CASES, SCAN_DTYPES, STRING_KINDS, WIDE_KINDS, WINDOW_HEAD, assert_same_column,
+    bitmap_values, dict_values, dzbv_values, for_values, rng_of, run_tables, salted_prices, scan_thresholds, scan_values,
+    string_values, want_agg, want_mask, wide_thresholds, wide_values, wrapping_walk,
 )
 
 pytestmark = pytest.mark.cuda
@@ -104,6 +104,74 @@ def test_run_expansion_forms(cuda, scheme, density):
     torch.cuda.synchronize()
     assert torch.equal(got, want)
     np.testing.assert_array_equal(gtt.decode(col, device=cuda).cpu().numpy(), v)
+
+
+RUN_PADS = [8, 16, 32, 64, 128]  # the chain form's w_pad, then the rank form's
+
+
+def _expand_both(cuda, ends, vals, ng, store, lut=None):
+    """K5 and its plain version on the same tables on the card."""
+    e, v = torch.from_numpy(ends).to(cuda), torch.from_numpy(vals).to(cuda)
+    got = rle.run_expand(e, v, ng, store, lut)
+    want = lanes.run_expand(e, v, ng, store, lut)
+    torch.cuda.synchronize()
+    return got, want
+
+
+@pytest.mark.parametrize("tiles", [1, 2, 4, 8, 16, 32, 64])
+@pytest.mark.parametrize("w_pad", RUN_PADS)
+def test_run_expand_at_every_form_and_tile_count(cuda, w_pad, tiles):
+    """K5 against its plain version, bit for bit, at every w_pad of both
+    forms and every tile count T (W from 32768 down to 512), at each store
+    width, with and without a cascade table (codes past its end clamp);
+    each launch counted once, in its form."""
+    ends, vals = run_tables("random", w_pad, tiles, 3, seed=w_pad * tiles)
+    codes = (vals.view(np.uint32) % 1200).astype(np.int32)
+    lut = torch.from_numpy(rng_of("k5 table").integers(-(2**31), 2**31, 1000, dtype=np.int64).astype(np.int32))
+    form = "rank" if w_pad > rle.RANK_MIN else "chain"
+    for store in (torch.int32, torch.int16, torch.uint8):
+        for table, v in ((None, vals), (lut.to(cuda), codes)):
+            before = kernels.form_launches()
+            got, want = _expand_both(cuda, ends, v, 3, store, table)
+            assert got.dtype == want.dtype == store and torch.equal(got, want), (store, table is None)
+            after = kernels.form_launches()
+            assert after[form] == before[form] + 1 and sum(after.values()) == sum(before.values()) + 1
+
+
+@pytest.mark.parametrize("case", RUN_TABLE_CASES)
+@pytest.mark.parametrize("w_pad", RUN_PADS)
+def test_run_expand_edge_tables(cuda, w_pad, case):
+    """K5 against its plain version, bit for bit, on hand-made tables
+    (test_torch_inputs.run_tables): equal ends, ends of 0, all-pad tiles,
+    runs of one (more than 32 ends in one 128-position step of a warp),
+    ends across a warp's span edge, ends outside [0, W]; one group, and
+    three with a padded last group; W of 32768, 1024 and 512; 4- and
+    1-byte stores."""
+    for tiles in (1, 32, 64):
+        for ng in (1, 3):
+            ends, vals = run_tables(case, w_pad, tiles, ng, seed=tiles + ng)
+            for store in (torch.int32, torch.uint8):
+                got, want = _expand_both(cuda, ends, vals, ng, store)
+                assert torch.equal(got, want), (tiles, ng, store)
+
+
+def test_run_expand_wants_aligned_tables(cuda):
+    """K5 reads its tables with vector loads of 4 * max(1, w_pad / 32)
+    bytes a lane: tables 4 bytes past such a boundary raise before any
+    launch at w_pad 64 and 128, and are taken at w_pad <= 32."""
+    for w_pad in (8, 32, 64, 128):
+        ends, vals = run_tables("random", w_pad, 32, 1)
+        flat = torch.zeros(ends.size + 1, dtype=torch.int32, device=cuda)
+        flat[1:] = torch.from_numpy(ends.reshape(-1)).to(cuda)
+        shifted = flat[1:].view(ends.shape)
+        v = torch.from_numpy(vals).to(cuda)
+        if w_pad <= 32:
+            assert torch.equal(rle.run_expand(shifted, v, 1), lanes.run_expand(shifted, v, 1))
+            continue
+        before = kernels.form_launches()
+        with pytest.raises(ValueError, match=f"{w_pad // 8}-byte aligned"):
+            rle.run_expand(shifted, v, 1)
+        assert kernels.form_launches() == before
 
 
 @pytest.mark.parametrize("n", [N, GROUP, 0])

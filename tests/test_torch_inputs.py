@@ -310,6 +310,68 @@ def dict_values(kind: str, n: int, rng: np.random.Generator) -> np.ndarray:
     return vocab[rng.integers(0, vocab.shape[0], n)]
 
 
+# Hand-made K5 tables. Every case but "outside" is in the form the host
+# prep makes (rle.tile_prep): ends non-decreasing, at most w_pad - 1 of
+# them below the tile width W, the rest W. "outside" holds ends below 0
+# and above W too, which the wrapper also takes.
+RUN_TABLE_CASES = ["random", "equal", "zeros", "ones", "straddle", "pad", "outside"]
+
+
+def run_tables(case: str, w_pad: int, tiles: int, ng: int, seed: int = 0) -> tuple[np.ndarray, np.ndarray]:
+    """(ends_w, vals_w): ng * tiles int32 tables of w_pad runs, each over a
+    tile of W = GROUP // tiles positions. "equal" repeats a few ends (the
+    last counted entry among them), "zeros" starts with ends of 0, "ones"
+    has runs of length 1 (w_pad - 1 ends in the tile's first 128
+    positions), "straddle" puts w_pad - 1 consecutive ends across position
+    1024 (a K5 warp's span edge; the tile's end where W <= 1024), "pad" has
+    no end below W. When ng > 1 the last group's second half of tiles is
+    all pad, as a ragged column's last group is."""
+    rng = np.random.default_rng(seed)
+    width = GROUP // tiles
+    ends = np.full((ng * tiles, w_pad), width, np.int64)
+    for i in range(ng * tiles):
+        if ng > 1 and i >= (ng - 1) * tiles + tiles // 2:
+            continue
+        if case == "random":
+            real = rng.integers(0, width, rng.integers(0, w_pad))
+        elif case == "equal":
+            real = rng.choice([0, 1, width // 2, width // 2 + 1, width - 1], w_pad - 1)
+        elif case == "zeros":
+            real = np.concatenate([np.zeros(w_pad // 2, np.int64), rng.integers(0, width, w_pad // 2 - 1)])
+        elif case == "ones":
+            real = np.arange(1, w_pad)
+        elif case == "straddle":
+            real = min(width - w_pad, max(0, 1024 - w_pad // 2)) + np.arange(w_pad - 1)
+        elif case == "pad":
+            real = np.zeros(0, np.int64)
+        else:
+            real = np.concatenate([[-5, width + 50], rng.integers(0, width, w_pad - 2)])
+        ends[i, : real.shape[0]] = np.sort(real)
+    vals = rng.integers(0, 2**32, ends.shape, dtype=np.uint64).astype(np.uint32).view(np.int32)
+    return ends.astype(np.int32), vals
+
+
+@pytest.mark.parametrize("case", RUN_TABLE_CASES)
+def test_run_tables_are_what_they_name(case):
+    for w_pad, tiles in ((8, 1), (32, 64), (128, 32)):
+        ends, vals = run_tables(case, w_pad, tiles, 3)
+        width = GROUP // tiles
+        assert ends.shape == vals.shape == (3 * tiles, w_pad) and ends.dtype == vals.dtype == np.int32
+        assert (np.diff(ends, axis=1) >= 0).all()
+        assert (ends[-(tiles // 2 or 1):] == width).all() if tiles > 1 else True
+        below = (ends < width).sum(axis=1)
+        if case == "outside":
+            assert (ends < 0).any() and (ends > width).any()
+            continue
+        assert (below <= w_pad - 1).all() and (ends >= 0).all() and (ends <= width).all()
+        first = ends[0]
+        assert {"pad": below[0] == 0, "ones": (first[: w_pad - 1] == np.arange(1, w_pad)).all(),
+                "zeros": (first[: w_pad // 2] == 0).all(), "equal": np.unique(first[: w_pad - 1]).shape[0] < w_pad - 1,
+                "straddle": (np.diff(first[: w_pad - 1]) == 1).all() and (first[0] < 1024 <= first[w_pad - 2]
+                                                                          or width <= 1024),
+                "random": True}[case]
+
+
 def test_scan_oracle_orders_floats_totally():
     v = np.array([np.nan, -np.nan, -np.inf, np.inf, -0.0, 0.0, -1.5, 1.5], np.float32)
     order = np.argsort(scan_key(v), kind="stable")

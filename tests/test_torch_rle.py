@@ -20,6 +20,7 @@ from giddy_tpu_torch.util import GROUP
 
 from helpers import gen_column
 from test_torch_host import assert_same_column, assert_same_streams
+from test_torch_inputs import RUN_TABLE_CASES, run_tables
 
 N = 2 * GROUP + 999  # three groups, the last one ragged
 SCHEMES = ["rle", "rpe"]
@@ -209,3 +210,83 @@ def test_run_expand_plain_version():
     assert out[1, :5].unique().tolist() == [50] and out[1, 5:].unique().tolist() == [60]
     assert out[2, [9, 10, 29, 30, 39, 40, 16383]].tolist() == [80, 90, 100, 110, 110, 110, 110]
     assert out[3].unique().tolist() == [120]
+
+
+def _runs_of(avg: int, n: int = N) -> np.ndarray:
+    """Runs of 1 .. 2 * avg - 1 positions over 18 values (neighbours may
+    merge), seed avg."""
+    rng = np.random.default_rng(avg)
+    lengths = rng.integers(1, 2 * avg, 2 * (n // avg) + 16)
+    return np.repeat(rng.integers(-9, 9, lengths.shape[0]).astype(np.int32), lengths)[:n]
+
+
+def _burst(runs: int, long: int, n: int = N) -> np.ndarray:
+    """Runs of ``long`` with one burst of ``runs`` runs of 3 at 40000."""
+    v = np.repeat(np.arange(n // long + 1, dtype=np.int32) % 7, long)[:n].copy()
+    v[40000 : 40000 + 3 * runs] = np.repeat(np.arange(runs, dtype=np.int32) + 100, 3)
+    return v
+
+
+# The tile-width chooser's regimes: input -> the (T, w_pad) it picks.
+REGIMES = {
+    "chain w_pad 8, T 1": (lambda: _runs_of(16000), (1, 8)),
+    "chain w_pad 8, T 8": (lambda: _runs_of(1000), (8, 8)),
+    "chain w_pad 8, T 64": (lambda: _runs_of(200), (64, 8)),
+    "chain w_pad 16, T 32": (lambda: _runs_of(100), (32, 16)),
+    "rank w_pad 32, T 1": (lambda: _burst(20, 5000), (1, 32)),
+    "rank w_pad 64, T 1": (lambda: _burst(30, 5000), (1, 64)),
+    "rank w_pad 128, T 8": (lambda: _runs_of(40), (8, 128)),
+    "rank w_pad 128, T 32": (lambda: _runs_of(10), (32, 128)),
+    "rank w_pad 128, T 64": (lambda: _runs_of(6), (64, 128)),
+}
+
+
+@pytest.mark.parametrize("regime", list(REGIMES))
+def test_tile_prep_meets_the_kernels_preconditions(regime):
+    """What K5 relies on in the host prep's tables (both of its kernels
+    select run #{m < w_pad - 1 : ends[m] <= j}; the rank form marks ends
+    in a strip and scans it, so it needs them sorted), in each regime of
+    the tile-width chooser: ends non-decreasing along each tile's row, at
+    most w_pad - 1 of them below the tile width W, every entry after those
+    equal to W, and K5's form as the reference splits _chain_call and
+    _rank_call."""
+    make, (tiles, w_pad) = REGIMES[regime]
+    v = make()
+    for scheme in SCHEMES:
+        streams = rle.prep(gtt.encode(v, scheme), positions=scheme == "rpe")
+        assert streams["ends_w"].shape == (3, tiles, w_pad)
+        ends = streams["ends_w"].reshape(-1, w_pad).astype(np.int64)
+        width = GROUP // tiles
+        assert (np.diff(ends, axis=1) >= 0).all() and (ends >= 0).all()
+        below = (ends < width).sum(axis=1)
+        assert below.max() <= w_pad - 1
+        assert (ends[np.arange(w_pad)[None, :] >= below[:, None]] == width).all()
+        assert rle.form(w_pad) == ("rank" if regime.startswith("rank") else "chain")
+
+
+def test_form_launches_stay_zero_on_the_cpu():
+    """K5's per-form counts (and its count) move only where a kernel
+    launches: never for tables on the CPU, of either form."""
+    kernels.reset_launches()
+    for w_pad in (8, 16, 32, 128):
+        ends, vals = run_tables("random", w_pad, 32, 2)
+        rle.run_expand(torch.from_numpy(ends), torch.from_numpy(vals), 2)
+    for density in ("long", "mid"):
+        gtt.decode(gtt.encode(values(density), "rle"), device="cpu")
+    assert kernels.form_launches() == {"chain": 0, "rank": 0}
+    assert kernels.launches()["run_expand"] == 0
+
+
+@pytest.mark.parametrize("w_pad", [8, 32, 128])
+@pytest.mark.parametrize("case", [c for c in RUN_TABLE_CASES if c != "outside"])
+def test_run_tables_match_reference_calls(case, w_pad):
+    """Hand-made tables in the prep's form through K5's plain version and
+    the reference's own expansion (_chain_call at w_pad <= RANK_MIN,
+    _rank_call above, interpret mode): 64 tiles of W = 512, bit for bit."""
+    import jax.numpy as jnp
+
+    ends, vals = run_tables(case, w_pad, 64, 1, seed=w_pad)
+    got = rle.run_expand(torch.from_numpy(ends), torch.from_numpy(vals), 1).reshape(64, 512)
+    call = gt_rle._rank_call if w_pad > rle.RANK_MIN else gt_rle._chain_call
+    want = np.asarray(call(64, 512, w_pad)(jnp.asarray(ends), jnp.asarray(vals.view(np.uint32))))
+    assert got.numpy().view(np.uint32).tobytes() == want.tobytes()
