@@ -1,6 +1,9 @@
 #!/usr/bin/env python3
-"""Smoke run of giddy_tpu_torch on one NVIDIA GPU: builds the CUDA kernels,
-holds each against its plain PyTorch version and the NumPy oracle, drives
+"""Smoke run of giddy_tpu_torch on one NVIDIA GPU: builds the CUDA kernels
+and the C++ host codec (the ``[native]`` phase: the codec loaded, held bit
+for bit to the NumPy path at full width, and its host seconds beside the
+NumPy path's), holds each kernel against its plain PyTorch version and the
+NumPy oracle, drives
 the main paths (single-column ``decode(col, device="cuda")`` at the sizes
 of BASELINE.json configs[0]-[3] plus delta2 and xordelta columns,
 ``scan.group_prefix_sum``, the mixed container of configs[4] through
@@ -33,13 +36,15 @@ customer-orders ``semi_join`` / ``anti_join`` / ``join_indices`` /
 lineitem ``Dataset`` with ``_plan``, ``count``, ``agg``, ``groupby``,
 ``select`` and ``compact``; ``stream_count_where`` / ``decode_streamed`` /
 ``stream_decode`` with their peak card memory; ``advisor.suggest(...,
-measure=True)``; the CLI in-process; ``selftest.run_selftest``), the dist
+measure=True)``; the CLI in-process; ``selftest.run_selftest`` with the
+traffic audit of every core scheme), the dist
 phase (the sharded layer: ``dist.decode_columns_sharded`` of configs[4] on
 ``dist.default_mesh()`` and on ``dist.Mesh([cuda:0] * 4)``, whose four
 shards launch each kernel four times; ``dist_query`` count, sum and min of
 configs[0], ``group_reduce_sharded`` and the wide ``sum_sharded`` on the
 lineitem columns, ``Table.join(mesh=)`` and ``Dataset.count(mesh=)``; a
 two-rank torch.distributed (gloo) drill on the card), and times them.
+Kernel bounds take the card's memory rate from ``roofline.chip_bw``.
 
     python3 chip_smoke.py
 
@@ -66,15 +71,20 @@ import numpy as np
 import torch
 
 import giddy_tpu_torch as gtt
-from giddy_tpu_torch import aggregate, groupby, kernels, nulls, partial, query, stream, strings, topk, wide, zonemap
+from giddy_tpu_torch import (
+    aggregate, groupby, kernels, native, nulls, partial, query, roofline, stream, strings, topk, wide, zonemap,
+)
 from giddy_tpu_torch.datagen import gen_column
 from giddy_tpu_torch.kernels import (
     _build, agg, alp, bitmap, cascade, cumsum, delta, delta2, dict_, dzbv, encode, filter_, for_, lanes, model, nbit,
     patch, rle, xordelta,
 )
+from giddy_tpu_torch.ref import dzbv as ref_dzbv
 from giddy_tpu_torch.ref import lmp as ref_lmp
 from giddy_tpu_torch.ref.cascade import INNER_SCHEMES
-from giddy_tpu_torch.util import GROUP, num_groups, pad_to_groups, zigzag
+from giddy_tpu_torch.util import GROUP, num_groups, pad_to_groups, unzigzag, zigzag
+
+T_START = time.perf_counter()  # the script's wall time is read from here, after its imports
 
 N_CHECK = 2**22 + 999  # ragged, many groups: the size that caught the reference's grid bug
 LMP_SOURCE = "giddy_tpu_torch/csrc/lmp_decode.cu"
@@ -84,10 +94,10 @@ EPILOGUE_SOURCE = "giddy_tpu_torch/csrc/epilogue_decode.cu"
 DZBV_SOURCE = "giddy_tpu_torch/csrc/dzbv_decode.cu"
 SCAN_SOURCE = "giddy_tpu_torch/csrc/scan_epilogue.cu"
 ENCODE_SOURCE = "giddy_tpu_torch/csrc/encode.cu"
-# The card's peak rates for the bound (NVIDIA's H100 SXM data sheet):
-# device memory, and 32-bit integer ALU operations, half the 67 TFLOP/s
-# float32 rate (64 INT32 lanes an SM against 128 FP32).
-HBM_BYTES_PER_S = 3.35e12
+# The card's peak rate of 32-bit integer ALU operations for the bound
+# (NVIDIA's H100 SXM data sheet): half the 67 TFLOP/s float32 rate (64
+# INT32 lanes an SM against 128 FP32). Its memory rate is
+# roofline.chip_bw()'s for the card.
 INT_OPS_PER_S = 33.5e12
 DZBV_FORMS = {"tile": "dzbv_tile_decode", "group": "dzbv_group_decode", "plane": "dzbv_plane_decode"}
 OPS = ("eq", "ne", "lt", "le", "gt", "ge")
@@ -188,7 +198,7 @@ def bound(name: str, args: tuple, out, in_bytes: int | None = None) -> tuple[flo
     if in_bytes is None:
         in_bytes = sum(t.numel() * t.element_size() for t in tensors(args))
     nbytes = in_bytes + sum(t.numel() * t.element_size() for t in outs)
-    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_bytes = nbytes / roofline.chip_bw() * 1e3
     ops = KERNELS[name][4]
     values = args[0].shape[0] * GROUP if name in PER_INPUT_VALUE else outs[0].numel()
     by_ops = (ops(args) if callable(ops) else ops) * values / INT_OPS_PER_S * 1e3
@@ -281,6 +291,76 @@ def build() -> None:
     _build.lib()
     nvcc = f"nvcc {_build.build_seconds:.1f} s" if _build.build_seconds is not None else "cached"
     print(f"[build] {_build.library_path().name}: {nvcc}, ready in {time.perf_counter() - t0:.1f} s")
+
+
+# -- phase 2b: the C++ host codec ----------------------------------------------
+
+NATIVE_S: dict[str, tuple[float, float]] = {}  # host step -> (C++ codec s, NumPy path s), one run each
+
+
+def both_paths(label: str, fn):
+    """fn() through the C++ host codec, then through the NumPy path, one run
+    each on the host clock: (its result on each path)."""
+    t0 = time.perf_counter()
+    nat = fn()
+    t1 = time.perf_counter()
+    with native.numpy_only():
+        ref = fn()
+    t2 = time.perf_counter()
+    NATIVE_S[label] = (t1 - t0, t2 - t1)
+    print(f"[native] {label}: C++ {t1 - t0:.3f} s, NumPy {t2 - t1:.3f} s ({(t2 - t1) / (t1 - t0):.1f}x)")
+    return nat, ref
+
+
+def same_streams(got: dict, want: dict) -> bool:
+    return sorted(got) == sorted(want) and all(
+        got[k].dtype == w.dtype and same_bits(np.asarray(got[k]), np.asarray(w)) for k, w in want.items())
+
+
+def configs0_values() -> np.ndarray:
+    """BASELINE.json configs[0]: 2^28 values under 512, seed 0."""
+    return np.random.default_rng(0).integers(0, 512, 2**28, dtype=np.int64).astype(np.int32)
+
+
+def dzbv_values() -> np.ndarray:
+    """The dzbv column: datagen's widths 1-4 bytes, near uniform (planes 1,
+    2, 3 hold ~75, 50, 25% of the values), 2^26 values, seed 13."""
+    return gen_column("dzbv", 2**26, np.random.default_rng(13))
+
+
+def native_phase(v0: np.ndarray, vd: np.ndarray) -> None:
+    """The C++ host codec is built and loaded (not the NumPy fallback), and
+    at full width gives the NumPy path's bytes: configs[0]'s encode (the
+    LMP pack at 9 bits) and its oracle decode (the unpack), zigzag and back
+    on a 2^26 wrapping walk, the dzbv split, encode and group-row prep of
+    the 2^26 dzbv column; each step's host seconds on both paths."""
+    check(native.path() == "native", f"the C++ host codec did not load: the host path is {native.path()}")
+    print(f"[native] {native.library_path(native.flags()).name}: g++ {' '.join(native.flags())}")
+    # a first call of each entry point, small, starts the thread pool before the timed runs
+    gtt.decode_ref(gtt.encode(vd[: 8 * GROUP], "dzbv"))
+    unzigzag(zigzag(vd[: 8 * GROUP]))
+    nat, ref = both_paths("configs[0] nbit 9-bit n=2^28 encode", lambda: gtt.encode(v0, "nbit", bits=9))
+    check(same_column(nat, ref), "configs[0] encode: C++ codec != NumPy path")
+    col = nat
+    del ref
+    nat, ref = both_paths("configs[0] nbit 9-bit n=2^28 oracle decode (unpack)", lambda: gtt.decode_ref(col))
+    check(same_bits(nat, ref) and same_bits(nat, v0), "configs[0] unpack: C++ codec != NumPy path or input")
+    del nat, ref, col
+    walk = wrapping_walk(np.random.default_rng(15), 2**26)
+    nat, ref = both_paths("zigzag of a wrapping walk n=2^26", lambda: zigzag(walk))
+    check(same_bits(nat, ref), "zigzag: C++ codec != NumPy path")
+    back, back_ref = both_paths("unzigzag of it", lambda: unzigzag(nat))
+    check(same_bits(back, back_ref) and same_bits(back, walk), "unzigzag: C++ codec != NumPy path or input")
+    del walk, nat, ref, back, back_ref
+    (wm1, planes), (wm1_ref, planes_ref) = both_paths("dzbv split n=2^26", lambda: ref_dzbv.split(vd.view(np.uint32)))
+    check(same_bits(wm1, wm1_ref) and len(planes) == 4 and all(same_bits(a, b) for a, b in zip(planes, planes_ref)),
+          "dzbv split: C++ codec != NumPy path")
+    del wm1, planes, wm1_ref, planes_ref
+    nat, ref = both_paths("dzbv n=2^26 encode", lambda: gtt.encode(vd, "dzbv"))
+    check(same_column(nat, ref), "dzbv encode: C++ codec != NumPy path")
+    prep, prep_ref = both_paths("dzbv n=2^26 prep (kernels/dzbv.prep)", lambda: dzbv.prep(nat))
+    check(dzbv_form(prep).startswith("group-row form") and same_streams(prep, prep_ref),
+          f"dzbv prep into {dzbv_form(prep)}: not the group-row form, or C++ codec != NumPy path")
 
 
 # -- phase 3 ----------------------------------------------------------------
@@ -1090,13 +1170,11 @@ def config3_flags() -> np.ndarray:
     return v
 
 
-def main_columns() -> list:
-    """BASELINE.json configs[0]-[3] at the sizes of tests/test_scale.py,
-    the configs[1] timestamps as delta2 too, and a slowly varying float32
-    series as xordelta: (label, input values, encoded column), host-encoded
-    and timed here."""
-    rng = np.random.default_rng(0)
-    v0 = rng.integers(0, 512, 2**28, dtype=np.int64).astype(np.int32)
+def main_columns(v0: np.ndarray) -> list:
+    """BASELINE.json configs[0]-[3] at the sizes of tests/test_scale.py
+    (configs[0]'s values ``v0``), the configs[1] timestamps as delta2 too,
+    and a slowly varying float32 series as xordelta: (label, input values,
+    encoded column), host-encoded and timed here."""
     ts = (np.cumsum(np.random.default_rng(1).integers(0, 4, 2**26)) + 1_700_000_000).astype(np.int32)
     rng = np.random.default_rng(2)
     vocab = rng.integers(-(2**31), 2**31 - 1, 1000, dtype=np.int64).astype(np.int32)
@@ -1164,10 +1242,8 @@ def cascade_main() -> tuple[np.ndarray, object]:
     return v, encoded("cascade rle d=8 n=2^26", v, "cascade")
 
 
-def dzbv_main() -> tuple[np.ndarray, object]:
-    """The dzbv column: datagen's widths 1-4 bytes, near uniform (planes 1,
-    2, 3 hold ~75, 50, 25% of the values), 2^26 values, seed 13."""
-    v = gen_column("dzbv", 2**26, np.random.default_rng(13))
+def dzbv_main(v: np.ndarray) -> tuple[np.ndarray, object]:
+    """The dzbv column (dzbv_values), encoded."""
     return v, encoded("dzbv n=2^26", v, "dzbv")
 
 
@@ -2406,7 +2482,8 @@ ONE_RUN_MS: dict[str, float] = {}  # calls timed once, where the main path drove
 
 def selftest_main_path(drive) -> None:
     """The port's selftest at 2^22 + 999 on the card: every core scheme and
-    check exact; its JSON line printed."""
+    check exact; its JSON line printed, then each core scheme's traffic
+    audit (its decoder's temporary bytes and traffic ratios) on a line."""
     from giddy_tpu_torch import selftest
 
     t0 = time.perf_counter()
@@ -2414,6 +2491,11 @@ def selftest_main_path(drive) -> None:
           lambda: SELFTEST.append(selftest.run_selftest(SELFTEST_N, device=CUDA)) or SELFTEST[-1]["pass"])
     ONE_RUN_MS[f"selftest.run_selftest({SELFTEST_N}), with its checks"] = (time.perf_counter() - t0) * 1e3
     print(json.dumps(SELFTEST[-1]))
+    for scheme in selftest.SCHEMES:
+        e = SELFTEST[-1]["schemes"][scheme]
+        print(f"[audit] {scheme}: temp_bytes {e['temp_bytes']}, traffic_vs_ideal {e['traffic_vs_ideal']}, "
+              f"traffic_vs_sol {e['traffic_vs_sol']}")
+        check(isinstance(e["temp_bytes"], int), f"{scheme}: the selftest's traffic audit did not run on the card")
 
 
 def time_tables(tb: Tables, smi: str) -> None:
@@ -2782,14 +2864,16 @@ def time_dist(tb: Tables, container: list, smi: str) -> None:
 def main() -> int:
     smi = environment()
     build()
+    v0, vd = configs0_values(), dzbv_values()
+    native_phase(v0, vd)
     kernel_checks()
-    cols = main_columns()
+    cols = main_columns(v0)
     x = scan_input()
     container = container_columns()
     casc = cascade_main()
     rank = rank_column()
     epilogue = epilogue_columns()
-    dz = dzbv_main()
+    dz = dzbv_main(vd)
     scan = scan_columns(cols)
     li, od = lineitem_table(), orders_table()
     analytic_kernel_checks(li, od)
@@ -2826,6 +2910,9 @@ def main() -> int:
          "launches": counts[name], "max_abs_err": MAX_ABS_ERR[name], **timings[name], **extra.get(name, {})}
         for name in KERNELS
     ]
+    print(f"[time] chip_smoke.py: {time.perf_counter() - T_START:.1f} s after its imports; its "
+          f"{len(HOST_ENCODE_S)} [encode] host encodes {sum(HOST_ENCODE_S.values()):.2f} s; the [native] phase "
+          f"{sum(a + b for a, b in NATIVE_S.values()):.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))

@@ -3,43 +3,49 @@
 Each value keeps only its low ``w`` bytes, w in 1..4 the fewest that hold
 it: a 2-bit stream of w - 1 (``widths``, LMP(2)) and four compacted byte
 planes (``plane{k}``, LMP(8)): plane k holds byte k of every value with
-w > k, in order. The port's copy of giddy_tpu/ref/dzbv.py's NumPy path
-(the reference may split the planes in its C++ library instead; both
-write the same bytes).
+w > k, in order. The port's copy of giddy_tpu/ref/dzbv.py: the split runs
+in one pass of the C++ host codec where it is built (native.py), else in
+NumPy; both write the same bytes.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from .. import registry
+from .. import native, registry
 from ..format import EncodedColumn
 from ..util import dtype_to_u32, u32_to_dtype
 from .lmp import lmp_pack, lmp_unpack
 
 
-def encode(values: np.ndarray, *, name: str = "col") -> EncodedColumn:
-    values = np.asarray(values)
-    n = values.shape[0]
-    u = dtype_to_u32(values)
+def split(u: np.ndarray) -> tuple[np.ndarray, list[np.ndarray]]:
+    """(w - 1 as uint32, [plane0 .. plane3] as uint32 byte values) of
+    uint32 values u."""
+    nat = native.dzbv_split(u)
+    if nat is not None:
+        return nat
     # width w[j] in [1,4] = smallest byte count holding u[j]
-    w = np.ones(n, dtype=np.int32)
+    w = np.ones(u.shape[0], dtype=np.int32)
     w[u > 0xFF] = 2
     w[u > 0xFFFF] = 3
     w[u > 0xFFFFFF] = 4
-    streams = {"widths": lmp_pack((w - 1).astype(np.uint32), 2)}
-    plane_lens = []
-    for k in range(4):
-        sel = u[w > k] if k else u  # plane0 holds byte 0 of all elements
-        plane = (sel >> np.uint32(8 * k)) & np.uint32(0xFF)
-        plane_lens.append(int(plane.shape[0]))
+    # plane0 holds byte 0 of all elements
+    planes = [((u[w > k] if k else u) >> np.uint32(8 * k)) & np.uint32(0xFF) for k in range(4)]
+    return (w - 1).astype(np.uint32), planes
+
+
+def encode(values: np.ndarray, *, name: str = "col") -> EncodedColumn:
+    values = np.asarray(values)
+    wm1, planes = split(dtype_to_u32(values))
+    streams = {"widths": lmp_pack(wm1, 2)}
+    for k, plane in enumerate(planes):
         streams[f"plane{k}"] = lmp_pack(plane, 8)
     return EncodedColumn(
         name=name,
         scheme="dzbv",
         dtype=str(values.dtype),
-        n=n,
-        params={"plane_lens": plane_lens},
+        n=values.shape[0],
+        params={"plane_lens": [int(p.shape[0]) for p in planes]},
         streams=streams,
     )
 

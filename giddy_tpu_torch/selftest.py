@@ -3,13 +3,16 @@ of the port.
 
 Counterpart of giddy_tpu/selftest.py. Decodes every core scheme
 (datagen.CORE_SCHEMES) on the device, compares bit for bit with the NumPy
-oracle, then runs the composite checks (64-bit, string, nullable and mixed
-columns, dense runs, a big dictionary, narrow stores) and the query
-layer's (filters, with the column-vs-column compare and a searched isin of
-more than 8 values; aggregates; GROUP BY; top-k; joins; zone maps;
-partitioned datasets), each against NumPy, and prints ONE JSON line. The
-reference's ``xor_mxu`` check (a TPU MXU path) and its roofline traffic
-audit have no counterpart here (ROADMAP.md, "Do not port").
+oracle and runs the traffic audit of each (roofline.traffic_audit: the
+decoder's temporary bytes and its traffic against the ideal and against
+speed of light), then runs the composite checks (64-bit, string, nullable
+and mixed columns, dense runs, a big dictionary, narrow stores, whose
+audited output is 1 or 2 bytes a value) and the query layer's (filters,
+with the column-vs-column compare and a searched isin of more than 8
+values; aggregates; GROUP BY; top-k; joins; zone maps; partitioned
+datasets), each against NumPy, and prints ONE JSON line. The reference's
+``xor_mxu`` check (a TPU MXU path) has no counterpart here (ROADMAP.md,
+"Do not port").
 
 Exit code 0 = every scheme and check exact; 1 = any mismatch or error.
 Runs on the card unless ``--device cpu`` is asked.
@@ -41,13 +44,17 @@ def _expect(ok, what) -> None:
         raise AssertionError(what)
 
 
-def run_selftest(n: int, seed: int = 0, *, device: torch.device | str = "cuda") -> dict:
-    """Every core scheme and every check at ``n`` values on ``device``.
-    Returns the report; ``report["pass"]`` is True only when every entry is
-    exact. A check that raises is recorded as a failure with its error."""
+def run_selftest(n: int, seed: int = 0, *, device: torch.device | str = "cuda", audit: bool = True) -> dict:
+    """Every core scheme and every check at ``n`` values on ``device``, and
+    with ``audit`` each core scheme's traffic audit (``temp_bytes``,
+    ``traffic_vs_ideal``, ``traffic_vs_sol``; None on the CPU, where torch
+    keeps no allocator statistics). Returns the report; ``report["pass"]``
+    is True only when every entry is exact. A check that raises is recorded
+    as a failure with its error."""
     import giddy_tpu_torch as gtt
     from giddy_tpu_torch.api import _decode_device
     from giddy_tpu_torch.datagen import gen_column
+    from giddy_tpu_torch.roofline import traffic_audit
 
     device = _decode_device(device)
     rng = np.random.default_rng(seed)
@@ -67,6 +74,11 @@ def run_selftest(n: int, seed: int = 0, *, device: torch.device | str = "cuda") 
             out = _host(gtt.decode(col, device=device))
             entry["decode_s"] = round(time.perf_counter() - t0, 3)
             entry["exact"] = bool(out.tobytes() == gtt.decode_ref(col).tobytes())
+            if audit:
+                a = traffic_audit(col, device)
+                entry["temp_bytes"] = a["temp_bytes"]
+                entry["traffic_vs_ideal"] = None if a["ratio"] is None else round(a["ratio"], 4)
+                entry["traffic_vs_sol"] = None if a["sol_ratio"] is None else round(a["sol_ratio"], 4)
         except Exception as e:  # the report's boundary: recorded, and the run fails
             entry["error"] = f"{type(e).__name__}: {e}"
             entry["traceback"] = traceback.format_exc()
@@ -170,8 +182,10 @@ def _check_rle_dense(n, rng, device):
 
 def _check_narrow_store(n, rng, device):
     """int8/int16 columns decode into storage-width outputs: the decoder's
-    padded output is 1 or 2 bytes a value and the values bit-exact."""
+    padded output, and the traffic audit's ``out_bytes``, is 1 or 2 bytes a
+    value and the values bit-exact."""
     import giddy_tpu_torch as gtt
+    from giddy_tpu_torch.roofline import traffic_audit
     from giddy_tpu_torch.util import GROUP
 
     cases = [
@@ -190,15 +204,21 @@ def _check_narrow_store(n, rng, device):
     for scheme, v in cases:
         opts = {"codes_scheme": "rle"} if scheme == "cascade" else {}
         col = gtt.encode(v, scheme, **opts)
+        n_pad = -(-v.shape[0] // GROUP) * GROUP
         padded = gtt.decode(col, device=device, pad=True)
         _expect(padded.element_size() == v.dtype.itemsize, f"narrow {scheme}: {padded.dtype} store")
-        _expect(padded.numel() == -(-v.shape[0] // GROUP) * GROUP, f"narrow {scheme}: padded length")
+        _expect(padded.numel() == n_pad, f"narrow {scheme}: padded length")
         out = _host(padded[: v.shape[0]])
         _expect(out.dtype == v.dtype and (out == v).all(), f"narrow {scheme}")
+        a = traffic_audit(col, device)
+        _expect(a["out_bytes"] == n_pad * v.dtype.itemsize, f"narrow {scheme}: audited {a}")
     nb = 40 * GROUP + 13  # many groups at a narrow store
     vb = rng.integers(0, 200, nb).astype(np.uint8)
-    outb = _host(gtt.decode(gtt.encode(vb, "nbit"), device=device))
+    colb = gtt.encode(vb, "nbit")
+    outb = _host(gtt.decode(colb, device=device))
     _expect(outb.dtype == vb.dtype and (outb == vb).all(), "narrow multi-block")
+    ab = traffic_audit(colb, device)
+    _expect(ab["out_bytes"] == 41 * GROUP, f"narrow multi-block store: audited {ab}")
 
 
 def _check_query_filters(n, rng, device):

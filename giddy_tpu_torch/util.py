@@ -140,6 +140,12 @@ def u32_to_dtype(u: np.ndarray, dtype_name: str) -> np.ndarray:
 def zigzag(d: np.ndarray) -> np.ndarray:
     """Signed int32 -> unsigned zigzag (FORMAT.md §0.2)."""
     d = d.astype(np.int32, copy=False)
+    if d.ndim == 1:
+        from . import native
+
+        nat = native.zigzag(d)
+        if nat is not None:
+            return nat
     return ((d.astype(np.uint32) << U32(1)) ^ (d >> 31).astype(np.uint32)).astype(
         np.uint32
     )
@@ -148,6 +154,12 @@ def zigzag(d: np.ndarray) -> np.ndarray:
 def unzigzag(z: np.ndarray) -> np.ndarray:
     """Unsigned zigzag -> signed int32 (FORMAT.md §0.2)."""
     z = z.astype(np.uint32, copy=False)
+    if z.ndim == 1:
+        from . import native
+
+        nat = native.unzigzag(z)
+        if nat is not None:
+            return nat
     return ((z >> U32(1)) ^ (-(z & U32(1)).astype(np.int32)).astype(np.uint32)).astype(
         np.int32
     )

@@ -14,6 +14,7 @@ import torch
 
 import giddy_tpu_torch as gtt
 from giddy_tpu_torch import aggregate, kernels, nulls, query
+from giddy_tpu_torch.datagen import CORE_SCHEMES
 from giddy_tpu_torch.groupby import _codes_device_column
 from giddy_tpu_torch.kernels import _wrap, agg, cascade, delta2, dict_, dzbv, encode, filter_, lanes, nbit, patch, rle
 from giddy_tpu_torch.ref import lmp as ref_lmp
@@ -1376,6 +1377,65 @@ def test_selftest_on_card(cuda):
     r = selftest.run_selftest(2 * GROUP + 999, device=cuda)
     assert r["pass"], {k: v.get("error") for k, v in r["schemes"].items() if not v["exact"]}
     assert r["device"] == "cuda" and r["device_kind"] == torch.cuda.get_device_name(0)
+    for scheme in selftest.SCHEMES:  # the audit ran on the card for every core scheme
+        e = r["schemes"][scheme]
+        assert e["temp_bytes"] == 0 and e["traffic_vs_ideal"] == 1.0 and e["traffic_vs_sol"] <= SOL_CAP, (scheme, e)
+
+
+# The single-pass cap of the reference's audit (tests/test_roofline.py
+# SOL_CAP): traffic over compressed + padded output. A ratio r caps the
+# decode at 1/r of speed of light.
+SOL_CAP = 1.15
+
+
+@pytest.mark.parametrize("scheme", CORE_SCHEMES)
+def test_traffic_audit_single_pass(cuda, scheme):
+    """Every core scheme's decoder, as ``decode`` dispatches it, allocates
+    nothing but its output (temp_bytes == 0) and its traffic stays within
+    SOL_CAP of compressed + decoded bytes."""
+    from giddy_tpu_torch import roofline
+    from giddy_tpu_torch.datagen import gen_column
+
+    col = gtt.encode(gen_column(scheme, 8 * GROUP, rng_of(f"cuda/audit/{scheme}")), scheme)
+    a = roofline.traffic_audit(col, cuda)
+    assert a["interpreted"] is False and a["out_bytes"] == 8 * GROUP * 4
+    assert a["temp_bytes"] == 0 and a["ratio"] == 1.0 and a["traffic_bytes"] == a["ideal_bytes"], a
+    assert a["sol_ratio"] <= SOL_CAP, a
+
+
+def test_traffic_audit_sees_a_temporary(cuda):
+    """The audit counts what a decoder allocates beside its output: rle's
+    scatter form (runs of ~4) scatters into a dense (ng, GROUP) int32 array
+    before K6, which shows as at least n_pad * 4 temporary bytes."""
+    from giddy_tpu_torch import roofline
+
+    col = gtt.encode(_run_values("dense", rng_of("cuda/audit/dense")), "rle")
+    assert "pos" in gtt.device_streams(col, cuda)
+    a = roofline.traffic_audit(col, cuda)
+    assert a["temp_bytes"] >= a["out_bytes"] and a["ratio"] > SOL_CAP, a
+
+
+def test_traffic_audit_leaves_out_the_allocators_slack(cuda):
+    """The caching allocator may serve the output from a cached block up to
+    1 MB larger than it (380,928 such bytes under delta2 at n = 2^22 + 999
+    on an NVIDIA H100 80GB HBM3): that block is the output's, not a
+    temporary."""
+    from giddy_tpu_torch import roofline
+    from giddy_tpu_torch.datagen import gen_column
+
+    n = 40 * GROUP
+    col = gtt.encode(gen_column("delta2", n, rng_of("cuda/audit/slack")), "delta2")
+    torch.cuda.empty_cache()
+    spare = torch.empty(n * 4 + 380_928, dtype=torch.uint8, device=cuda)
+    del spare  # cached: the decoder's output takes it whole
+    a = roofline.traffic_audit(col, cuda)
+    assert a["temp_bytes"] == 0 and a["out_bytes"] == n * 4, a
+
+
+def test_chip_bw_of_this_card(cuda):
+    from giddy_tpu_torch import roofline
+
+    assert roofline.chip_bw() == roofline.HBM_BW[torch.cuda.get_device_name()]
 
 
 SHARDED_SCHEMES = ["nbit", "for", "delta", "dict", "rle", "patched", "alp", "dzbv", "cascade", "bitmap"]

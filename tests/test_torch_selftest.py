@@ -45,6 +45,23 @@ def test_names_are_the_reference_minus_xor_mxu(report):
     assert list(report["schemes"]) == list(jselftest.SCHEMES) + [c for c in want if c != "xor_mxu"]
 
 
+def test_every_core_scheme_is_audited(report):
+    """The reference's audit keys on every core scheme; on the CPU torch
+    keeps no allocator statistics, so the values are None (the card's are
+    held in tests/test_torch_cuda.py)."""
+    source = inspect.getsource(jselftest.run_selftest)
+    keys = ("temp_bytes", "traffic_vs_ideal", "traffic_vs_sol")
+    assert all(f'entry["{k}"]' in source for k in keys)
+    for scheme in selftest.SCHEMES:
+        assert {k: report["schemes"][scheme][k] for k in keys} == dict.fromkeys(keys), scheme
+
+
+def test_audit_can_be_left_out(monkeypatch):
+    monkeypatch.setattr(selftest, "CHECKS", ())
+    r = selftest.run_selftest(GROUP + 1, device="cpu", audit=False)
+    assert r["pass"] and all("temp_bytes" not in r["schemes"][s] for s in selftest.SCHEMES)
+
+
 def test_a_failing_check_fails_the_run(monkeypatch):
     """A check that raises is recorded with its error and the run fails;
     nothing turns it into a pass."""
