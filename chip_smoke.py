@@ -44,7 +44,13 @@ shards launch each kernel four times; ``dist_query`` count, sum and min of
 configs[0], ``group_reduce_sharded`` and the wide ``sum_sharded`` on the
 lineitem columns, ``Table.join(mesh=)`` and ``Dataset.count(mesh=)``; a
 two-rank torch.distributed (gloo) drill on the card), and times them.
-Kernel bounds take the card's memory rate from ``roofline.chip_bw``.
+Kernel bounds take the card's memory rate from ``roofline.chip_bw`` and
+its issue rate from ``roofline.chip_rates``. Last, the ``[ops]`` phase
+checks the card's SM count against ``roofline.SM_CLOCK`` and takes the
+SASS census of every kernel at the cell it timed (``roofline.sass_census``
+on the built library's ``cuobjdump -sass``): instructions a value by pipe,
+the budget memory leaves them and the busiest pipe's floor beside the
+measured time, which no floor may exceed.
 
     python3 chip_smoke.py
 
@@ -94,11 +100,6 @@ EPILOGUE_SOURCE = "giddy_tpu_torch/csrc/epilogue_decode.cu"
 DZBV_SOURCE = "giddy_tpu_torch/csrc/dzbv_decode.cu"
 SCAN_SOURCE = "giddy_tpu_torch/csrc/scan_epilogue.cu"
 ENCODE_SOURCE = "giddy_tpu_torch/csrc/encode.cu"
-# The card's peak rate of 32-bit integer ALU operations for the bound
-# (NVIDIA's H100 SXM data sheet): half the 67 TFLOP/s float32 rate (64
-# INT32 lanes an SM against 128 FP32). Its memory rate is
-# roofline.chip_bw()'s for the card.
-INT_OPS_PER_S = 33.5e12
 DZBV_FORMS = {"tile": "dzbv_tile_decode", "group": "dzbv_group_decode", "plane": "dzbv_plane_decode"}
 OPS = ("eq", "ne", "lt", "le", "gt", "ge")
 # K16 and K17 write one word (or one to three partials) a lane, K18 B
@@ -186,22 +187,35 @@ def tensors(args) -> list[torch.Tensor]:
     return out
 
 
-def bound(name: str, args: tuple, out, in_bytes: int | None = None) -> tuple[float, str]:
-    """(ms, "bytes" or "operations"): the least time the card could take for
-    this call, the larger of its bytes (each input read once, each output
-    written once) over the memory rate and its integer operations over the
-    ALU rate, and which of the two it is. ``out`` is the output tensor, or
-    K17's tuple of partials. ``in_bytes``, when given, stands for the
-    arguments' bytes: the input the function needs where the arguments
-    hold padding it does not (see run_bytes)."""
+def bound_bytes(args: tuple, out, in_bytes: int | None = None) -> int:
+    """The bytes of a call: each input read once, each output written once.
+    ``out`` is the output tensor, or K17's tuple of partials. ``in_bytes``,
+    when given, stands for the arguments' bytes: the input the function
+    needs where the arguments hold padding it does not (see run_bytes)."""
     outs = out if isinstance(out, tuple) else (out,)
     if in_bytes is None:
         in_bytes = sum(t.numel() * t.element_size() for t in tensors(args))
-    nbytes = in_bytes + sum(t.numel() * t.element_size() for t in outs)
-    by_bytes = nbytes / roofline.chip_bw() * 1e3
+    return in_bytes + sum(t.numel() * t.element_size() for t in outs)
+
+
+def bound_values(name: str, args: tuple, out) -> int:
+    """The values a call counts its operations by: those it writes, or for
+    K16, K17 and K18 those it reads (n_pad)."""
+    outs = out if isinstance(out, tuple) else (out,)
+    return args[0].shape[0] * GROUP if name in PER_INPUT_VALUE else outs[0].numel()
+
+
+def bound(name: str, args: tuple, out, in_bytes: int | None = None) -> tuple[float, str]:
+    """(ms, "bytes" or "operations"): the least time the card could take for
+    this call, the larger of its bytes (bound_bytes) over the memory rate
+    and its integer operations (KERNELS' count, the least the function
+    needs) over the issue rate (roofline.chip_rates: four warp instructions
+    a clock an SM, the most that any mix of the integer pipes can retire;
+    the ALU pipe alone takes half of it), and which of the two it is."""
+    by_bytes = bound_bytes(args, out, in_bytes) / roofline.chip_bw() * 1e3
     ops = KERNELS[name][4]
-    values = args[0].shape[0] * GROUP if name in PER_INPUT_VALUE else outs[0].numel()
-    by_ops = (ops(args) if callable(ops) else ops) * values / INT_OPS_PER_S * 1e3
+    issue = roofline.chip_rates()["issue"]
+    by_ops = (ops(args) if callable(ops) else ops) * bound_values(name, args, out) / issue * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
@@ -1500,6 +1514,7 @@ def time_kernel(label: str, smi: str, name: str, args: tuple, nbytes: int, e2e, 
     out = wrapper(*args)
     compare(label, name, out, plain(*args))
     b_ms, b_by = bound(name, args, out, in_bytes)
+    cell = ops_cell(label, name, args, out, in_bytes)
     del out
     k_ms = cuda_ms(lambda: wrapper(*args))
     src = torch.empty(nbytes // 4, dtype=torch.int32, device=CUDA)
@@ -1516,7 +1531,16 @@ def time_kernel(label: str, smi: str, name: str, args: tuple, nbytes: int, e2e, 
           f"(medians of 20 / 20 / 10 / {e2e_runs} runs, the rest of 10 unless stated); bound {b_ms:.4f} ms by {b_by}, kernel at "
           f"{b_ms / k_ms:.3f} of it")
     torch.cuda.empty_cache()
-    return {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+    return {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "ops": dict(cell, ms=k_ms)}
+
+
+def ops_cell(label: str, name: str, args: tuple, out, in_bytes: int | None) -> dict:
+    """What the [ops] phase needs of a timed call: the launches of kernel
+    ``name`` on ``args`` (its wrapper module's census: instance, threads,
+    loop trips; nothing is launched), its values and its bound's bytes."""
+    return {"label": label, "name": name, "launches": kernels.WRAPPERS[name].census(name, args),
+            "values": bound_values(name, args, out), "bytes": bound_bytes(args, out, in_bytes)}
 
 
 def run_bytes(col, name: str, args: tuple) -> int | None:
@@ -1768,6 +1792,74 @@ def rank_cell(rank: tuple, smi: str) -> dict:
     _, timing = time_column(f"rle runs ~20 n=2^26 (_rank_call cell, T {tiles}, w_pad {w_pad})", v, col, smi)
     return {"cell": f"rle runs of 1-39 n=2^26, T {tiles}, w_pad {w_pad}", **timing,
             "kernel_over_bound": timing["bound_ms"] / timing["ms"]}
+
+
+# -- the [ops] phase -------------------------------------------------------------
+# The SASS census of each kernel at the cell its [time] line timed
+# (roofline.sass_census on the built library's cuobjdump -sass): its
+# instructions a value by pipe, the budget that memory leaves them, and the
+# busiest pipe's floor, the least instructions a value that must run times
+# the values over that pipe's rate at the maximum clock, beside the kernel's
+# measured time. It launches nothing.
+
+OPS_PIPES = [pipe for pipe in roofline.PER_SM_CLOCK if pipe != "issue"]
+
+
+def ops_line(cell: dict, sass: str, smi: str) -> None:
+    """One [ops] line; raises unless the census is closed (no unknown
+    opcode, every loop found declared) and no floor exceeds the kernel's
+    measured time."""
+    values, name, label = cell["values"], cell["name"], cell["label"]
+    c = roofline.census_of(cell["launches"], values, sass)
+    rates = roofline.chip_rates()
+    per_byte = cell["bytes"] / values / roofline.chip_bw()
+    budget = {pipe: rate * per_byte for pipe, rate in rates.items()}
+    floors = roofline.floors_ms(c, values)
+    busiest = max(OPS_PIPES, key=lambda pipe: floors[pipe])
+    top = max(OPS_PIPES, key=lambda pipe: c[f"{pipe}_per_elem"] / rates[pipe])
+    memory_bound = all(c[f"{pipe}_per_elem"] <= budget[pipe] for pipe in rates)
+    kernels_of = " + ".join(c["kernels"]) + (" (between them a torch cumsum, not counted)" if len(c["kernels"]) > 1 else "")
+    print(f"[ops] {label} on {smi}: {name} = {kernels_of}; census a value: issue {c['issue_per_elem']:.2f} ("
+          + ", ".join(f"{p} {c[f'{p}_per_elem']:.2f}" for p in (*OPS_PIPES, "uniform", "control", "unknown"))
+          + f"), busiest pipe {top}; budget a value: issue {budget['issue']:.2f}, "
+          + ", ".join(f"{p} {budget[p]:.2f}" for p in OPS_PIPES)
+          + f"; memory_bound {memory_bound}; has_unbounded_loop {c['has_unbounded_loop']}; least that must run a "
+          f"value: issue {c['floor_issue_per_elem']:.2f}, {busiest} {c[f'floor_{busiest}_per_elem']:.2f}; floors at "
+          f"the maximum clock: issue {floors['issue']:.4f} ms, busiest pipe {busiest} {floors[busiest]:.4f} ms; "
+          f"kernel {cell['ms']:.4f} ms (busiest floor/kernel {floors[busiest] / cell['ms']:.3f}, issue "
+          f"{floors['issue'] / cell['ms']:.3f})", flush=True)
+    check(c["unknown_per_elem"] == 0, f"[ops] {label}: {name}'s census holds unknown opcodes: "
+          f"{[op for op in c['ops_per_elem'] if op.startswith('?')]}")
+    check(not c["loops_mismatch"], f"[ops] {label}: {name}: the loops found in SASS are not those declared "
+          f"(found {c['loops']})")
+    for pipe, ms in floors.items():
+        check(ms <= cell["ms"], f"[ops] {label}: {name}'s {pipe} floor {ms:.4f} ms exceeds its measured "
+              f"{cell['ms']:.4f} ms: a rate or an opcode's class is wrong")
+
+
+def ops_phase(cells: dict, rank: dict, smi: str) -> None:
+    """The [ops] phase: the card's SM count and maximum clock against
+    roofline.SM_CLOCK, then an [ops] line for each KERNELS row at its timed
+    cell (K5 also at the _rank_call cell)."""
+    t0 = time.perf_counter()
+    name = torch.cuda.get_device_name(0)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
+                           capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
+    want_sms, want_clock = roofline.SM_CLOCK[name]
+    print(f"[ops] {name} on {smi}: {sms} SMs (roofline.SM_CLOCK {want_sms}), nvidia-smi clocks.max.sm {clock} "
+          f"(roofline.SM_CLOCK {want_clock / 1e6:.0f} MHz); rates a second: "
+          + ", ".join(f"{pipe} {rate:.4g}" for pipe, rate in roofline.chip_rates().items()))
+    check(sms == want_sms, f"[ops] {name} has {sms} SMs, roofline.SM_CLOCK says {want_sms}")
+    t1 = time.perf_counter()
+    sass = roofline.library_sass()
+    t2 = time.perf_counter()
+    for kernel in KERNELS:
+        ops_line(cells[kernel], sass, smi)
+        if kernel == "run_expand":
+            ops_line(rank, sass, smi)
+    print(f"[time] the [ops] phase: {time.perf_counter() - t0:.1f} s (cuobjdump -sass and cu++filt, or the "
+          f"cached text, {t2 - t1:.1f} s; the census of {len(KERNELS) + 1} cells {time.perf_counter() - t2:.1f} s)")
 
 
 # -- the analytic phase --------------------------------------------------------
@@ -2902,6 +2994,8 @@ def main() -> int:
         check(count >= 1, f"{name} was launched {count} times on the main path")
     for form, count in forms.items():
         check(count >= 1, f"K5's {form} form was launched {count} times on the main path")
+    cells = {name: timing.pop("ops") for name, timing in timings.items()}
+    ops_phase(cells, rank_timing.pop("ops"), smi)
     rank_timing["launches"] = forms["rank"]
     extra = {"cascade_lut": {"stage_of": "K1/K2/K3/K5/K6/K7"},
              "run_expand": {"launches_by_form": forms, "rank_form": rank_timing}}

@@ -10,6 +10,9 @@ dictionary of cascade's fused stage (kernels/cascade.py).
 from __future__ import annotations
 
 import functools
+import inspect
+import math
+from typing import NamedTuple
 
 import torch
 
@@ -216,3 +219,123 @@ def launch(fn_name: str, device: torch.device, *args) -> None:
         rc = getattr(_build.lib(), fn_name)(*args, torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{fn_name}: CUDA error {rc} at launch")
+
+
+# -- what roofline.ops_audit needs of a launch ---------------------------------
+
+
+class Launch(NamedTuple):
+    """One kernel launch of a wrapper call, for the SASS census
+    (roofline.sass_census): the instance's name as roofline.kernel_key
+    gives it (a template instance is a SASS function of its own), the
+    threads launched, and its loops' trips in SASS order: the times a warp
+    runs the body, averaged over the warps launched, per run of the
+    enclosing loop's body; None where the trips are data."""
+
+    kernel: str
+    threads: int
+    trips: tuple = ()
+
+
+def bind(fn, args: tuple) -> dict:
+    """The arguments ``args`` of wrapper ``fn`` by name, defaults filled in."""
+    bound = inspect.signature(fn).bind(*args)
+    bound.apply_defaults()
+    return bound.arguments
+
+
+# The output type T of a kernel instance, as the demangled name spells it.
+T_NAME = {torch.int32: "unsigned int", torch.int16: "unsigned short", torch.uint8: "unsigned char"}
+
+
+def lut_mode(lut: torch.Tensor | None, static_words: int = 0) -> int:
+    """The gt::LutMode a launch with ``lut`` takes (choose_lut in
+    csrc/lmp.cuh): 0 without a table, 1 when it fits a block's shared
+    memory beside the kernel's ``static_words`` of its own, else 2."""
+    if lut is None:
+        return 0
+    return 1 if _build.lib().gt_dict_shared(lut.shape[0] + static_words) else 2
+
+
+def strided_trips(n: int, block: int = LANES) -> float:
+    """Trips of ``for (j = threadIdx.x; j < n; j += block)`` (a block
+    copying a table), averaged over the block's warps: warp w runs it
+    while one of its lanes has j < n."""
+    warps = block // 32
+    return sum(max(0, math.ceil((n - 32 * w) / block)) for w in range(warps)) / warps
+
+
+def lut_trips(lut: torch.Tensor | None, mode: int) -> tuple:
+    """The table copy's loop, which only the shared-memory instance has."""
+    return (strided_trips(lut.shape[0]),) if mode == 1 else ()
+
+
+def exception_trips(count: int, ng: int) -> tuple:
+    """gt::patch_group's two loops (csrc/lmp.cuh), or none of their runs
+    when there is no exception (it returns first): the binary search, run
+    by warp 0 (two lanes) at most bit_length(count) times, and the write
+    of a group's exceptions, a lane each, which takes at least count / 32
+    warp runs over the column (exact when each group's exceptions fill
+    whole warps). Averaged over the ng * 32 warps."""
+    if count == 0:
+        return (0, 0)
+    return (count.bit_length() / 32, count / 32 / (ng * 32))
+
+
+def init_trips(stages: int) -> tuple[int, int, int]:
+    """How the compiler runs walk_tiles' loop over the stages' barriers,
+    ``for (s = 0; s < stages; ++s)``, in its SASS: a body of 16 a turn
+    while more than 12 of the multiple of 4 remain (then 8 inline when more
+    than 4 do), a body of 4 a turn for the rest of that multiple, and a
+    body of 1 for stages % 4."""
+    rest = stages & 3
+    whole = stages - rest if stages >= 4 else 0
+    t16 = max(0, math.ceil((whole - 12) / 16))
+    whole -= 16 * t16
+    if whole > 4:
+        whole -= 8
+    return t16, whole // 4, rest
+
+
+def walk_trips(ng: int, bits: int, nullable: bool, stages: int, grid: int, inline_wait: bool = False) -> tuple:
+    """The 21 loops of one copy of walk_tiles (csrc/scan_epilogue.cu) in
+    K16's and K17's SASS: the barrier loop (init_trips; thread 0), the
+    prefill loop over stages - 1 tiles and the tile loop, each holding
+    warp 0's issue: the compiler peels the first three turns of ``for (w =
+    lane; w < pieces; w += 32)`` and unrolls the rest by 4, and each bulk
+    copy is a loop over the lanes that start one (the copy's operands must
+    be warp-uniform): min(32, pieces) lanes in the first turn, pieces - 32
+    in the second; pieces <= 33 never reaches the third or the unrolled
+    rest. A block of 8 warps takes tiles b, b + grid, ...; it issues in
+    each prefill turn whose tile exists and in every tile turn but the last
+    stages - 1. Where the compiler keeps the mbarrier wait's retry loop
+    (barrier_wait's ``while (!done)``) inside the tile loop and not out of
+    line (``inline_wait``), it is one loop more, whose trips are the copy's
+    timing: charged once a tile."""
+    warps = 8
+    tiles = ng * TILES_PER_GROUP
+    pieces = bits + nullable
+    per_block = [math.ceil((tiles - b) / grid) for b in range(grid)]
+    prefill = sum(min(k, stages - 1) for k in per_block) / (grid * max(stages - 1, 1))
+    issuing = sum(max(0, k - stages + 1) for k in per_block) / max(sum(per_block), 1)
+    lanes = (min(32, pieces), max(0, min(32, pieces - 32)), 0)
+
+    def copies(share: float) -> tuple:
+        return (*(n * share / warps for n in lanes), 0, 0, 0, 0, 0)
+
+    init = tuple(t / warps for t in init_trips(stages))
+    wait = (None,) if inline_wait else ()
+    return (*init, stages - 1, *copies(prefill), tiles / grid, *copies(issuing), *wait)
+
+
+def scan_launch(kernel: str, packed: torch.Tensor, valid: torch.Tensor | None, bits: int, kind: str,
+                itemsize: int, inline_wait: bool = False) -> Launch:
+    """K16's or K17's launch on ``packed`` (``kernel`` its instance): the
+    grid of walk_args, and walk_trips for each copy of walk_tiles; a signed
+    kind's SASS holds the 32-bit copy first, then the narrow one."""
+    stages, grid = walk_args(packed, valid, bits)
+    trips = walk_trips(packed.shape[0], bits, valid is not None, stages, grid, inline_wait)
+    if kind == "i":
+        none = (0,) * len(trips)
+        trips = trips + none if itemsize == 4 else none + trips
+    return Launch(kernel, grid * 256, trips)

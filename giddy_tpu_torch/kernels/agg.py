@@ -41,3 +41,14 @@ def agg_fold(packed: torch.Tensor, refs_g: torch.Tensor | None, valid: torch.Ten
     )
     LAUNCHES += 1
     return outs
+
+
+def census(name: str, args: tuple) -> list[_wrap.Launch]:
+    """The launch of :func:`agg_fold` on ``args``, for roofline.ops_audit:
+    ``agg_fold_kernel<Kind, Agg>``, as filter_.census; the float min and
+    max keep their mbarrier wait's loop in the tile loop."""
+    a = _wrap.bind(agg_fold, args)
+    kind = _wrap.SCAN_KINDS.index(a["kind"])
+    return [_wrap.scan_launch(f"gt::agg_fold_kernel<(gt::Kind){kind}, (gt::Agg){AGGS.index(a['agg'])}>",
+                              a["packed"], a["valid"], a["bits"], a["kind"], a["itemsize"],
+                              inline_wait=a["kind"] == "f" and a["agg"] != "sum")]

@@ -15,6 +15,7 @@ import torch
 from .. import registry
 from ..format import EncodedColumn
 from ..ref import alp as ref_alp
+from ..util import LANES
 from . import _wrap, lanes
 
 LAUNCHES = 0
@@ -65,6 +66,15 @@ def args(col: EncodedColumn, streams: dict, out_store: torch.dtype) -> tuple:
     return (streams["packed"], streams["corr"], streams["refs_g"].reshape(-1), streams["patch_pos"],
             streams["patch_val"], p["bits"], p["corr_bits"], ref_alp.scale_bits(p["exp_e"]), p["count"])
 
+
+
+def census(name: str, args: tuple) -> list[_wrap.Launch]:
+    """The launch of :func:`alp_decode` on ``args``, for roofline.ops_audit:
+    ``alp_decode_kernel``, a block of 1024 threads a group, whose loops
+    are the exception phase's (_wrap.exception_trips)."""
+    a = _wrap.bind(alp_decode, args)
+    ng = a["packed"].shape[0]
+    return [_wrap.Launch("gt::alp_decode_kernel", ng * LANES, _wrap.exception_trips(a["count"], ng))]
 
 def build(col: EncodedColumn, out_store: torch.dtype = torch.int32):
     return lambda streams: alp_decode(*args(col, streams, out_store)).reshape(-1)

@@ -46,6 +46,17 @@ def args(col: EncodedColumn, streams: dict, out_store: torch.dtype) -> tuple:
     return streams["bitmaps"].reshape(values.shape[0], -1), values, num_groups(col.n), out_store
 
 
+
+def census(name: str, args: tuple) -> list[_wrap.Launch]:
+    """The launch of :func:`bitmap_decode` on ``args``, for
+    roofline.ops_audit: ``bitmap_decode_kernel<T>``, a block of 1024
+    threads a group, its loop over the d planes unrolled by 4
+    (``#pragma unroll 4``, csrc/epilogue_decode.cu): d // 4 turns of the
+    unrolled body, then d % 4 of the remainder loop."""
+    a = _wrap.bind(bitmap_decode, args)
+    d = a["values"].shape[0]
+    return [_wrap.Launch(f"gt::bitmap_decode_kernel<{_wrap.T_NAME[a['out_dtype']]}>", a["ng"] * LANES, (d // 4, d % 4))]
+
 def build(col: EncodedColumn, out_store: torch.dtype = torch.int32):
     if col.params["d"] == 0:
         # empty column: no planes; the padded output is zeros, as the

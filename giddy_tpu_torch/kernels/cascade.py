@@ -59,6 +59,15 @@ def cascade_lut(name: str, args: tuple) -> torch.Tensor:
     return out
 
 
+
+def census(name: str, args: tuple) -> list:
+    """The launch of :func:`cascade_lut` on ``args`` (roofline.ops_audit):
+    the inner kernel's, with its table."""
+    from . import WRAPPERS
+
+    inner, inner_args = args
+    return WRAPPERS[inner].census(inner, inner_args)
+
 def build(col: EncodedColumn, out_store: torch.dtype = torch.int32):
     if col.params["dict_size"] == 0:
         # empty column, no dictionary: the padded codes are all zero, as

@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import torch
 
-from ..util import GROUP
+from ..util import GROUP, LANES
 from . import _wrap, lanes
 
 LAUNCHES = 0
@@ -27,3 +27,14 @@ def cumsum_rows(x: torch.Tensor, out_dtype: torch.dtype = torch.int32, lut: torc
     _wrap.launch("gt_cumsum_rows", x.device, x.data_ptr(), out.data_ptr(), ng, _wrap.OUT_BYTES[out_dtype], *table)
     LAUNCHES += 1
     return out
+
+
+def census(name: str, args: tuple) -> list[_wrap.Launch]:
+    """The launch of :func:`cumsum_rows` on ``args``, for roofline.ops_audit:
+    ``cumsum_rows_kernel<T, LutMode>``, a block of 1024 threads a group;
+    its only loop is the table's copy (kShared; the kernel's 64 words of
+    warp totals beside it)."""
+    a = _wrap.bind(cumsum_rows, args)
+    mode = _wrap.lut_mode(a["lut"], static_words=64)
+    return [_wrap.Launch(f"gt::cumsum_rows_kernel<{_wrap.T_NAME[a['out_dtype']]}, (gt::LutMode){mode}>",
+                         a["x"].shape[0] * LANES, _wrap.lut_trips(a["lut"], mode))]

@@ -10,6 +10,7 @@ import torch
 
 from .. import registry
 from ..format import EncodedColumn
+from ..util import LANES
 from . import _wrap, lanes
 
 LAUNCHES = 0
@@ -37,6 +38,17 @@ def args(col: EncodedColumn, streams: dict, out_store: torch.dtype) -> tuple:
     """The arguments of :func:`delta_decode` that decode ``col``."""
     return streams["packed"], streams["anchors"], col.params["bits"], out_store
 
+
+def census(name: str, args: tuple) -> list[_wrap.Launch]:
+    """The launch of :func:`delta_decode` on ``args``, for roofline.ops_audit:
+    ``delta_decode_kernel<T, LutMode>``, a block of
+    1024 threads a group: the table's copy (kShared; the kernel's 64 words
+    of warp totals share the block's memory with it), then the 32 slots'
+    loop, which the compiler keeps rolled two slots a turn."""
+    a = _wrap.bind(delta_decode, args)
+    mode = _wrap.lut_mode(a["lut"], static_words=64)
+    return [_wrap.Launch(f"gt::delta_decode_kernel<{_wrap.T_NAME[a['out_dtype']]}, (gt::LutMode){mode}>",
+                         a["packed"].shape[0] * LANES, (*_wrap.lut_trips(a["lut"], mode), 16))]
 
 def build(col: EncodedColumn, out_store: torch.dtype = torch.int32):
     return lambda streams: delta_decode(*args(col, streams, out_store)).reshape(-1)

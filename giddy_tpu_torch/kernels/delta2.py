@@ -14,6 +14,7 @@ import torch
 
 from .. import registry
 from ..format import EncodedColumn
+from ..util import LANES
 from . import _build, _wrap, lanes
 
 LAUNCHES = 0
@@ -60,6 +61,19 @@ def args(col: EncodedColumn, streams: dict, out_store: torch.dtype) -> tuple:
     """The arguments of :func:`delta2_decode` that decode ``col``."""
     return streams["packed"], streams["anchors"], streams["slopes"], col.params["bits"], out_store
 
+
+
+def census(name: str, args: tuple) -> list[_wrap.Launch]:
+    """The launch of :func:`delta2_decode` on ``args``, for
+    roofline.ops_audit: ``delta2_decode_kernel<T, LutMode>``, a block of
+    1024 threads a group: the table's copy (kShared, where
+    :func:`lut_in_shared` says), then the two passes, kept rolled
+    (``#pragma unroll 1``)."""
+    a = _wrap.bind(delta2_decode, args)
+    lut = a["lut"]
+    mode = 0 if lut is None else 1 if lut_in_shared(lut.shape[0]) else 2
+    return [_wrap.Launch(f"gt::delta2_decode_kernel<{_wrap.T_NAME[a['out_dtype']]}, (gt::LutMode){mode}>",
+                         a["packed"].shape[0] * LANES, (*_wrap.lut_trips(lut, mode), 2))]
 
 def build(col: EncodedColumn, out_store: torch.dtype = torch.int32):
     return lambda streams: delta2_decode(*args(col, streams, out_store)).reshape(-1)

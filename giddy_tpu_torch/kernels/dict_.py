@@ -13,7 +13,7 @@ import torch
 
 from .. import registry
 from ..format import EncodedColumn
-from ..util import GROUP
+from ..util import GROUP, LANES
 from . import _build, _wrap, lanes
 
 LAUNCHES = 0
@@ -46,6 +46,16 @@ def args(col: EncodedColumn, streams: dict, out_store: torch.dtype) -> tuple:
     """The arguments of :func:`dict_decode` that decode ``col`` (d >= 1)."""
     return streams["codes"], streams["values"], col.params["bits"], out_store
 
+
+def census(name: str, args: tuple) -> list[_wrap.Launch]:
+    """The launch of :func:`dict_decode` on ``args``, for roofline.ops_audit:
+    K1's ``lmp_unpack_kernel<T, LutMode>`` with the
+    dictionary as its table, in shared memory (and the table's copy its
+    loop) or read from global memory."""
+    a = _wrap.bind(dict_decode, args)
+    mode = _wrap.lut_mode(a["values"])
+    return [_wrap.Launch(f"gt::lmp_unpack_kernel<{_wrap.T_NAME[a['out_dtype']]}, (gt::LutMode){mode}>",
+                         a["codes"].shape[0] * LANES, _wrap.lut_trips(a["values"], mode))]
 
 def build(col: EncodedColumn, out_store: torch.dtype = torch.int32):
     if col.params["dict_size"] == 0:

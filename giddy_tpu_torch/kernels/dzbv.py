@@ -395,6 +395,42 @@ _WRAPPERS = {"dzbv_tile_decode": dzbv_tile_decode, "dzbv_group_decode": dzbv_gro
              "dzbv_plane_decode": dzbv_plane_decode}
 
 
+
+_FORMS = {"dzbv_tile_decode": 0, "dzbv_group_decode": 1, "dzbv_plane_decode": 2}  # gt::DzbvForm
+
+
+def census(name: str, args: tuple) -> list[_wrap.Launch]:
+    """The launches of kernel ``name`` on ``args``, for roofline.ops_audit:
+    ``dzbv_staged_kernel<T, DzbvForm, P>`` (P the highest plane present), a
+    block of 1024 threads a group, and for K15 first its count kernel (the
+    torch cumsum between them is no kernel of the port's). For each plane
+    below P, warp 0 stages the group's row in 2 KB bulk copies, a turn of
+    ``for (b = lane * 2048; b < bytes; b += 64 KB)`` and in each turn a
+    loop over the lanes that start a copy (its operands must be
+    warp-uniform); then phase 1's rolled loop of 8 turns (``#pragma unroll
+    1``, four slots a turn) and the rotation of the staged 4 KB (K13: 512 B)
+    blocks, a turn a block for each team of 8 warps (K13: of one). K15's
+    windows, and so the bytes of its copies and its rotation, are data."""
+    widths, _plane0, planes, out_dtype = _wrap.bind(_WRAPPERS[name], args).values()
+    form = _FORMS[name]
+    top = max((k + 1 for k, t in enumerate(planes) if t is not None), default=0)
+    ng = widths.shape[0]
+    trips: tuple = ()
+    if top and form == 2:
+        trips = (None, None) * top + (8, None)
+    elif top:
+        bytes_ = [0 if t is None else t.shape[1] * 4 for t in planes[:top]]
+        for b in bytes_:
+            turns = math.ceil(b / 65536)
+            trips += (turns / 32, b / 2048 / turns) if turns else (0, 0)
+        block, teams = (512, 32) if form == 0 else (4096, 4)
+        total = sum(bytes_)
+        rotate = sum(max(0, math.ceil((total - t * block) / (teams * block))) for t in range(teams)) / teams
+        trips += (8, rotate)
+    kernel = f"gt::dzbv_staged_kernel<{_wrap.T_NAME[out_dtype]}, (gt::DzbvForm){form}, (int){top}>"
+    decode = _wrap.Launch(kernel, ng * LANES, trips)
+    return [_wrap.Launch("gt::dzbv_plane_counts_kernel", ng * LANES), decode] if form == 2 else [decode]
+
 def build(col: EncodedColumn, out_store: torch.dtype = torch.int32):
     def decode(streams):
         name, args = kernel_call(col, streams, out_store)

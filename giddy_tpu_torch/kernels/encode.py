@@ -53,6 +53,16 @@ def lmp_pack(values: torch.Tensor, bits: int, prologue: str = "none", refs: torc
     return out
 
 
+
+def census(name: str, args: tuple) -> list[_wrap.Launch]:
+    """The launch of :func:`lmp_pack` on ``args``, for roofline.ops_audit:
+    ``lmp_pack_kernel<B, Prologue>``, a block of 1024 threads a group, no
+    loop (the FOR prologue's frame index may call the compiler's 64-bit
+    division, a subroutine the census counts at its call)."""
+    a = _wrap.bind(lmp_pack, args)
+    kernel = f"gt::lmp_pack_kernel<(int){a['bits']}, (gt::Prologue){_wrap.PROLOGUES.index(a['prologue'])}>"
+    return [_wrap.Launch(kernel, a["values"].shape[0] * LANES)]
+
 def _rows(values: torch.Tensor) -> torch.Tensor:
     """Flat payloads padded to whole GROUPs -> (ng, GROUP) int32."""
     if values.dtype == torch.uint32:

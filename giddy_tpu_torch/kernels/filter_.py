@@ -39,3 +39,15 @@ def filter_fold(packed: torch.Tensor, refs_g: torch.Tensor | None, valid: torch.
     )
     LAUNCHES += 1
     return out
+
+
+def census(name: str, args: tuple) -> list[_wrap.Launch]:
+    """The launch of :func:`filter_fold` on ``args``, for
+    roofline.ops_audit: ``filter_fold_kernel<Kind, Op>`` on a grid of
+    blocks of 256 threads (_wrap.walk_args), whose loops are walk_tiles'
+    (_wrap.walk_trips); a signed kind has a copy for the narrow widths and
+    one for 32 bits (by_width), and only the one the itemsize picks runs."""
+    a = _wrap.bind(filter_fold, args)
+    kind = _wrap.SCAN_KINDS.index(a["kind"])
+    return [_wrap.scan_launch(f"gt::filter_fold_kernel<(gt::Kind){kind}, (gt::Op){OPS.index(a['op'])}>",
+                              a["packed"], a["valid"], a["bits"], a["kind"], a["itemsize"])]

@@ -11,7 +11,7 @@ import torch
 
 from .. import registry
 from ..format import EncodedColumn
-from ..util import GROUP, num_groups
+from ..util import GROUP, LANES, num_groups
 from . import _wrap, lanes
 
 LAUNCHES = 0
@@ -48,6 +48,15 @@ def args(col: EncodedColumn, streams: dict, out_store: torch.dtype) -> tuple:
     """The arguments of :func:`for_unpack` that decode ``col`` (prepped streams)."""
     return streams["packed"], streams["refs_g"], col.params["bits"], out_store
 
+
+def census(name: str, args: tuple) -> list[_wrap.Launch]:
+    """The launch of :func:`for_unpack` on ``args``, for roofline.ops_audit:
+    ``for_unpack_kernel<T, LutMode>``, a block of
+    1024 threads a group; its only loop is the table's copy (kShared)."""
+    a = _wrap.bind(for_unpack, args)
+    mode = _wrap.lut_mode(a["lut"])
+    return [_wrap.Launch(f"gt::for_unpack_kernel<{_wrap.T_NAME[a['out_dtype']]}, (gt::LutMode){mode}>",
+                         a["packed"].shape[0] * LANES, _wrap.lut_trips(a["lut"], mode))]
 
 def build(col: EncodedColumn, out_store: torch.dtype = torch.int32):
     return lambda streams: for_unpack(*args(col, streams, out_store)).reshape(-1)

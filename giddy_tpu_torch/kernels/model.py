@@ -13,7 +13,7 @@ import torch
 
 from .. import registry
 from ..format import EncodedColumn
-from ..util import GROUP, num_groups
+from ..util import GROUP, LANES, num_groups
 from . import _wrap, lanes
 
 LAUNCHES = 0
@@ -71,6 +71,15 @@ def args(col: EncodedColumn, streams: dict, out_store: torch.dtype) -> tuple:
     side = [streams[k].reshape(-1) if k in streams else None for k in ("a_g", "b_g", "c_g")]
     return (streams["packed"], *side, col.params["bits"], out_store)
 
+
+
+def census(name: str, args: tuple) -> list[_wrap.Launch]:
+    """The launch of :func:`model_decode` on ``args``, for
+    roofline.ops_audit: ``model_decode_kernel<T, kPoly2>``, a block of 1024
+    threads a group, no loop."""
+    a = _wrap.bind(model_decode, args)
+    kernel = f"gt::model_decode_kernel<{_wrap.T_NAME[a['out_dtype']]}, (bool){int(a['c_g'] is not None)}>"
+    return [_wrap.Launch(kernel, a["packed"].shape[0] * LANES)]
 
 def build(col: EncodedColumn, out_store: torch.dtype = torch.int32):
     return lambda streams: model_decode(*args(col, streams, out_store)).reshape(-1)

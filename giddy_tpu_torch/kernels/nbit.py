@@ -9,6 +9,7 @@ import torch
 
 from .. import registry
 from ..format import EncodedColumn
+from ..util import LANES
 from . import _wrap, lanes
 
 LAUNCHES = 0
@@ -36,6 +37,15 @@ def args(col: EncodedColumn, streams: dict, out_store: torch.dtype) -> tuple:
     bits = col.params["bits"] if col.scheme == "nbit" else 8 * col.params["width"]
     return streams["packed"], bits, out_store
 
+
+def census(name: str, args: tuple) -> list[_wrap.Launch]:
+    """The launch of :func:`lmp_unpack` on ``args``, for roofline.ops_audit:
+    ``lmp_unpack_kernel<T, LutMode>``, a block of
+    1024 threads a group; its only loop is the table's copy (kShared)."""
+    a = _wrap.bind(lmp_unpack, args)
+    mode = _wrap.lut_mode(a["lut"])
+    return [_wrap.Launch(f"gt::lmp_unpack_kernel<{_wrap.T_NAME[a['out_dtype']]}, (gt::LutMode){mode}>",
+                         a["packed"].shape[0] * LANES, _wrap.lut_trips(a["lut"], mode))]
 
 def build(col: EncodedColumn, out_store: torch.dtype = torch.int32):
     return lambda streams: lmp_unpack(*args(col, streams, out_store)).reshape(-1)

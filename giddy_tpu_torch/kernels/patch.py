@@ -13,7 +13,7 @@ import torch
 
 from .. import registry
 from ..format import EncodedColumn
-from ..util import GROUP, num_groups
+from ..util import GROUP, LANES, num_groups
 from . import _wrap, delta, lanes
 
 LAUNCHES = 0
@@ -68,6 +68,17 @@ def args(col: EncodedColumn, streams: dict, out_store: torch.dtype) -> tuple:
     return (streams["base_packed"], streams.get("base_refs_g"), positions(col, streams), streams["patch_val"],
             col.params["base_params"]["bits"], out_store)
 
+
+
+def census(name: str, args: tuple) -> list[_wrap.Launch]:
+    """The launch of :func:`patched_decode` on ``args``, for
+    roofline.ops_audit: ``patched_decode_kernel<T, kFor>`` (kFor: with the
+    FOR references), a block of 1024 threads a group, whose loops are
+    the exception phase's (_wrap.exception_trips)."""
+    a = _wrap.bind(patched_decode, args)
+    ng = a["packed"].shape[0]
+    kernel = f"gt::patched_decode_kernel<{_wrap.T_NAME[a['out_dtype']]}, (bool){int(a['refs_g'] is not None)}>"
+    return [_wrap.Launch(kernel, ng * LANES, _wrap.exception_trips(a["pos"].shape[0], ng))]
 
 def build(col: EncodedColumn, out_store: torch.dtype = torch.int32):
     return lambda streams: patched_decode(*args(col, streams, out_store)).reshape(-1)

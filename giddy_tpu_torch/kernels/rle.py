@@ -197,6 +197,21 @@ def scatter_dense(pos: torch.Tensor, dv: torch.Tensor, ng: int) -> torch.Tensor:
     return dense[:n].view(ng, GROUP)
 
 
+
+def census(name: str, args: tuple) -> list[_wrap.Launch]:
+    """The launch of :func:`run_expand` on ``args``, for roofline.ops_audit:
+    ``run_strip_kernel<T, LutMode, E>`` (E = max(1, w_pad / 32) entries a
+    lane; with a table kGlobal), blocks of 8 warps, a warp per 1024
+    positions of a group. Its loops are over positions, not runs: a warp's
+    spans (1024 / len of them, len = min(W, 1024) for tiles of W
+    positions) and, in each, the strip's steps of 128 positions."""
+    a = _wrap.bind(run_expand, args)
+    ng, w_pad = a["ng"], a["ends_w"].shape[1]
+    span = min(GROUP * ng // a["ends_w"].shape[0], 1024)
+    kernel = (f"gt::run_strip_kernel<{_wrap.T_NAME[a['out_dtype']]}, (gt::LutMode){0 if a['lut'] is None else 2}, "
+              f"(int){max(1, w_pad // 32)}>")
+    return [_wrap.Launch(kernel, ng * 1024, (1024 // span, span // 128))]
+
 def kernel_call(col: EncodedColumn, streams: dict, out_store: torch.dtype) -> tuple[str, tuple]:
     """(kernel name, wrapper arguments) of the kernel that decodes ``col``
     from its prepped streams: K5 for the tile form (a (ng, T, w_pad)

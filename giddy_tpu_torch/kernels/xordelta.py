@@ -11,6 +11,7 @@ import torch
 
 from .. import registry
 from ..format import EncodedColumn
+from ..util import LANES
 from . import _wrap, lanes
 
 LAUNCHES = 0
@@ -34,6 +35,14 @@ def args(col: EncodedColumn, streams: dict, out_store: torch.dtype) -> tuple:
     (``out_store`` is always int32 here: no narrow store)."""
     return streams["packed"], streams["anchors"], col.params["bits"]
 
+
+
+def census(name: str, args: tuple) -> list[_wrap.Launch]:
+    """The launch of :func:`xordelta_decode` on ``args``, for
+    roofline.ops_audit: ``xordelta_decode_kernel``, a block of 1024 threads
+    a group, its 32 slots' loop rolled two slots a turn."""
+    packed = _wrap.bind(xordelta_decode, args)["packed"]
+    return [_wrap.Launch("gt::xordelta_decode_kernel", packed.shape[0] * LANES, (16,))]
 
 def build(col: EncodedColumn, out_store: torch.dtype = torch.int32):
     return lambda streams: xordelta_decode(*args(col, streams, out_store)).reshape(-1)

@@ -1487,3 +1487,141 @@ def test_sharded_scans_on_card(cuda):
     r, w = dist_query.group_reduce_sharded(keys, col, ("count", "sum", "min", "max"), mesh=mesh), \
         groupby.group_reduce(keys, col, ("count", "sum", "min", "max"), device=cuda)
     assert all(np.array_equal(getattr(r, f), getattr(w, f)) for f in ("keys", "count", "sum", "min", "max"))
+
+
+# -- the SASS census (roofline.ops_audit, roofline.kernel_census) ---------------
+# The tiers of tests/test_ops_roofline.py, for Hopper. Every core scheme's
+# census at 8 * GROUP is closed (no unknown opcode, every loop declared).
+# Those under their budget in every pipe are memory-bound. The others have a
+# documented cap about 20% above the census the card gave (NVIDIA H100 80GB
+# HBM3, 700.00 W), on issue and on the ALU pipe, which is the one they pass:
+# - delta: the block-row scan a slot (a 5-step shuffle scan, two warp
+#   reductions, a barrier) for 2-3 bytes read;
+# - xordelta: the same scan with XOR, against a budget of 62 a value;
+# - alp: two lane unpacks (values and corrections), the float convert and
+#   multiply, and the exception phase.
+OPS_MEMORY_BOUND = ("nbit", "for", "delta2", "dict", "rle", "rpe", "model", "bitmap", "dzbf", "dzbv", "patched",
+                    "raw", "cascade")
+OPS_CAPS = {"delta": (79.0, 41.7), "xordelta": (74.3, 45.3), "alp": (68.5, 40.9)}  # (issue, alu) a value
+
+
+def _ops_column(scheme):
+    from giddy_tpu_torch.datagen import gen_column
+
+    return gtt.encode(gen_column(scheme, 8 * GROUP, rng_of(f"cuda/ops/{scheme}")), scheme)
+
+
+@pytest.mark.parametrize("scheme", CORE_SCHEMES)
+def test_ops_census_is_closed(cuda, scheme):
+    from giddy_tpu_torch import roofline
+
+    a = roofline.ops_audit(_ops_column(scheme), cuda)
+    assert a["interpreted"] is False and a["unknown_per_elem"] == 0 and not a["loops_mismatch"], a
+    assert (a["kernels"] == []) == (scheme == "raw")
+    assert all(a[f"floor_{p}_per_elem"] <= a[f"{p}_per_elem"] for p in roofline.PER_SM_CLOCK)
+
+
+@pytest.mark.parametrize("scheme", OPS_MEMORY_BOUND)
+def test_ops_memory_bound(cuda, scheme):
+    from giddy_tpu_torch import roofline
+
+    a = roofline.ops_audit(_ops_column(scheme), cuda)
+    assert a["memory_bound"] and a["issue_headroom"] >= 1, {k: a[k] for k in ("issue_per_elem", "budget")}
+
+
+@pytest.mark.parametrize("scheme", sorted(OPS_CAPS))
+def test_ops_caps(cuda, scheme):
+    from giddy_tpu_torch import roofline
+
+    a = roofline.ops_audit(_ops_column(scheme), cuda)
+    issue, alu = OPS_CAPS[scheme]
+    assert not a["memory_bound"] and a["issue_per_elem"] <= issue and a["alu_per_elem"] <= alu, a
+
+
+def test_ops_tiers_cover_all_schemes():
+    assert set(OPS_MEMORY_BOUND) | set(OPS_CAPS) == set(CORE_SCHEMES)
+    assert not set(OPS_MEMORY_BOUND) & set(OPS_CAPS)
+
+
+def test_card_rates_table(cuda):
+    from giddy_tpu_torch import roofline
+
+    name = torch.cuda.get_device_name(cuda)
+    assert torch.cuda.get_device_properties(cuda).multi_processor_count == roofline.SM_CLOCK[name][0]
+    assert roofline.chip_rates()["issue"] == 128 * roofline.SM_CLOCK[name][0] * roofline.SM_CLOCK[name][1]
+
+
+def _closed(name, args, values):
+    from giddy_tpu_torch import roofline
+
+    c = roofline.kernel_census(name, args, values)
+    assert c["unknown_per_elem"] == 0 and not c["loops_mismatch"], (name, c["kernels"], c["loops"])
+    return c
+
+
+@pytest.mark.parametrize("dtype", ["int32", "int16", "uint8"])
+@pytest.mark.parametrize("scheme", ["nbit", "for", "delta", "dict", "rle", "delta2", "patched", "model", "bitmap"])
+def test_ops_census_of_every_store_type(cuda, scheme, dtype):
+    """Each kernel's instance for each store type T, and K5 in each form."""
+    v = _values(scheme if scheme not in ("patched", "model", "bitmap") else "nbit", dtype, rng_of(f"ops/{scheme}"))
+    if scheme == "bitmap":
+        v = v % 5
+    col = gtt.encode(v, scheme)
+    name, args = kernels.kernel_call(col, gtt.device_streams(col, cuda), gtt.narrow_store_dtype(col))
+    c = _closed(name, args, 4 * GROUP)
+    assert _wrap.T_NAME[gtt.narrow_store_dtype(col)] in c["kernels"][0]
+
+
+@pytest.mark.parametrize("density", ["long", "mid", "single"])
+def test_ops_census_of_run_expand_forms(cuda, density):
+    col = gtt.encode(_run_values(density, rng_of(f"ops/rle/{density}")), "rle")
+    name, args = kernels.kernel_call(col, gtt.device_streams(col, cuda), torch.int32)
+    assert name == "run_expand"
+    _closed(name, args, 4 * GROUP)
+
+
+@pytest.mark.parametrize("d", [8, 1000, 65536])
+@pytest.mark.parametrize("inner", ["rle", "rpe", "delta", "delta2", "nbit", "for", "raw"])
+def test_ops_census_of_cascade_tables(cuda, inner, d):
+    """The LUT stage in shared memory (and its copy loop) and from global
+    memory, for each inner kernel."""
+    v, vocab = _cascade_values(d, np.random.default_rng(d))
+    col = gtt.encode(v, "cascade", codes_scheme=inner, dictionary=vocab)
+    name, args = kernels.kernel_call(col, gtt.device_streams(col, cuda), torch.int32)
+    _closed("cascade_lut", (name, args), 4 * GROUP)
+
+
+@pytest.mark.parametrize("form", ["tile", "group", "plane"])
+@pytest.mark.parametrize("kind", ["one_byte", "two_bytes", "mixed", "full"])
+def test_ops_census_of_dzbv_forms(cuda, form, kind):
+    """K13, K14 and K15 (with its count kernel) at each highest plane."""
+    col = gtt.encode(dzbv_values(kind, 3 * GROUP + 17, rng_of(f"ops/dzbv/{kind}")).view(np.int32), "dzbv")
+    streams = dzbv.form_streams(col, form)
+    name, args = kernels.kernel_call(col, gtt.upload(streams, cuda), torch.int32)
+    c = _closed(name, args, 4 * GROUP)
+    assert len(c["kernels"]) == (2 if name == "dzbv_plane_decode" else 1)
+
+
+@pytest.mark.parametrize("nullable", [False, True])
+@pytest.mark.parametrize("kind,itemsize", [("u", 4), ("u", 1), ("i", 4), ("i", 2), ("i", 1), ("f", 4)])
+def test_ops_census_of_scan_folds(cuda, kind, itemsize, nullable):
+    """K16 and K17 in every kind, with the narrow copy of a signed kind,
+    with and without validity words, on more tiles than the grid has
+    blocks."""
+    ng = torch.cuda.get_device_properties(cuda).multi_processor_count + 3
+    bits = 8 * itemsize - 1
+    packed = _words(rng_of(f"ops/fold/{kind}/{itemsize}"), (ng, bits * LANES), cuda)
+    valid = _words(rng_of("ops/fold/valid"), (ng, LANES), cuda) if nullable else None
+    for op in ("lt", "eq"):
+        _closed("filter_fold", (packed, None, valid, bits, kind, itemsize, op, 3), ng * GROUP)
+    for name in ("sum",) if nullable else ("sum", "min", "max"):
+        _closed("agg_fold", (packed, None, valid, bits, ng * GROUP - 5, kind, itemsize, name), ng * GROUP)
+
+
+@pytest.mark.parametrize("prologue", ["none", "for_sub", "delta_zigzag"])
+def test_ops_census_of_lmp_pack(cuda, prologue):
+    """K18 at every width B = 1..32 and each prologue."""
+    values = _words(rng_of("ops/pack"), (2, GROUP), cuda)
+    refs = torch.zeros(2, dtype=torch.int32, device=cuda) if prologue == "for_sub" else None
+    for bits in range(1, 33):
+        _closed("lmp_pack", (values, bits, prologue, refs), 2 * GROUP)
