@@ -2575,19 +2575,25 @@ ONE_RUN_MS: dict[str, float] = {}  # calls timed once, where the main path drove
 def selftest_main_path(drive) -> None:
     """The port's selftest at 2^22 + 999 on the card: every core scheme and
     check exact; its JSON line printed, then each core scheme's traffic
-    audit (its decoder's temporary bytes and traffic ratios) on a line."""
+    audit (its decoder's temporary bytes and traffic ratios) on a line
+    beside the cap. The run fails unless the selftest's traffic gate
+    passed: every traffic_vs_sol at or under TRAFFIC_CAP."""
     from giddy_tpu_torch import selftest
 
     t0 = time.perf_counter()
     drive(f"selftest.run_selftest({SELFTEST_N})", "every scheme and check exact",
           lambda: SELFTEST.append(selftest.run_selftest(SELFTEST_N, device=CUDA)) or SELFTEST[-1]["pass"])
     ONE_RUN_MS[f"selftest.run_selftest({SELFTEST_N}), with its checks"] = (time.perf_counter() - t0) * 1e3
-    print(json.dumps(SELFTEST[-1]))
+    report = SELFTEST[-1]
+    print(json.dumps(report))
     for scheme in selftest.SCHEMES:
-        e = SELFTEST[-1]["schemes"][scheme]
+        e = report["schemes"][scheme]
         print(f"[audit] {scheme}: temp_bytes {e['temp_bytes']}, traffic_vs_ideal {e['traffic_vs_ideal']}, "
-              f"traffic_vs_sol {e['traffic_vs_sol']}")
+              f"traffic_vs_sol {e['traffic_vs_sol']} (cap {selftest.TRAFFIC_CAP})")
         check(isinstance(e["temp_bytes"], int), f"{scheme}: the selftest's traffic audit did not run on the card")
+    print(f"[audit] traffic_ok {report.get('traffic_ok')} (every traffic_vs_sol <= {selftest.TRAFFIC_CAP})")
+    check(report.get("traffic_ok") is True,
+          f"the selftest's traffic gate: traffic_ok {report.get('traffic_ok')}, cap {selftest.TRAFFIC_CAP}")
 
 
 def time_tables(tb: Tables, smi: str) -> None:

@@ -45,6 +45,8 @@ from .table import Table
 from .topk import order_by, top_k
 from .util import GROUP, LANES, SLOTS
 
+__version__ = "0.1.0"  # giddy_tpu's (pyproject.toml)
+
 __all__ = [
     "Dataset",
     "EncodedColumn",

@@ -5,9 +5,10 @@ Counterpart of giddy_tpu/selftest.py. Decodes every core scheme
 (datagen.CORE_SCHEMES) on the device, compares bit for bit with the NumPy
 oracle and runs the traffic audit of each (roofline.traffic_audit: the
 decoder's temporary bytes and its traffic against the ideal and against
-speed of light), then runs the composite checks (64-bit, string, nullable
-and mixed columns, dense runs, a big dictionary, narrow stores, whose
-audited output is 1 or 2 bytes a value) and the query layer's (filters,
+speed of light, held on the card to the reference's TRAFFIC_CAP), then
+runs the composite checks (64-bit, string, nullable and mixed columns,
+dense runs, a big dictionary, narrow stores, whose audited output is 1 or
+2 bytes a value) and the query layer's (filters,
 with the column-vs-column compare and a searched isin of more than 8
 values; aggregates; GROUP BY; top-k; joins; zone maps; partitioned
 datasets), each against NumPy, and prints ONE JSON line. The reference's
@@ -34,6 +35,11 @@ import torch
 from .datagen import CORE_SCHEMES as SCHEMES
 from .table import _host
 
+# The single-pass ceiling of the reference: a decoder's traffic over the
+# compressed plus decoded bytes (the audit's traffic_vs_sol) must stay at
+# or under this; a ratio r caps the decode at 1/r of speed of light.
+TRAFFIC_CAP = 1.15
+
 _NP_OP = {"lt": operator.lt, "le": operator.le, "gt": operator.gt,
           "ge": operator.ge, "eq": operator.eq, "ne": operator.ne}
 
@@ -50,7 +56,11 @@ def run_selftest(n: int, seed: int = 0, *, device: torch.device | str = "cuda", 
     ``traffic_vs_ideal``, ``traffic_vs_sol``; None on the CPU, where torch
     keeps no allocator statistics). Returns the report; ``report["pass"]``
     is True only when every entry is exact. A check that raises is recorded
-    as a failure with its error."""
+    as a failure with its error. Where the audit measured ratios (on the
+    card), ``report["traffic_ok"]`` says whether every core scheme's
+    ``traffic_vs_sol`` is at or under TRAFFIC_CAP, and the schemes over it
+    are printed to stderr; ``pass`` does not read it, as in the reference.
+    On the CPU the report has no ``traffic_ok``."""
     import giddy_tpu_torch as gtt
     from giddy_tpu_torch.api import _decode_device
     from giddy_tpu_torch.datagen import gen_column
@@ -112,6 +122,12 @@ def run_selftest(n: int, seed: int = 0, *, device: torch.device | str = "cuda", 
         print(f"[selftest] UNCOVERED registered schemes: {uncovered}", file=sys.stderr)
         ok = False
     report["pass"] = ok
+    measured = {s: e["traffic_vs_sol"] for s, e in report["schemes"].items() if e.get("traffic_vs_sol") is not None}
+    if measured:
+        bad = {s: r for s, r in measured.items() if r > TRAFFIC_CAP}
+        report["traffic_ok"] = not bad
+        if bad:
+            print(f"[selftest] traffic over {TRAFFIC_CAP}x SoL bytes: {bad}", file=sys.stderr)
     return report
 
 

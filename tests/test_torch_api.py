@@ -190,3 +190,13 @@ def test_import_leaves_jax_out():
         "assert not bad, bad"
     )
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
+
+
+def test_version_is_the_reference_package_version():
+    """The port keeps its own literal of the project's version, which
+    giddy_tpu carries too."""
+    import tomllib
+
+    with open(REPO / "pyproject.toml", "rb") as f:
+        version = tomllib.load(f)["project"]["version"]
+    assert gtt.__version__ == gt.__version__ == version == "0.1.0"

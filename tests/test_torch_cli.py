@@ -5,9 +5,9 @@ writes and the lines each prints must be equal: gen, encode (a scheme,
 ``auto``, ``--valid``), pack, import/export (CSV, and a partitioned
 dataset), decode (``--ref`` too), validate, info (container and dataset),
 query (``--between``, ``--select``), groupby (``--where``) and agg. The
-reference's commands run as one batch a test in a fresh process
-(test_torch_inputs.in_fresh_process), so that this worker keeps none of
-its interpret-mode programs. The port has no ``bench`` subcommand yet:
+reference's commands run as one batch a test in the worker's reference
+process (test_torch_inputs.JAX), so that the worker itself keeps none of
+their interpret-mode programs. The port has no ``bench`` subcommand yet:
 argparse refuses it."""
 
 import contextlib
@@ -22,7 +22,7 @@ import torch
 from giddy_tpu_torch import cli
 from giddy_tpu_torch.util import GROUP
 
-from test_torch_inputs import PRIORITIES, in_fresh_process, rng_of
+from test_torch_inputs import JAX, PRIORITIES, rng_of
 
 N = 2 * GROUP + 999
 # Subcommands that take --device in the port.
@@ -58,7 +58,7 @@ def run_cli(main, directory: str, argvs: list) -> list[tuple[str, object]]:
 
 
 def reference_cli(directory: str, argvs: list) -> list:
-    """giddy_tpu.cli.main over ``argvs`` (run in a fresh process)."""
+    """giddy_tpu.cli.main over ``argvs`` (run in the reference process)."""
     from giddy_tpu import cli as jcli
 
     return run_cli(jcli.main, directory, argvs)
@@ -67,7 +67,7 @@ def reference_cli(directory: str, argvs: list) -> list:
 def both(root, argvs: list) -> list[tuple[str, str]]:
     """The reference's and the port's runs of ``argvs`` in root/ref and
     root/port: exit codes equal; returns their outputs, pairwise."""
-    want = in_fresh_process(reference_cli, str(root / "ref"), argvs)
+    want = JAX(reference_cli, str(root / "ref"), argvs)
     got = run_cli(cli.main, str(root / "port"),
                   [a + ["--device", "cpu"] if a[0] in ON_DEVICE else a for a in argvs])
     assert [c for _, c in got] == [c for _, c in want], (got, want)

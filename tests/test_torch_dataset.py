@@ -8,9 +8,9 @@ total order included), ``count``, ``agg``, ``groupby``, ``select`` and
 int32 measure whose ranges do not overlap (so the zones prune), float32
 with -0.0 and a NaN partition (its zone is left out), strings (strdict),
 an int64 column (wide) and a nullable int32 that is all null in one
-partition. The reference writes and reads its side once, in a fresh
-process (test_torch_inputs.in_fresh_process), so that this worker keeps
-none of its interpret-mode programs."""
+partition. The reference writes and reads its side once per run
+(test_torch_inputs.once_per_run), in the worker's reference process, so
+that no worker keeps any of its interpret-mode programs."""
 
 import json
 import os
@@ -24,7 +24,7 @@ import giddy_tpu_torch as gtt
 from giddy_tpu_torch import dataset, table
 from giddy_tpu_torch.util import GROUP
 
-from test_torch_inputs import PRIORITIES, in_fresh_process, rng_of
+from test_torch_inputs import JAX, PRIORITIES, once_per_run, rng_of
 
 N = 2 * GROUP + 999
 CPU = "cpu"
@@ -108,7 +108,7 @@ def answers(ds) -> dict:
 
 
 def reference_results(root: str) -> dict:
-    """giddy_tpu.dataset's side (run in a fresh process): it writes
+    """giddy_tpu.dataset's side (run in the reference process): it writes
     ``root/ref``, answers on both datasets, compacts the port's into
     ``root/ref_compact`` and builds ``root/ref_pandas`` and ``root/ref_csv``
     from frame() and ``root/in.csv``."""
@@ -132,11 +132,13 @@ def reference_results(root: str) -> dict:
 def written(tmp_path_factory):
     """The port writes ``root/port``; the reference then writes ``root/ref``
     and answers on both: (root, the reference's answers)."""
-    root = tmp_path_factory.mktemp("datasets")
-    dataset.Dataset.write(str(root / "port"), [table.Table.from_arrays(partition(i), SCHEMES, device=CPU)
-                                               for i in range(3)], device=CPU)
-    frame().to_csv(root / "in.csv", index=False)
-    return root, in_fresh_process(reference_results, str(root))
+    def compute(root):
+        dataset.Dataset.write(str(root / "port"), [table.Table.from_arrays(partition(i), SCHEMES, device=CPU)
+                                                   for i in range(3)], device=CPU)
+        frame().to_csv(root / "in.csv", index=False)
+        return JAX(reference_results, str(root))
+
+    return once_per_run(tmp_path_factory, "datasets", compute)
 
 
 def test_both_packages_write_the_same_files(written):

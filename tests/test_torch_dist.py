@@ -3,10 +3,11 @@
 - Against the reference's own sharded decode: giddy_tpu.dist.decode_sharded
   and decode_columns_sharded on a 4-device virtual CPU mesh (the first four
   of the devices that tests/conftest.py's XLA flags make; Pallas in
-  interpret mode), run in a fresh process of this module's, and the port's
-  on ``Mesh([cpu] * 4)``, over nbit, dict, rle, patched (compressed
-  positions), dzbv (the group skew that declines the group-row form), a
-  nullable FOR column and a wide column, at ng % 4 != 0.
+  interpret mode), run in the worker's reference process
+  (test_torch_inputs.JAX), and the port's on ``Mesh([cpu] * 4)``, over
+  nbit, dict, rle, patched (compressed positions), dzbv (the group skew
+  that declines the group-row form), a nullable FOR column and a wide
+  column, at ng % 4 != 0.
 - Every other scheme of tests/dist_checks.py's DIST_SCHEMES against the
   port's single-device decode and its oracle, at ng % 4 != 0, ng < 4
   (n = GROUP + 5) and n = 0; the 2-D host x chip mesh; the mesh itself.
@@ -32,18 +33,11 @@ from giddy_tpu_torch import dist
 from giddy_tpu_torch.datagen import gen_column
 from giddy_tpu_torch.util import GROUP, num_groups
 
-from test_torch_inputs import FreshProcess, rng_of
+from test_torch_inputs import JAX, rng_of
 
 CPU = torch.device("cpu")
 MESH = dist.Mesh([CPU] * 4)
 N = 5 * GROUP + 421  # six groups over four shards: two pad groups, a ragged tail
-JAX = FreshProcess()
-
-
-@pytest.fixture(autouse=True, scope="module")
-def jax_process():
-    yield
-    JAX.close()
 
 
 @pytest.fixture(autouse=True, scope="module")

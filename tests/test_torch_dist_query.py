@@ -4,14 +4,17 @@ datasets against the reference's sharded scans, on the CPU, tolerance 0.
 The reference (giddy_tpu.dist_query, giddy_tpu.strings, giddy_tpu.join,
 giddy_tpu.table and giddy_tpu.dataset with ``mesh=``) runs on a 4-device
 virtual CPU mesh (the first four devices of tests/conftest.py's XLA flags;
-Pallas in interpret mode) in one fresh process of this module's, which
-computes every answer once; the port runs on ``dist.Mesh([cpu] * 4)``.
+Pallas in interpret mode) in the worker's reference process, part by part
+(a case's scans, the string twins, the joins, the dataset), each part once
+per run (test_torch_inputs.ReferenceParts); the port runs on ``dist.Mesh([cpu] * 4)``.
 Inputs: nbit, dict, rle, patched (compressed positions), dzbv (the group
 skew that declines the group-row form), a nullable FOR column and a wide
 column at n = 5·GROUP + 421 (six groups over four shards); the scans are
 filter_bitmap_sharded (whole words, pad bits zero) and count_where_sharded
 at two ops, isin, sum, min, max and group_reduce_sharded with count, sum,
 min and max."""
+
+import functools
 
 import numpy as np
 import pytest
@@ -22,7 +25,7 @@ from giddy_tpu_torch import dataset, dist, dist_query, strings, table
 from giddy_tpu_torch.datagen import gen_column
 from giddy_tpu_torch.util import GROUP
 
-from test_torch_inputs import PRIORITIES, in_fresh_process, rng_of
+from test_torch_inputs import JAX, PRIORITIES, ReferenceParts, once_per_run, rng_of
 
 CPU = torch.device("cpu")
 MESH = dist.Mesh([CPU] * 4)
@@ -97,45 +100,53 @@ def partitions() -> list[dict]:
 DATASET_PREDICATES = [[("x", "lt", 1200)], [("x", "ge", 100), ("s", "eq", "1-URGENT")], [("x", "lt", 0)]]
 
 
-def scans(dq, encode, mesh) -> dict:
-    """Every scan of this file in one package: ``dq`` its dist_query,
-    ``encode`` its encode (values, scheme, **opts)."""
-    out = {}
+def scans(dq, encode, mesh, label: str) -> dict:
+    """Every scan of this file of one case in one package: ``dq`` its
+    dist_query, ``encode`` its encode (values, scheme, **opts)."""
     keys_v, kvalid = group_keys()
-    ckeys = encode(keys_v, "cascade")
-    nkeys = encode(keys_v, "dict", valid=kvalid)
-    for label in CASES:
-        v, valid, scheme, opts = values(label)
-        col = encode(v, scheme, name=label, valid=valid, **opts)
-        lo, hi = thresholds(label)
-        out["filter", label] = np.asarray(dq.filter_bitmap_sharded(col, "lt", lo, mesh)).view(np.uint32)
-        out["count", label] = dq.count_where_sharded(col, "ge", hi, mesh)
-        out["isin", label] = dq.isin_count_sharded(col, isin_set(label), mesh)
-        out["sum", label] = dq.sum_sharded(col, mesh)
-        out["min", label] = dq.min_sharded(col, mesh)
-        out["max", label] = dq.max_sharded(col, mesh)
-        for kname, keys in (("cascade", ckeys), ("dict-nullable", nkeys)):
-            r = dq.group_reduce_sharded(keys, col, AGGS, mesh=mesh)
-            out["groupby", kname, label] = {f: np.asarray(getattr(r, f)) for f in ("keys",) + AGGS}
+    v, valid, scheme, opts = values(label)
+    col = encode(v, scheme, name=label, valid=valid, **opts)
+    lo, hi = thresholds(label)
+    out = {
+        "filter": np.asarray(dq.filter_bitmap_sharded(col, "lt", lo, mesh)).view(np.uint32),
+        "count": dq.count_where_sharded(col, "ge", hi, mesh),
+        "isin": dq.isin_count_sharded(col, isin_set(label), mesh),
+        "sum": dq.sum_sharded(col, mesh),
+        "min": dq.min_sharded(col, mesh),
+        "max": dq.max_sharded(col, mesh),
+    }
+    for kname, keys in (("cascade", encode(keys_v, "cascade")), ("dict-nullable", encode(keys_v, "dict", valid=kvalid))):
+        r = dq.group_reduce_sharded(keys, col, AGGS, mesh=mesh)
+        out["groupby", kname] = {f: np.asarray(getattr(r, f)) for f in ("keys",) + AGGS}
     return out
 
 
-def reference_results(root: str) -> dict:
+def reference_mesh():
     import jax
     from jax.sharding import Mesh
 
+    return Mesh(np.asarray(jax.devices()[:4]), ("d",))
+
+
+def reference_part(part: str) -> dict:
+    """The reference's answers of one CASES label, of the string twins or
+    of the joins (run in the worker's reference process)."""
     import giddy_tpu as gt
-    from giddy_tpu import dataset as jds
     from giddy_tpu import dist_query as jdq
     from giddy_tpu import strings as jstrings
     from giddy_tpu import table as jtable
 
-    mesh = Mesh(np.asarray(jax.devices()[:4]), ("d",))
-    out = scans(jdq, gt.encode, mesh)
-    scol = jstrings.encode_strings(strings_values(), codes_scheme="rle")
-    for op, v in STR_PREDICATES:
-        out["str-filter", op, v] = np.asarray(jstrings.filter_bitmap_str_sharded(scol, op, v, mesh)).view(np.uint32)
-        out["str-count", op, v] = jstrings.count_where_str_sharded(scol, op, v, mesh)
+    mesh, out = reference_mesh(), {}
+    if part in CASES:
+        return scans(jdq, gt.encode, mesh, part)
+    if part == "strings":
+        scol = jstrings.encode_strings(strings_values(), codes_scheme="rle")
+        for op, v in STR_PREDICATES:
+            out["filter", op, v] = np.asarray(jstrings.filter_bitmap_str_sharded(scol, op, v, mesh)).view(np.uint32)
+            out["count", op, v] = jstrings.count_where_str_sharded(scol, op, v, mesh)
+        return out
+    if part != "joins":
+        raise ValueError(part)
     lk, rk, lx = join_sides()
     left = jtable.Table.from_arrays({"k": lk, "x": lx}, {"k": "nbit", "x": "nbit"})
     right = jtable.Table.from_arrays({"k": rk}, {"k": "dict"})
@@ -144,23 +155,40 @@ def reference_results(root: str) -> dict:
     rows, li, ri = left.join("k", right, mesh=mesh)
     out["Table.join"] = ({k: np.asarray(v) for k, v in rows.items()}, li, ri)
     out["semi_join"] = np.asarray(jdq.semi_join_bitmap_sharded(left["k"], right["k"], mesh)).view(np.uint32)
+    return out
+
+
+def reference_dataset(root: str) -> dict:
+    """The reference writes ``root/ds`` and answers its counts and
+    aggregates with ``mesh=`` (run in the worker's reference process)."""
+    from giddy_tpu import dataset as jds
+    from giddy_tpu import table as jtable
+
+    mesh = reference_mesh()
     jds.Dataset.write(f"{root}/ds", [jtable.Table.from_arrays(p, {"x": "nbit", "s": "strdict"}) for p in partitions()])
     ds = jds.Dataset.open(f"{root}/ds")
-    for i, preds in enumerate(DATASET_PREDICATES):
-        out["Dataset.count", i] = ds.count(*preds, mesh=mesh)
-    out["Dataset.agg"] = (ds.agg("x", "sum", mesh=mesh), ds.agg("x", "avg", mesh=mesh))
+    out = {("count", i): ds.count(*preds, mesh=mesh) for i, preds in enumerate(DATASET_PREDICATES)}
+    out["agg"] = (ds.agg("x", "sum", mesh=mesh), ds.agg("x", "avg", mesh=mesh))
     return out
 
 
 @pytest.fixture(scope="module")
 def ref(tmp_path_factory):
-    root = tmp_path_factory.mktemp("dist_query")
-    return root, in_fresh_process(reference_results, str(root))
+    """ref(part): the reference's answers of that part, computed once per
+    run."""
+    return ReferenceParts(tmp_path_factory, "dist_query", reference_part)
 
 
 @pytest.fixture(scope="module")
-def port():
-    return scans(dist_query, gtt.encode, MESH)
+def ref_dataset(tmp_path_factory):
+    """(root, the reference's answers on the dataset it wrote there), once
+    per run."""
+    return once_per_run(tmp_path_factory, "dist_query-dataset", lambda root: JAX(reference_dataset, str(root)))
+
+
+@functools.cache
+def port(label: str) -> dict:
+    return scans(dist_query, gtt.encode, MESH, label)
 
 
 def same(a, b) -> bool:
@@ -172,8 +200,8 @@ def same(a, b) -> bool:
 
 @pytest.mark.parametrize("what", ["filter", "count", "isin", "sum", "min", "max"])
 @pytest.mark.parametrize("label", CASES)
-def test_scan_matches_the_reference(ref, port, what, label):
-    got, want = port[what, label], ref[1][what, label]
+def test_scan_matches_the_reference(ref, what, label):
+    got, want = port(label)[what], ref(label)[what]
     if what == "filter":
         assert got.dtype == want.dtype == np.uint32 and got.shape == want.shape == (6, 1024)
         assert got.tobytes() == want.tobytes()
@@ -183,8 +211,8 @@ def test_scan_matches_the_reference(ref, port, what, label):
 
 @pytest.mark.parametrize("keys", ["cascade", "dict-nullable"])
 @pytest.mark.parametrize("label", CASES)
-def test_group_reduce_matches_the_reference(ref, port, keys, label):
-    got, want = port["groupby", keys, label], ref[1]["groupby", keys, label]
+def test_group_reduce_matches_the_reference(ref, keys, label):
+    got, want = port(label)["groupby", keys], ref(label)["groupby", keys]
     nonempty = want["count"] > 0  # empty groups' extremes are identities in either package
     for f in ("keys", "count", "sum"):
         assert same(got[f], want[f]), f
@@ -197,8 +225,9 @@ def test_string_twins_match_the_reference(ref, pred):
     scol = strings.encode_strings(strings_values(), codes_scheme="rle")
     op, v = pred
     got = strings.filter_bitmap_str_sharded(scol, op, v, MESH).numpy().view(np.uint32)
-    assert got.tobytes() == ref[1]["str-filter", op, v].tobytes()
-    assert strings.count_where_str_sharded(scol, op, v, MESH) == ref[1]["str-count", op, v]
+    want = ref("strings")
+    assert got.tobytes() == want["filter", op, v].tobytes()
+    assert strings.count_where_str_sharded(scol, op, v, MESH) == want["count", op, v]
 
 
 def port_join_tables():
@@ -212,7 +241,7 @@ def port_join_tables():
 def test_join_indices_with_a_mesh(ref, how):
     left, right = port_join_tables()
     li, ri = gtt.join_indices(left["k"], right["k"], mesh=MESH, how=how, device=CPU)
-    want = ref[1]["join_indices", how]
+    want = ref("joins")["join_indices", how]
     assert np.array_equal(li, want[0]) and np.array_equal(ri, want[1])
     plain = gtt.join_indices(left["k"], right["k"], how=how, device=CPU)
     assert np.array_equal(li, plain[0]) and np.array_equal(ri, plain[1])
@@ -221,7 +250,7 @@ def test_join_indices_with_a_mesh(ref, how):
 def test_table_join_with_a_mesh(ref):
     left, right = port_join_tables()
     rows, li, ri = left.join("k", right, mesh=MESH)
-    want_rows, want_li, want_ri = ref[1]["Table.join"]
+    want_rows, want_li, want_ri = ref("joins")["Table.join"]
     assert np.array_equal(li, want_li) and np.array_equal(ri, want_ri)
     assert sorted(rows) == sorted(want_rows)
     for k in rows:
@@ -231,23 +260,23 @@ def test_table_join_with_a_mesh(ref):
 def test_semi_join_with_a_mesh(ref):
     left, right = port_join_tables()
     got = dist_query.semi_join_bitmap_sharded(left["k"], right["k"], MESH).numpy().view(np.uint32)
-    assert got.tobytes() == ref[1]["semi_join"].tobytes()
+    assert got.tobytes() == ref("joins")["semi_join"].tobytes()
 
 
 @pytest.fixture(scope="module")
-def port_dataset(ref):
-    return dataset.Dataset.open(f"{ref[0]}/ds", device=CPU)
+def port_dataset(ref_dataset):
+    return dataset.Dataset.open(f"{ref_dataset[0]}/ds", device=CPU)
 
 
 @pytest.mark.parametrize("i", range(len(DATASET_PREDICATES)))
-def test_dataset_count_with_a_mesh(ref, port_dataset, i):
-    assert port_dataset.count(*DATASET_PREDICATES[i], mesh=MESH) == ref[1]["Dataset.count", i]
-    assert port_dataset.count(*DATASET_PREDICATES[i]) == ref[1]["Dataset.count", i]
+def test_dataset_count_with_a_mesh(ref_dataset, port_dataset, i):
+    assert port_dataset.count(*DATASET_PREDICATES[i], mesh=MESH) == ref_dataset[1]["count", i]
+    assert port_dataset.count(*DATASET_PREDICATES[i]) == ref_dataset[1]["count", i]
 
 
-def test_dataset_agg_with_a_mesh(ref, port_dataset):
+def test_dataset_agg_with_a_mesh(ref_dataset, port_dataset):
     got = (port_dataset.agg("x", "sum", mesh=MESH), port_dataset.agg("x", "avg", mesh=MESH))
-    assert got == ref[1]["Dataset.agg"]
+    assert got == ref_dataset[1]["agg"]
 
 
 def test_scan_rejects_an_unknown_op():

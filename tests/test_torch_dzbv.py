@@ -26,21 +26,13 @@ from giddy_tpu_torch.ref.lmp import lmp_unpack
 from giddy_tpu_torch.util import GROUP, LANES
 
 from test_torch_host import assert_same_streams
-from test_torch_inputs import FreshProcess, dzbv_values, rng_of
+from test_torch_inputs import JAX, dzbv_values, rng_of
 
 N = 3 * GROUP + 17  # four groups, the last one ragged
 
 
-# The JAX calls run in a fresh process of this module's (FreshProcess in
-# test_torch_inputs.py), so that the xdist worker keeps none of their
-# interpret-mode programs.
-JAX = FreshProcess()
-
-
-@pytest.fixture(autouse=True, scope="module")
-def jax_process():
-    yield
-    JAX.close()
+# The JAX calls run in the worker's reference process (test_torch_inputs.JAX),
+# so that the xdist worker keeps none of their interpret-mode programs.
 
 
 def jax_decode_column(ref, **kw) -> np.ndarray:

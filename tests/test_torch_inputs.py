@@ -2,6 +2,11 @@
 (test_torch_cuda.py), and tests of the generators themselves. Imports
 nothing of JAX, so the CUDA tests can run where JAX is absent."""
 
+import atexit
+import fcntl
+import hashlib
+import os
+import pickle
 import zlib
 
 import numpy as np
@@ -239,6 +244,11 @@ def assert_same_column(port, ref):
         assert p.tobytes() == s.tobytes(), k
 
 
+def _maps(pid: int) -> int:
+    with open(f"/proc/{pid}/maps") as f:
+        return sum(1 for _ in f)
+
+
 class FreshProcess:
     """A fresh Python process (multiprocessing's spawn) that runs importable
     functions (a test module's top-level ones) and pickles their results
@@ -246,24 +256,50 @@ class FreshProcess:
     the JAX reference there where they trace many programs: an xdist worker
     keeps every program it compiles, and one that maps more than
     vm.max_map_count (65530) dies in LLVM and can hang the run (ROADMAP.md,
-    "Working conditions").
-    A process that dies fails the call (BrokenProcessPool) instead."""
+    "Working conditions"). So the process is ended after a call that
+    leaves it with more than MAX_MAPS memory maps (half the limit; one
+    call of the reference adds a few thousand), and the next call starts a
+    new one.
+    A process that dies fails the call (BrokenProcessPool) instead, and the
+    next call starts a new one."""
+
+    MAX_MAPS = 32768
 
     def __init__(self):
         self._pool = None
+        self._pid = None
 
     def __call__(self, fn, *args, **kwargs):
+        from concurrent.futures.process import BrokenProcessPool
+
         if self._pool is None:
             import concurrent.futures
             import multiprocessing
 
             self._pool = concurrent.futures.ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn"))
-        return self._pool.submit(fn, *args, **kwargs).result()
+            self._pid = self._pool.submit(os.getpid).result()
+        try:
+            result = self._pool.submit(fn, *args, **kwargs).result()
+        except BrokenProcessPool:
+            self.close()
+            raise
+        if _maps(self._pid) > self.MAX_MAPS:
+            self.close()
+        return result
 
     def close(self) -> None:
         if self._pool is not None:
             self._pool.shutdown()
             self._pool = None
+
+
+# The reference's calls of the port's CPU tests: one process a worker,
+# started at its first call and left to end with the worker, so that a
+# worker that takes cases of several test modules spawns and imports JAX
+# once. A module that changes the reference's process-wide state
+# (test_torch_bigcolumn's lowered limit) keeps a FreshProcess of its own.
+JAX = FreshProcess()
+atexit.register(JAX.close)
 
 
 def in_fresh_process(fn, *args):
@@ -273,6 +309,46 @@ def in_fresh_process(fn, *args):
         return process(fn, *args)
     finally:
         process.close()
+
+
+def once_per_run(tmp_path_factory, name: str, compute):
+    """``(root, compute(root))``, computed once per test run: ``root`` is
+    the directory ``name`` in the base temp directory that every xdist
+    worker of the run shares (the run's own without xdist). The first
+    worker to ask computes under an fcntl lock and pickles the result
+    beside ``root``; a worker that asks meanwhile waits for the lock, then
+    loads the pickle. So a heavy reference that ``compute`` runs (in a
+    FreshProcess) costs the run once, not once a worker that takes a case
+    of its file. A compute that raises leaves no pickle: the next worker
+    tries again, and fails the same way."""
+    base = tmp_path_factory.getbasetemp()
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        base = base.parent
+    root, done = base / name, base / f"{name}.pickle"
+    with open(base / f"{name}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
+        if done.exists():
+            return root, pickle.loads(done.read_bytes())
+        root.mkdir(exist_ok=True)
+        result = compute(root)
+        done.write_bytes(pickle.dumps(result))
+        return root, result
+
+
+class ReferenceParts:
+    """A test module's reference answers, part by part: ``parts(*part)`` is
+    ``fn(*part)`` run in JAX (which may keep what the parts share, such as
+    the reference's table) and kept for the run by once_per_run. So the
+    xdist workers that take a module's cases each compute only the parts
+    those cases read, at the same time, and no part is computed twice in a
+    run."""
+
+    def __init__(self, tmp_path_factory, name: str, fn):
+        self.tmp_path_factory, self.name, self.fn = tmp_path_factory, name, fn
+
+    def __call__(self, *part):
+        key = f"{self.name}-{hashlib.sha1(repr(part).encode()).hexdigest()[:16]}"
+        return once_per_run(self.tmp_path_factory, key, lambda root: JAX(self.fn, *part))[1]
 
 
 def wrapping_walk(n: int, rng: np.random.Generator) -> np.ndarray:
@@ -484,3 +560,32 @@ def test_dict_values_hold_their_edge_values(kind):
         assert u.min() < 2**31 <= u.max()
     else:
         assert v.min() < 0 < v.max()
+
+
+def test_fresh_process_ends_past_its_map_limit(monkeypatch):
+    """The process stays while under MAX_MAPS, is ended after the call that
+    leaves it over, and the next call starts a new one."""
+    process = FreshProcess()
+    try:
+        first = process(os.getpid)
+        assert first != os.getpid() and process(os.getpid) == first
+        monkeypatch.setattr(process, "MAX_MAPS", 0)
+        assert process(os.getpid) == first and process(os.getpid) != first
+    finally:
+        process.close()
+
+
+def test_once_per_run_computes_once(tmp_path_factory):
+    """A second ask loads the first one's pickle: compute does not run
+    again, and the directory is the same."""
+    calls = []
+
+    def compute(root):
+        calls.append(root)
+        (root / "written").write_text("x")
+        return {"answer": np.arange(3)}
+
+    name = f"once-{os.getpid()}"
+    first, again = once_per_run(tmp_path_factory, name, compute), once_per_run(tmp_path_factory, name, compute)
+    assert len(calls) == 1 and first[0] == again[0] == calls[0] and (first[0] / "written").read_text() == "x"
+    assert np.array_equal(first[1]["answer"], again[1]["answer"])

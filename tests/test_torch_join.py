@@ -5,9 +5,11 @@ for inner, left and outer joins over int32, float32 (-0.0 and NaN keys,
 matched on bit patterns), 64-bit (wide), dict, strdict and nullable keys;
 ``join_tables``, ``join_table`` and the Table methods give the same rows
 and containers; ``anti_join_bitmap`` the same words. Both sides hold
-n = 2·GROUP + 999 rows. The reference's answers are computed once, in a
-fresh process (test_torch_inputs.in_fresh_process), so that this worker
-keeps none of its interpret-mode programs. A larger join is held against
+n = 2·GROUP + 999 rows. The reference's answers are computed part by
+part (a key kind, the table joins, the Table methods) in the worker's
+reference process, each part once per run
+(test_torch_inputs.ReferenceParts), so that no worker keeps any of its
+interpret-mode programs. A larger join is held against
 a NumPy sort-merge only."""
 
 import numpy as np
@@ -19,7 +21,7 @@ import giddy_tpu_torch as gtt
 from giddy_tpu_torch import join, table
 from giddy_tpu_torch.util import GROUP
 
-from test_torch_inputs import PRIORITIES, in_fresh_process, rng_of
+from test_torch_inputs import PRIORITIES, ReferenceParts, rng_of
 
 N = 2 * GROUP + 999
 CPU = "cpu"
@@ -81,34 +83,41 @@ def table_arrays(kind: str) -> tuple[dict, dict]:
     return la, ra
 
 
-def reference_results() -> dict:
-    """Every answer of giddy_tpu.join that this file compares with (run in
-    a fresh process)."""
+def reference_part(part: str) -> dict:
+    """The answers of giddy_tpu.join that this file compares with for one
+    KINDS key, for "join_tables" or for "Table" (run in the worker's reference
+    process)."""
     from giddy_tpu import join as jjoin
     from giddy_tpu import table as jtable
 
     out = {}
-    for kind in KINDS:
-        lref, rref = encode_pair(kind, "left")[2], encode_pair(kind, "right")[2]
+    if part in KINDS:
+        lref, rref = encode_pair(part, "left")[2], encode_pair(part, "right")[2]
         for how in HOWS:
-            out["pairs", kind, how] = tuple(np.asarray(x) for x in jjoin.join_indices(lref, rref, how=how))
-        out["anti", kind] = np.asarray(jjoin.anti_join_bitmap(lref, rref))
-    rl, rr = (jtable.Table.from_arrays(a) for a in table_arrays("nullable"))
-    for how in HOWS:
-        rows, li, ri = jjoin.join_tables(rl, "key", rr, how=how)
-        out["join_tables", how] = ({k: np.asarray(v) for k, v in rows.items()}, np.asarray(li), np.asarray(ri))
-        out["join_table", how] = rl.join_table("key", rr, other_select=["s", "x"], how=how).to_bytes()
-    rl, rr = (jtable.Table.from_arrays(a) for a in table_arrays("int32"))
-    rows, li, ri = rl.join("key", rr, select=["x"], other_select=["s", "x"])
-    out["Table.join"] = ({k: np.asarray(v) for k, v in rows.items()}, np.asarray(li), np.asarray(ri))
-    for probe in ("key", "x"):
-        out["Table.anti_join", probe] = np.asarray(rl.anti_join(probe, rr, "key"))
+            out["pairs", how] = tuple(np.asarray(x) for x in jjoin.join_indices(lref, rref, how=how))
+        out["anti"] = np.asarray(jjoin.anti_join_bitmap(lref, rref))
+    elif part == "join_tables":
+        rl, rr = (jtable.Table.from_arrays(a) for a in table_arrays("nullable"))
+        for how in HOWS:
+            rows, li, ri = jjoin.join_tables(rl, "key", rr, how=how)
+            out["join_tables", how] = ({k: np.asarray(v) for k, v in rows.items()}, np.asarray(li), np.asarray(ri))
+            out["join_table", how] = rl.join_table("key", rr, other_select=["s", "x"], how=how).to_bytes()
+    elif part == "Table":
+        rl, rr = (jtable.Table.from_arrays(a) for a in table_arrays("int32"))
+        rows, li, ri = rl.join("key", rr, select=["x"], other_select=["s", "x"])
+        out["Table.join"] = ({k: np.asarray(v) for k, v in rows.items()}, np.asarray(li), np.asarray(ri))
+        for probe in ("key", "x"):
+            out["Table.anti_join", probe] = np.asarray(rl.anti_join(probe, rr, "key"))
+    else:
+        raise ValueError(part)
     return out
 
 
 @pytest.fixture(scope="module")
-def ref() -> dict:
-    return in_fresh_process(reference_results)
+def ref(tmp_path_factory):
+    """ref(part): the reference's answers of that part, computed once per
+    run."""
+    return ReferenceParts(tmp_path_factory, "join", reference_part)
 
 
 def numpy_pairs(lv, lvalid, rv, rvalid, how: str):
@@ -146,15 +155,16 @@ def numpy_pairs(lv, lvalid, rv, rvalid, how: str):
 def test_join_indices_pairs_equal_the_reference(ref, kind):
     lv, lvalid, _, lcol = encode_pair(kind, "left")
     rv, rvalid, _, rcol = encode_pair(kind, "right")
+    want = ref(kind)
     for how in HOWS:
         got = join.join_indices(lcol, rcol, how=how, device=CPU)
-        for g, w in zip(got, ref["pairs", kind, how]):
+        for g, w in zip(got, want["pairs", how]):
             assert g.dtype == np.int64 and np.array_equal(g, w), how
         np_li, np_ri = numpy_pairs(lv, lvalid, rv, rvalid, how)
         assert np.array_equal(got[0], np_li) and np.array_equal(got[1], np_ri), how
     assert got[0].size > N and (got[0] == -1).any() and (got[1] == -1).any()  # many-to-many, both outer sides
     anti = join.anti_join_bitmap(lcol, rcol, device=CPU).numpy().view(np.uint32)
-    assert anti.tobytes() == ref["anti", kind].tobytes()
+    assert anti.tobytes() == want["anti"].tobytes()
 
 
 def port_tables(kind: str):
@@ -172,22 +182,24 @@ def same_rows(got: dict, want: dict) -> None:
 def test_join_tables_and_join_table_equal_the_reference(ref, how):
     pl, pr = port_tables("nullable")
     rows, li, ri = join.join_tables(pl, "key", pr, how=how)
-    wrows, wli, wri = ref["join_tables", how]
+    want = ref("join_tables")
+    wrows, wli, wri = want["join_tables", how]
     same_rows(rows, wrows)
     assert np.array_equal(li, wli) and np.array_equal(ri, wri)
     got = pl.join_table("key", pr, other_select=["s", "x"], how=how)
-    assert got.device.type == "cpu" and got.to_bytes() == ref["join_table", how]
+    assert got.device.type == "cpu" and got.to_bytes() == want["join_table", how]
 
 
 def test_table_join_methods(ref):
     pl, pr = port_tables("int32")
     rows, li, ri = pl.join("key", pr, select=["x"], other_select=["s", "x"])
-    wrows, wli, wri = ref["Table.join"]
+    want = ref("Table")
+    wrows, wli, wri = want["Table.join"]
     same_rows(rows, wrows)
     assert list(rows) == ["x", "s", "x_r"] and np.array_equal(li, wli) and np.array_equal(ri, wri)
     for probe in ("key", "x"):
         assert pl.anti_join(probe, pr, "key").numpy().view(np.uint32).tobytes() == \
-            ref["Table.anti_join", probe].tobytes()
+            want["Table.anti_join", probe].tobytes()
     # the prunes sharded over a mesh of four CPU shards: the same rows
     rows, li, ri = pl.join("key", pr, select=["x"], other_select=["s", "x"], mesh=gtt.dist.Mesh([CPU] * 4))
     same_rows(rows, wrows)

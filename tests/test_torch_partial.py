@@ -17,21 +17,13 @@ from giddy_tpu_torch import dist, partial
 from giddy_tpu_torch.datagen import gen_column
 from giddy_tpu_torch.util import GROUP
 
-from test_torch_inputs import FreshProcess, dzbv_values, rng_of, wide_values
+from test_torch_inputs import JAX, dzbv_values, rng_of, wide_values
 
 N = 2 * GROUP + 999  # three groups, the last one ragged
 
 
-# The JAX calls run in a fresh process of this module's (FreshProcess in
-# test_torch_inputs.py), so that the xdist worker keeps none of their
-# interpret-mode programs.
-JAX = FreshProcess()
-
-
-@pytest.fixture(autouse=True, scope="module")
-def jax_process():
-    yield
-    JAX.close()
+# The JAX calls run in the worker's reference process (test_torch_inputs.JAX),
+# so that the xdist worker keeps none of their interpret-mode programs.
 
 
 def jax_decode_groups(ref, g0: int, g1: int) -> np.ndarray:

@@ -19,21 +19,13 @@ from giddy_tpu_torch.kernels import lanes, patch
 from giddy_tpu_torch.util import GROUP
 
 from test_torch_host import assert_same_column
-from test_torch_inputs import FreshProcess
+from test_torch_inputs import JAX
 
 N = 2 * GROUP + 999  # three groups, the last one ragged
 
 
-# The JAX decodes run in a fresh process of this module's (FreshProcess in
-# test_torch_inputs.py), so that the xdist worker keeps none of their
-# interpret-mode programs.
-JAX = FreshProcess()
-
-
-@pytest.fixture(autouse=True, scope="module")
-def jax_process():
-    yield
-    JAX.close()
+# The JAX decodes run in the worker's reference process (test_torch_inputs.JAX),
+# so that the xdist worker keeps none of their interpret-mode programs.
 
 
 def jax_decode(ref, **kw) -> np.ndarray:

@@ -5,9 +5,10 @@ chunk (dtype, length, bytes) and every ``stream_count_where`` count must
 equal the reference's: plain schemes, wide (NumPy chunks), patched and alp
 (the slicer's exception scatter), dzbv, dict and cascade (the dictionary
 pushdown on device-form streams) and nullable columns, n = 0 too. The
-reference streams through its Pallas decoders in interpret mode, once, in
-a fresh process (test_torch_inputs.in_fresh_process), so that this worker
-keeps none of its programs; the remaining schemes and a larger column are
+reference streams through its Pallas decoders in interpret mode in the
+worker's reference process, each column once per run
+(test_torch_inputs.ReferenceParts), so that no worker keeps any of its
+programs; the remaining schemes and a larger column are
 held against the port's NumPy oracle and query.count_where."""
 
 import numpy as np
@@ -20,7 +21,7 @@ from giddy_tpu_torch import query, stream
 from giddy_tpu_torch.datagen import gen_column
 from giddy_tpu_torch.util import GROUP
 
-from test_torch_inputs import in_fresh_process, rng_of, wide_values
+from test_torch_inputs import ReferenceParts, rng_of, wide_values
 
 N = 2 * GROUP + 999
 CPU = "cpu"
@@ -66,42 +67,44 @@ JAX_KINDS = ["nbit", "for", "rle", "patched", "alp", "dzbv", "dict", "cascade-fo
              "nullable-dict"]
 
 
-def reference_results() -> dict:
-    """giddy_tpu.stream's chunks and counts for every JAX_KINDS column and
-    the empty one (run in a fresh process). dzbv's filter in interpret
+def reference_part(kind: str) -> dict:
+    """giddy_tpu.stream's chunks and count of a JAX_KINDS column, or of the
+    empty one (run in the worker's reference process). dzbv's filter in interpret
     mode is the slowest trace of all: its count is held to the port's
     count_where instead, whose bitmaps equal the reference's
     (test_torch_query.py)."""
     from giddy_tpu import stream as jstream
 
-    out = {}
-    for kind in JAX_KINDS:
-        v, ref, _ = pair(kind)
-        out["chunks", kind] = [np.asarray(c) for c in jstream.stream_decode(ref, chunk_groups=2, to_host=True)]
-        if kind != "dzbv":
-            out["lt", kind] = jstream.stream_count_where(ref, "lt", v[N // 2].item(), chunk_groups=2)
-    ref = gt.encode(np.zeros(0, np.int32), "nbit")
-    out["chunks", "empty"] = [np.asarray(c) for c in jstream.stream_decode(ref, to_host=True)]
-    out["ge", "empty"] = jstream.stream_count_where(ref, "ge", 0)
+    if kind == "empty":
+        ref = gt.encode(np.zeros(0, np.int32), "nbit")
+        return {"chunks": [np.asarray(c) for c in jstream.stream_decode(ref, to_host=True)],
+                "ge": jstream.stream_count_where(ref, "ge", 0)}
+    v, ref, _ = pair(kind)
+    out = {"chunks": [np.asarray(c) for c in jstream.stream_decode(ref, chunk_groups=2, to_host=True)]}
+    if kind != "dzbv":
+        out["lt"] = jstream.stream_count_where(ref, "lt", v[N // 2].item(), chunk_groups=2)
     return out
 
 
 @pytest.fixture(scope="module")
-def ref() -> dict:
-    return in_fresh_process(reference_results)
+def ref(tmp_path_factory):
+    """ref(kind): the reference's chunks and count of that column,
+    computed once per run."""
+    return ReferenceParts(tmp_path_factory, "stream", reference_part)
 
 
 @pytest.mark.parametrize("kind", JAX_KINDS)
 def test_chunks_and_counts_match_the_reference(ref, kind):
     v, _, col = pair(kind)
+    want = ref(kind)
     got = list(stream.stream_decode(col, chunk_groups=2, to_host=True, device=CPU))
-    same_chunks(got, ref["chunks", kind])
+    same_chunks(got, want["chunks"])
     assert [c.shape[0] for c in got] == [2 * GROUP, 999]
     if kind != "wide":  # device chunks are tensors on the device, wide ones NumPy
         assert all(isinstance(c, torch.Tensor) for c in stream.stream_decode(col, chunk_groups=2, device=CPU))
     pivot = v[N // 2].item()
     got = stream.stream_count_where(col, "lt", pivot, chunk_groups=2, device=CPU)
-    assert got == (query.count_where(col, "lt", pivot, device=CPU) if kind == "dzbv" else ref["lt", kind])
+    assert got == (query.count_where(col, "lt", pivot, device=CPU) if kind == "dzbv" else want["lt"])
     assert stream.stream_count_where(col, "eq", pivot, chunk_groups=2, device=CPU) == \
         query.count_where(col, "eq", pivot, device=CPU)
 
@@ -120,9 +123,9 @@ def test_other_schemes_stream_as_the_oracle(scheme):
 
 
 def test_empty_column_streams_one_empty_chunk(ref):
-    col = gtt.from_reference(gt.encode(np.zeros(0, np.int32), "nbit"))
-    same_chunks(list(stream.stream_decode(col, to_host=True, device=CPU)), ref["chunks", "empty"])
-    assert stream.stream_count_where(col, "ge", 0, device=CPU) == ref["ge", "empty"] == 0
+    col, want = gtt.from_reference(gt.encode(np.zeros(0, np.int32), "nbit")), ref("empty")
+    same_chunks(list(stream.stream_decode(col, to_host=True, device=CPU)), want["chunks"])
+    assert stream.stream_count_where(col, "ge", 0, device=CPU) == want["ge"] == 0
 
 
 def test_out_of_range_values_stage_as_count_where():

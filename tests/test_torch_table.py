@@ -9,10 +9,11 @@ Every result must equal the reference's: the containers byte for byte,
 bitmaps word for word (pad bits included), counts, aggregates,
 GroupResult fields, ``select``/``take``/``top_k`` rows, the containers of
 ``sort_by``/``filter`` results, and ``from_pandas``/``to_pandas`` frames.
-The reference's answers are computed once, in a fresh process
-(test_torch_inputs.in_fresh_process), so that this worker keeps none of
-its interpret-mode programs; the port's Table lives on the CPU
-(``device="cpu"``) and runs the kernels' plain versions."""
+The reference's answers are computed part by part in the worker's
+reference process (test_torch_inputs.ReferenceParts), each part once per
+run, so that no worker keeps any of its interpret-mode programs and no
+part is computed twice; the port's Table lives on the CPU (``device="cpu"``) and
+runs the kernels' plain versions."""
 
 import numpy as np
 import pandas as pd
@@ -23,7 +24,7 @@ import giddy_tpu_torch as gtt
 from giddy_tpu_torch import table
 from giddy_tpu_torch.util import GROUP
 
-from test_torch_inputs import PRIORITIES, in_fresh_process, rng_of
+from test_torch_inputs import PRIORITIES, ReferenceParts, rng_of
 
 N = 2 * GROUP + 999
 CPU = "cpu"
@@ -101,53 +102,68 @@ def group_fields(r) -> dict:
     return {f: None if getattr(r, f) is None else np.asarray(getattr(r, f)) for f in ("keys", "count", "sum", "min", "max")}
 
 
-def reference_results() -> dict:
-    """Every answer of giddy_tpu.table that this file compares with (run in
-    a fresh process)."""
+_REFERENCE = {}  # in the reference process: the reference's table, built once
+
+
+def reference_part(part: str, *args) -> dict:
+    """One part of giddy_tpu.table's answers that this file compares with
+    (run in the worker's reference process)."""
     from giddy_tpu import table as jtable
 
-    t = jtable.Table.from_arrays(arrays(), SCHEMES)
-    out = {"bytes": t.to_bytes(), "schemes": [t[nm].scheme for nm in t.names]}
-    for i, pred in enumerate(PREDICATES):
-        out["where", i] = np.asarray(t.where(*pred))
-    out["where_all"], out["where_any"] = np.asarray(t.where_all(*MULTI)), np.asarray(t.where_any(*MULTI))
-    out["count"], out["count k"] = t.count(*MULTI), t.count(("k", "eq", 9))
-    build = {k: jtable.Table.from_arrays(a) for k, a in build_arrays().items()}
-    for probe, other in JOINS:
-        out["semi", probe] = np.asarray(t.semi_join(probe, build[other], other))
-        out["anti", probe] = np.asarray(t.anti_join(probe, build[other], other))
-    bm = t.where("x", "ge", 900)
-    out["bm x ge 900"] = np.asarray(bm)
-    out["select bm"] = t.select(["x", "price", "ts", "prio", "nx"], bm)
-    out["select preds"] = t.select(["k", "prio"], None, ("nx", "lt", 3), ("x", "gt", 0))
-    out["select bm preds"] = t.select(["x"], bm, ("k", "lt", 20))
-    out["take"] = {nm: t.take(nm, TAKE) for nm in t.names}
-    for name, largest in TOPK:
-        vals, pos, rows = t.top_k(name, 7, largest=largest, select=["prio", "k"])
-        out["top_k", name] = (np.asarray(vals), np.asarray(pos), rows)
-    for name, aggs in AGGS:
-        for agg in aggs:
-            out["agg", name, agg] = t.agg(name, agg)
-    for i, (keys, vals, aggs, preds) in enumerate(GROUPBYS):
-        out["groupby", i] = group_fields(t.groupby(keys, vals, aggs, *preds))
-    for nm in ("k", "prio", "x", "price"):
-        out["distinct", nm] = t.distinct(nm)
-    out["distinct multi"] = t.distinct(["prio", "k"])
-    for i, (names, asc) in enumerate(SORTS):
-        out["sort_by", i] = t.sort_by(names, ascending=asc).to_bytes()
-    out["filter"] = t.filter(*FILTER).to_bytes()
-    out["count x lt 0"] = t.count(("x", "lt", 0))
-    df = frame()
-    pt = jtable.Table.from_pandas(df)
-    out["pandas bytes"], out["to_pandas"] = pt.to_bytes(), pt.to_pandas()
-    out["to_pandas bm"] = pt.to_pandas(pt.where("i", "ge", 0), ("ni", "lt", 5))
-    out["pandas pinned"] = jtable.Table.from_pandas(df, dtypes={"i": "int16"}).to_bytes()
+    if not _REFERENCE:
+        _REFERENCE["t"] = jtable.Table.from_arrays(arrays(), SCHEMES)
+    t, out = _REFERENCE["t"], {}
+    if part == "container":
+        out["bytes"], out["schemes"] = t.to_bytes(), [t[nm].scheme for nm in t.names]
+        out["count x lt 0"] = t.count(("x", "lt", 0))
+    elif part == "where":
+        out["where"] = np.asarray(t.where(*PREDICATES[args[0]]))
+    elif part == "where_all":
+        out["where_all"], out["where_any"] = np.asarray(t.where_all(*MULTI)), np.asarray(t.where_any(*MULTI))
+        out["count"], out["count k"] = t.count(*MULTI), t.count(("k", "eq", 9))
+    elif part == "joins":
+        build = {k: jtable.Table.from_arrays(a) for k, a in build_arrays().items()}
+        for probe, other in JOINS:
+            out["semi", probe] = np.asarray(t.semi_join(probe, build[other], other))
+            out["anti", probe] = np.asarray(t.anti_join(probe, build[other], other))
+    elif part == "select":
+        bm = t.where("x", "ge", 900)
+        out["bm x ge 900"] = np.asarray(bm)
+        out["select bm"] = t.select(["x", "price", "ts", "prio", "nx"], bm)
+        out["select preds"] = t.select(["k", "prio"], None, ("nx", "lt", 3), ("x", "gt", 0))
+        out["select bm preds"] = t.select(["x"], bm, ("k", "lt", 20))
+        out["take"] = {nm: t.take(nm, TAKE) for nm in t.names}
+        for name, largest in TOPK:
+            vals, pos, rows = t.top_k(name, 7, largest=largest, select=["prio", "k"])
+            out["top_k", name] = (np.asarray(vals), np.asarray(pos), rows)
+    elif part == "agg":
+        out.update((agg, t.agg(args[0], agg)) for agg in dict(AGGS)[args[0]])
+    elif part == "groupby":
+        for i, (keys, vals, aggs, preds) in enumerate(GROUPBYS):
+            out["groupby", i] = group_fields(t.groupby(keys, vals, aggs, *preds))
+        for nm in ("k", "prio", "x", "price"):
+            out["distinct", nm] = t.distinct(nm)
+        out["distinct multi"] = t.distinct(["prio", "k"])
+    elif part == "sort":
+        for i, (names, asc) in enumerate(SORTS):
+            out["sort_by", i] = t.sort_by(names, ascending=asc).to_bytes()
+        out["filter"] = t.filter(*FILTER).to_bytes()
+    elif part == "pandas":
+        df = frame()
+        pt = jtable.Table.from_pandas(df)
+        out["pandas bytes"], out["to_pandas"] = pt.to_bytes(), pt.to_pandas()
+        out["to_pandas bm"] = pt.to_pandas(pt.where("i", "ge", 0), ("ni", "lt", 5))
+        out["pandas pinned"] = jtable.Table.from_pandas(df, dtypes={"i": "int16"}).to_bytes()
+    else:
+        raise ValueError(part)
     return out
 
 
 @pytest.fixture(scope="module")
-def ref() -> dict:
-    return in_fresh_process(reference_results)
+def ref(tmp_path_factory):
+    """ref(part, *args): that part of the reference's answers, computed
+    once per run."""
+    return ReferenceParts(tmp_path_factory, "table", reference_part)
 
 
 @pytest.fixture(scope="module")
@@ -176,51 +192,56 @@ def same_rows(got: dict, want: dict) -> None:
 
 
 def test_from_arrays_writes_the_reference_container(ref, port):
-    assert port.n == N and port.to_bytes() == ref["bytes"]
-    assert [port[nm].scheme for nm in port.names] == ref["schemes"]
+    want = ref("container")
+    assert port.n == N and port.to_bytes() == want["bytes"]
+    assert [port[nm].scheme for nm in port.names] == want["schemes"]
 
 
 @pytest.mark.parametrize("i", range(len(PREDICATES)), ids=[f"{p[0]}-{p[1]}" for p in PREDICATES])
 def test_where_bitmaps_equal_the_reference(ref, port, i):
     got = port.where(*PREDICATES[i])
     assert isinstance(got, torch.Tensor) and got.device.type == "cpu"
-    same_words(got, ref["where", i])
+    same_words(got, ref("where", i)["where"])
 
 
 def test_where_all_any_count(ref, port):
-    same_words(port.where_all(*MULTI), ref["where_all"])
-    same_words(port.where_any(*MULTI), ref["where_any"])
-    assert port.count(*MULTI) == ref["count"] and port.count(("k", "eq", 9)) == ref["count k"]
+    want = ref("where_all")
+    same_words(port.where_all(*MULTI), want["where_all"])
+    same_words(port.where_any(*MULTI), want["where_any"])
+    assert port.count(*MULTI) == want["count"] and port.count(("k", "eq", 9)) == want["count k"]
     with pytest.raises(ValueError):
         port.where_all()
 
 
 def test_semi_and_anti_join_bitmaps(ref, port):
     build = {k: table.Table.from_arrays(a, device=CPU) for k, a in build_arrays().items()}
+    want = ref("joins")
     for probe, other in JOINS:
-        same_words(port.semi_join(probe, build[other], other), ref["semi", probe])
-        same_words(port.anti_join(probe, build[other], other), ref["anti", probe])
+        same_words(port.semi_join(probe, build[other], other), want["semi", probe])
+        same_words(port.anti_join(probe, build[other], other), want["anti", probe])
 
 
 def test_select_take_and_top_k(ref, port):
+    want = ref("select")
     bm = port.where("x", "ge", 900)
-    same_words(bm, ref["bm x ge 900"])
-    same_rows(port.select(["x", "price", "ts", "prio", "nx"], bm), ref["select bm"])
-    same_rows(port.select(["k", "prio"], None, ("nx", "lt", 3), ("x", "gt", 0)), ref["select preds"])
+    same_words(bm, want["bm x ge 900"])
+    same_rows(port.select(["x", "price", "ts", "prio", "nx"], bm), want["select bm"])
+    same_rows(port.select(["k", "prio"], None, ("nx", "lt", 3), ("x", "gt", 0)), want["select preds"])
     # a NumPy bitmap ANDed with predicates
-    same_rows(port.select(["x"], ref["bm x ge 900"], ("k", "lt", 20)), ref["select bm preds"])
-    same_rows({nm: port.take(nm, TAKE) for nm in port.names}, ref["take"])
+    same_rows(port.select(["x"], want["bm x ge 900"], ("k", "lt", 20)), want["select bm preds"])
+    same_rows({nm: port.take(nm, TAKE) for nm in port.names}, want["take"])
     for name, largest in TOPK:
         gv, gp, grows = port.top_k(name, 7, largest=largest, select=["prio", "k"])
-        wv, wp, wrows = ref["top_k", name]
+        wv, wp, wrows = want["top_k", name]
         assert gv.tobytes() == wv.tobytes() and np.array_equal(gp, wp)
         same_rows(grows, wrows)
 
 
 @pytest.mark.parametrize("name,aggs", AGGS)
 def test_agg_equals_the_reference(ref, port, name, aggs):
+    wants = ref("agg", name)
     for agg in aggs:
-        got, want = port.agg(name, agg), ref["agg", name, agg]
+        got, want = port.agg(name, agg), wants[agg]
         assert type(got) is type(want) or isinstance(got, float) and isinstance(want, float), (agg, got, want)
         assert (np.isnan(got) and np.isnan(want)) if isinstance(got, float) and np.isnan(want) else got == want, agg
     with pytest.raises(ValueError):
@@ -239,19 +260,21 @@ def same_group(got, want: dict) -> None:
 
 
 def test_groupby_and_distinct(ref, port):
+    wants = ref("groupby")
     for i, (keys, vals, aggs, preds) in enumerate(GROUPBYS):
-        same_group(port.groupby(keys, vals, aggs, *preds), ref["groupby", i])
+        same_group(port.groupby(keys, vals, aggs, *preds), wants["groupby", i])
     for nm in ("k", "prio", "x", "price"):
-        got, want = port.distinct(nm), ref["distinct", nm]
+        got, want = port.distinct(nm), wants["distinct", nm]
         assert len(got) == len(want) and np.array(got).tobytes() == np.array(want).tobytes(), nm
-    assert port.distinct(["prio", "k"]) == ref["distinct multi"]
+    assert port.distinct(["prio", "k"]) == wants["distinct multi"]
 
 
 def test_sort_by_and_filter_write_the_reference_containers(ref, port):
+    want = ref("sort")
     for i, (names, asc) in enumerate(SORTS):
         got = port.sort_by(names, ascending=asc)
-        assert got.device.type == "cpu" and got.to_bytes() == ref["sort_by", i]
-    assert port.filter(*FILTER).to_bytes() == ref["filter"]
+        assert got.device.type == "cpu" and got.to_bytes() == want["sort_by", i]
+    assert port.filter(*FILTER).to_bytes() == want["filter"]
     with pytest.raises(ValueError, match="no rows"):
         port.filter(("x", "gt", 10**6))
 
@@ -259,17 +282,18 @@ def test_sort_by_and_filter_write_the_reference_containers(ref, port):
 def test_container_round_trip(ref, port, tmp_path):
     port.save(tmp_path / "t.gtp")
     again = table.Table.open(str(tmp_path / "t.gtp"), device=CPU)
-    assert again.to_bytes() == port.to_bytes() == ref["bytes"]
-    assert table.Table.read(ref["bytes"], device=CPU).count(("x", "lt", 0)) == ref["count x lt 0"]
+    want = ref("container")
+    assert again.to_bytes() == port.to_bytes() == want["bytes"]
+    assert table.Table.read(want["bytes"], device=CPU).count(("x", "lt", 0)) == want["count x lt 0"]
 
 
 def test_pandas_round_trip_equals_the_reference(ref):
     df = frame()
-    port = table.Table.from_pandas(df, device=CPU)
-    assert port.to_bytes() == ref["pandas bytes"]
-    pd.testing.assert_frame_equal(port.to_pandas(), ref["to_pandas"])
-    pd.testing.assert_frame_equal(port.to_pandas(port.where("i", "ge", 0), ("ni", "lt", 5)), ref["to_pandas bm"])
-    assert table.Table.from_pandas(df, dtypes={"i": "int16"}, device=CPU).to_bytes() == ref["pandas pinned"]
+    port, want = table.Table.from_pandas(df, device=CPU), ref("pandas")
+    assert port.to_bytes() == want["pandas bytes"]
+    pd.testing.assert_frame_equal(port.to_pandas(), want["to_pandas"])
+    pd.testing.assert_frame_equal(port.to_pandas(port.where("i", "ge", 0), ("ni", "lt", 5)), want["to_pandas bm"])
+    assert table.Table.from_pandas(df, dtypes={"i": "int16"}, device=CPU).to_bytes() == want["pandas pinned"]
 
 
 def test_construction_errors_and_device():

@@ -5,20 +5,22 @@ word for word, pad bits included; isin_bitmap; count_where) and the
 aggregates (sum_, min_, max_, avg_, distinct_count) exactly. There both
 planes decode through the port's plain kernel versions and the reference's
 Pallas kernels in interpret mode. Tolerance 0 throughout. The same paths on
-the card are held to the CPU by test_torch_cuda.py."""
+the card are held to the CPU by test_torch_cuda.py.
+
+Every call of the reference runs in the worker's reference process
+(test_torch_inputs.JAX), which keeps each case's reference column: the
+worker itself imports no JAX and keeps none of its interpret-mode
+programs."""
 
 import numpy as np
 import pytest
 import torch
 
-import giddy_tpu as gt
 import giddy_tpu_torch as gtt
-from giddy_tpu import aggregate as ja
-from giddy_tpu import query as jq
 from giddy_tpu_torch import aggregate, query, wide
 from giddy_tpu_torch.util import GROUP
 
-from test_torch_inputs import OPS, assert_same_column, rng_of, want_wide_mask, wide_thresholds, wide_values
+from test_torch_inputs import JAX, OPS, assert_same_column, rng_of, want_wide_mask, wide_thresholds, wide_values
 
 N = 2 * GROUP + 999  # three groups, the last one ragged
 
@@ -45,23 +47,76 @@ CASES = [
 ]
 IDS = [f"{k}-{lo}-{hi or lo}{'-nulls' if nul else ''}-n{n}" for k, lo, hi, nul, n in CASES]
 _COLUMNS = {}
+_REFERENCE = {}  # in the reference process: case -> the reference's column
+
+
+def values(case: int):
+    """(values, validity or None) of a case, from its seed."""
+    kind, _, _, nullable, n = CASES[case]
+    rng = rng_of(f"wide/{IDS[case]}")
+    v = wide_values(kind, n, rng)
+    return v, rng.random(n) > 0.1 if nullable else None
+
+
+def reference_column(case: int):
+    """The reference's column of a case (in the reference process), made once."""
+    if case not in _REFERENCE:
+        import giddy_tpu as gt
+
+        _, lo, hi, _, _ = CASES[case]
+        v, valid = values(case)
+        _REFERENCE[case] = gt.encode(v, "wide", valid=valid, base_scheme=lo, hi_scheme=hi, name="w")
+    return _REFERENCE[case]
+
+
+def reference_copy(case: int):
+    """(the values a nullable column decodes to by the reference's
+    canonical fill, the port's copy of the reference's column)."""
+    import giddy_tpu as gt
+
+    v, valid = values(case)
+    return v if valid is None else gt.nulls.fill_nulls(v, valid), gtt.from_reference(reference_column(case))
+
+
+def reference_decode(case: int) -> np.ndarray:
+    import giddy_tpu as gt
+
+    return np.asarray(gt.decode(reference_column(case)))
+
+
+def reference_filter_words(case: int, predicates: list) -> list[bytes]:
+    from giddy_tpu import query as jq
+
+    return [words(jq.filter_bitmap(reference_column(case), op, value)) for op, value in predicates]
+
+
+def reference_isin_words(case: int, picks: list) -> tuple[bytes, bytes]:
+    from giddy_tpu import query as jq
+
+    ref = reference_column(case)
+    return words(jq.isin_bitmap(ref, picks)), words(jq.isin_bitmap(ref, []))
+
+
+def reference_aggregates(case: int) -> dict:
+    """fn -> ("value", its result) or ("error", a ValueError's message)."""
+    from giddy_tpu import aggregate as ja
+
+    out = {}
+    for fn in ("sum_", "min_", "max_", "avg_", "distinct_count"):
+        try:
+            out[fn] = ("value", getattr(ja, fn)(reference_column(case)))
+        except ValueError as e:
+            out[fn] = ("error", str(e))
+    return out
 
 
 def column(case: int):
-    """(values, validity or None, reference column, port column), made once."""
+    """(values, validity or None, the reference's fill of them, port
+    column: the reference's, copied), made once."""
     if case not in _COLUMNS:
-        kind, lo, hi, nullable, n = CASES[case]
-        rng = rng_of(f"wide/{IDS[case]}")
-        v = wide_values(kind, n, rng)
-        valid = rng.random(n) > 0.1 if nullable else None
-        ref = gt.encode(v, "wide", valid=valid, base_scheme=lo, hi_scheme=hi, name="w")
-        _COLUMNS[case] = v, valid, ref, gtt.from_reference(ref)
+        v, valid = values(case)
+        _COLUMNS[case] = (v, valid, *JAX(reference_copy, case))
     return _COLUMNS[case]
-
-
-def filled(v, valid):
-    """The values a nullable column decodes to (the canonical fill)."""
-    return v if valid is None else gt.nulls.fill_nulls(v, valid)
 
 
 def words(bm) -> bytes:
@@ -74,14 +129,14 @@ def bits(a: np.ndarray) -> bytes:
 
 @pytest.mark.parametrize("case", range(len(CASES)), ids=IDS)
 def test_wide_encode_decode_matches_jax(case):
-    v, valid, ref, col = column(case)
+    v, valid, fv, col = column(case)
     kind, lo, hi, _, _ = CASES[case]
-    assert_same_column(gtt.encode(v, "wide", valid=valid, base_scheme=lo, hi_scheme=hi, name="w"), ref)
-    want = np.asarray(gt.decode(ref))
+    assert_same_column(gtt.encode(v, "wide", valid=valid, base_scheme=lo, hi_scheme=hi, name="w"), col)
+    want = JAX(reference_decode, case)
     out = gtt.decode(col, device="cpu")
     assert out.dtype == wide.TORCH_DTYPES[col.dtype] and out.device.type == "cpu"
     got = out.numpy()
-    assert got.dtype == want.dtype and bits(got) == bits(want) == bits(filled(v, valid))
+    assert got.dtype == want.dtype and bits(got) == bits(want) == bits(fv)
     assert bits(gtt.decode_ref(col)) == bits(want)
     padded = gtt.decode(col, device="cpu", pad=True).numpy()
     assert padded.shape == (gtt.util.num_groups(col.n) * GROUP,) and bits(padded[: col.n]) == bits(want)
@@ -95,15 +150,16 @@ def test_wide_encode_decode_matches_jax(case):
 def test_wide_filter_bitmap_matches_jax(case):
     """Every op at every threshold against the NumPy oracle; two ops a case
     against JAX word for word (each a fresh interpret-mode trace)."""
-    v, valid, ref, col = column(case)
-    fv = filled(v, valid)
-    for j, op in enumerate(OPS):
-        jax_too = j in (case % 6, (case + 3) % 6)
-        for value in wide_thresholds(fv):
+    v, valid, fv, col = column(case)
+    thresholds = wide_thresholds(fv)
+    jax_ops = [op for j, op in enumerate(OPS) if j in (case % 6, (case + 3) % 6)]
+    jax_words = iter(JAX(reference_filter_words, case, [(op, value) for op in jax_ops for value in thresholds]))
+    for op in OPS:
+        for value in thresholds:
             bm = query.filter_bitmap(col, op, value, device="cpu")
             assert bm.dtype == torch.int32 and bm.shape == (gtt.util.num_groups(col.n), gtt.LANES)
-            if jax_too:
-                assert words(bm) == words(jq.filter_bitmap(ref, op, value)), (op, value)
+            if op in jax_ops:
+                assert words(bm) == next(jax_words), (op, value)
             want = want_wide_mask(fv, op, value, valid)
             assert np.array_equal(query.where_mask(col, op, value, device="cpu"), want), (op, value)
             assert query.count_where(col, op, value, device="cpu") == int(want.sum())
@@ -111,27 +167,25 @@ def test_wide_filter_bitmap_matches_jax(case):
 
 @pytest.mark.parametrize("case", range(len(CASES)), ids=IDS)
 def test_wide_isin_matches_jax(case):
-    v, valid, ref, col = column(case)
-    fv = filled(v, valid)
+    v, valid, fv, col = column(case)
     picks = list(fv[:: max(1, len(fv) // 11)][:11]) + wide_thresholds(fv)
+    want, want_empty = JAX(reference_isin_words, case, picks)
     bm = query.isin_bitmap(col, picks, device="cpu")
-    assert words(bm) == words(jq.isin_bitmap(ref, picks))
+    assert words(bm) == want
     key = fv.view(np.uint64)
     want = np.isin(key, np.array(picks, fv.dtype).view(np.uint64))
     assert np.array_equal(gtt.query.count_bits(bm, col.n), int((want & (True if valid is None else valid)).sum()))
-    assert words(query.isin_bitmap(col, [], device="cpu")) == words(jq.isin_bitmap(ref, []))
+    assert words(query.isin_bitmap(col, [], device="cpu")) == want_empty
 
 
 @pytest.mark.parametrize("case", range(len(CASES)), ids=IDS)
 def test_wide_aggregates_match_jax(case):
     """sum_, min_, max_, avg_ and distinct_count equal the reference's
     exactly (floats by their bits, so NaN and -0.0 count), errors too."""
-    v, valid, ref, col = column(case)
-    for fn in ("sum_", "min_", "max_", "avg_", "distinct_count"):
-        try:
-            want = getattr(ja, fn)(ref)
-        except ValueError as e:
-            with pytest.raises(ValueError, match=str(e).split(" ")[0]):
+    v, valid, _, col = column(case)
+    for fn, (kind, want) in JAX(reference_aggregates, case).items():
+        if kind == "error":
+            with pytest.raises(ValueError, match=want.split(" ")[0]):
                 getattr(aggregate, fn)(col, device="cpu")
             continue
         got = getattr(aggregate, fn)(col, device="cpu")
