@@ -43,7 +43,10 @@ phase (the sharded layer: ``dist.decode_columns_sharded`` of configs[4] on
 shards launch each kernel four times; ``dist_query`` count, sum and min of
 configs[0], ``group_reduce_sharded`` and the wide ``sum_sharded`` on the
 lineitem columns, ``Table.join(mesh=)`` and ``Dataset.count(mesh=)``; a
-two-rank torch.distributed (gloo) drill on the card), and times them.
+two-rank torch.distributed (gloo) drill on the card), the examples phase
+(examples/compression_tour_torch.py and examples/tpch_demo_torch.py, each
+one's ``main`` at 2^20 on the card, its own asserts the check), and times
+them.
 Kernel bounds take the card's memory rate from ``roofline.chip_bw`` and
 its issue rate from ``roofline.chip_rates``. Last, the ``[ops]`` phase
 checks the card's SM count against ``roofline.SM_CLOCK`` and takes the
@@ -62,6 +65,7 @@ last line of standard output is
 
 from __future__ import annotations
 
+import ast
 import contextlib
 import dataclasses
 import io
@@ -1296,7 +1300,8 @@ def same_on_card(out: torch.Tensor, v: np.ndarray) -> bool:
 
 
 def main_path(cols: list, x: torch.Tensor, container: list, casc: tuple, rank: tuple, epilogue: list,
-              dz: tuple, scan: dict, analytic: tuple, tables: Tables) -> tuple[dict[str, int], dict[str, int], str]:
+              dz: tuple, scan: dict, analytic: tuple, tables: Tables,
+              smi: str) -> tuple[dict[str, int], dict[str, int], str]:
     """Phase 4: each main path -- every column through decode(col,
     device=cuda), scan.group_prefix_sum(x), the configs[4] container
     through decode_columns(cols, device=cuda), the cascade column and K5's
@@ -1376,6 +1381,7 @@ def main_path(cols: list, x: torch.Tensor, container: list, casc: tuple, rank: t
     analytic_main_path(*analytic, drive)
     tables_main_path(tables, drive)
     dist_main_path(tables, container, drive)
+    examples_main_path(drive, smi)
     return totals, forms, picked
 
 
@@ -2959,6 +2965,83 @@ def time_dist(tb: Tables, container: list, smi: str) -> None:
     print(f"[time] dist: the phase's timings took {time.perf_counter() - t0:.1f} s")
 
 
+# -- the examples phase ------------------------------------------------------------
+# The repo's two examples as a user runs them on the card: each one's main at
+# the reference's default size, its own asserts the check (an assert that
+# fails ends the run), its printed lines, launches and host-clock wall time.
+
+EXAMPLES_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples")
+# example -> (its main's size: the reference example's default, its last line when every assert passed)
+EXAMPLES = {
+    "compression_tour_torch": (20, "all schemes decoded bit-exact vs the oracle"),
+    "tpch_demo_torch": (1 << 20, "ALL DEMO CHECKS PASSED"),
+}
+
+
+def load_example(name: str):
+    """examples/<name>.py as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(f"examples.{name}", os.path.join(EXAMPLES_DIR, f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def decoders_of(cols: list) -> set[str]:
+    """The KERNELS rows that decode each column in its prep's form: a
+    strdict column's through its codes column, a cascade column's through
+    the LUT stage and its inner kernel; a raw column launches none."""
+    names = set()
+    for col in cols:
+        col = strings.codes_column(col) if col.scheme == "strdict" else col
+        if col.scheme != "raw":
+            name, _ = kernels.kernel_call(col, gtt.device_streams(col, "cpu"), gtt.narrow_store_dtype(col))
+            names.update([name, "cascade_lut"] if col.scheme == "cascade" else [name])
+    return names
+
+
+def examples_main_path(drive, smi: str) -> None:
+    """Each example's main(size, device=cuda) through drive. The kernels it
+    must launch come from its own inputs, encoded here as it encodes them:
+    the tour's sixteen columns (the decode kernel of every scheme but raw),
+    and the demo's orders table (the decoders of its four columns, K16 for
+    its predicates and K17 for its aggregates), whose schemes must be the
+    ones the demo prints."""
+    tour, demo = (load_example(name) for name in EXAMPLES)
+    log2_n, n = EXAMPLES["compression_tour_torch"][0], EXAMPLES["tpch_demo_torch"][0]
+    rng = np.random.default_rng(7)
+    tour_cols = [gtt.encode(gen_column(scheme, 1 << log2_n, rng), scheme) for scheme in tour.SCHEMES]
+    date, cust, total, status = demo.orders_arrays(n, np.random.default_rng(42))
+    orders = gtt.Table.from_arrays({"date": date, "cust": cust, "total": total, "status": status}, device="cpu")
+    expect = {"compression_tour_torch": decoders_of(tour_cols),
+              "tpch_demo_torch": decoders_of([orders[nm] for nm in orders.names]) | {"filter_fold", "agg_fold"}}
+    for name, mod in (("compression_tour_torch", tour), ("tpch_demo_torch", demo)):
+        size, last = EXAMPLES[name]
+        out, wall = io.StringIO(), []
+
+        def run() -> bool:
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                mod.main(size, device=CUDA)
+            torch.cuda.synchronize()
+            wall.append(time.perf_counter() - t0)
+            return out.getvalue().splitlines()[-1] == last
+
+        launched = drive(f"examples/{name}.py main({size}, device=cuda)", f"main's asserts passed and its last line {last!r} is",
+                         run, expect=tuple(sorted(expect[name])))
+        lines = out.getvalue().splitlines()
+        for line in lines:
+            print(f"[examples] {name}| {line}")
+        if name == "tpch_demo_torch":
+            printed = next(line for line in lines if line.startswith("schemes: "))
+            want = {nm: orders[nm].scheme for nm in orders.names}
+            check(ast.literal_eval(printed[len("schemes: "):]) == want, f"{name}: printed {printed}, encoded {want}")
+        print(f"[examples] {name} main({size}, device=cuda) on {smi}: {wall[0]:.3f} s wall (host clock, one run, "
+              f"encode and advisor on the host included); {sum(launched.values())} launches {launched}; "
+              f"expected at least {sorted(expect[name])}")
+
+
 def main() -> int:
     smi = environment()
     build()
@@ -2977,7 +3060,7 @@ def main() -> int:
     analytic_kernel_checks(li, od)
     tables = tables_setup(li, od, cols)
     counts, forms, picked = main_path(cols + epilogue, x, container, casc, rank, [(v, col) for _, v, col in epilogue],
-                                      dz, scan, (li, od), tables)
+                                      dz, scan, (li, od), tables, smi)
     container_without_sync("configs[4]", container)
     container_without_sync("model + bitmap + alp", [(v, col) for _, v, col in epilogue])
     timings = dict(time_column(label, v, col, smi) for label, v, col in cols + epilogue)

@@ -16,6 +16,8 @@ gather on the host, which returns a NumPy object array).
 
 from __future__ import annotations
 
+import warnings
+
 import numpy as np
 import torch
 
@@ -113,13 +115,26 @@ def get_decoder(col: EncodedColumn, out_store: torch.dtype = torch.int32):
 
 def upload(streams: dict[str, np.ndarray], device: torch.device | str = "cuda") -> dict[str, torch.Tensor]:
     """Each host stream as a tensor on ``device``; uint32 word streams
-    travel as int32 carrying the same bits."""
+    travel as int32 carrying the same bits.
+
+    A read-only stream (a container's bytes, ``Table.open``'s mmap) is
+    copied first on the CPU, so that no tensor aliases it; to the card the
+    host-to-device copy is the only copy, and torch's warning about the
+    read-only source is silenced for that call alone."""
+    device = torch.device(device)
     out = {}
     for k, v in streams.items():
         v = np.ascontiguousarray(v)
         if v.dtype == np.uint32:
             v = v.view(np.int32)
-        out[k] = torch.from_numpy(v).to(device)
+        if v.flags.writeable:
+            out[k] = torch.from_numpy(v).to(device)
+        elif device.type == "cpu":
+            out[k] = torch.from_numpy(v.copy())
+        else:
+            with warnings.catch_warnings():
+                warnings.filterwarnings("ignore", "The given NumPy array is not writable", UserWarning)
+                out[k] = torch.from_numpy(v).to(device)
     return out
 
 

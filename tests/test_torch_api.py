@@ -200,3 +200,32 @@ def test_version_is_the_reference_package_version():
     with open(REPO / "pyproject.toml", "rb") as f:
         version = tomllib.load(f)["project"]["version"]
     assert gtt.__version__ == gt.__version__ == version == "0.1.0"
+
+
+def test_upload_copies_a_read_only_container_on_the_cpu(tmp_path):
+    """A container's streams are read-only (``Table.open`` maps the file,
+    ``read_container`` views the bytes): on the CPU, upload copies them, so
+    no tensor aliases the container's buffer, and a decode of an opened
+    table raises no UserWarning (checked in a fresh process, since torch
+    warns once a process)."""
+    from giddy_tpu_torch.table import Table
+
+    v = (np.arange(3 * GROUP + 7) % 500).astype(np.int32)
+    r = np.repeat(v[::64], 64)[: v.size]
+    t = Table.from_arrays({"x": v, "r": r}, {"x": "nbit", "r": "rle"}, device="cpu")
+    path = tmp_path / "t.gtp"
+    t.save(str(path))
+    opened = Table.open(str(path), device="cpu")
+    for cols in ([opened[nm] for nm in opened.names], gtt.read_container(t.to_bytes())):
+        for col in cols:
+            assert not any(s.flags.writeable for s in col.streams.values())
+            up = gtt.upload(col.streams, "cpu")
+            assert not any(np.shares_memory(up[k].numpy(), s) for k, s in col.streams.items())
+            np.testing.assert_array_equal(gtt.decode(col, device="cpu").numpy(), t.select([col.name])[col.name])
+    code = (
+        "import numpy as np; from giddy_tpu_torch.table import Table; "
+        f"t = Table.open({str(path)!r}, device='cpu'); "
+        f"assert t.count(('x', 'lt', 100)) == {int((v < 100).sum())} and t.agg('r', 'max') == {int(r.max())}; "
+        "[t.select([nm]) for nm in t.names]"
+    )
+    subprocess.run([sys.executable, "-W", "error::UserWarning", "-c", code], cwd=REPO, check=True, timeout=120)

@@ -8,11 +8,15 @@ RENAMED, or an entry in NOT_PORTED with a one-line reason that points at
 the port code taking its place. Every parameter of a public function, and
 of a public class's public methods, exists in its counterpart under the
 same renames, and the two command lines have the same subcommands,
-``bench`` apart.
+``bench`` apart. Every script of the repo (each ``*.py`` at its root, in
+examples/ and in scripts/) is the port's own, has a ``<name>_torch.py``
+beside it whose ``main`` takes every parameter of the reference's, or
+stands in SCRIPTS_NOT_PORTED with a one-line reason.
 
-Both packages are parsed with ``ast``, never imported, so the check costs
-well under a second and brings no JAX into the worker. NOT_PORTED is
-mirrored in ROADMAP.md's "Do not port" list."""
+Both packages and the scripts are parsed with ``ast``, never imported, so
+the check costs well under a second and brings no JAX into the worker.
+NOT_PORTED and SCRIPTS_NOT_PORTED are mirrored in ROADMAP.md's "Do not
+port" list."""
 
 import ast
 import pathlib
@@ -124,6 +128,22 @@ NOT_PORTED = {
 # reference subcommand -> why the port's command line has none
 CLI_NOT_PORTED = {"bench": "waits on the port's benchmark, ROADMAP item 1"}
 
+# The repo's scripts: each *.py in these directories (relative to the root).
+SCRIPT_DIRS = (".", "examples", "scripts")
+# The port's own scripts, beside every "*_torch.py".
+PORT_SCRIPTS = {"chip_smoke.py"}
+_CENSUS = "measures the reference's Mosaic or XLA path; the port measures with SASS censuses (ROADMAP \"Do not port\")"
+# script -> why the port has no "<name>_torch.py" beside it
+SCRIPTS_NOT_PORTED = {
+    "bench.py": "the reference's benchmark; waits on the port's benchmark, ROADMAP item 1",
+    "scripts/multihost_bench.py": "a bench run once a host; waits on ROADMAP item 1, and on item 12 for several hosts",
+    "__graft_entry__.py": "the TPU entry points: a compile check and a multichip dry run; chip_smoke.py takes its place",
+    "scripts/regime_census.py": "the reference's ops census over regimes; " + _CENSUS,
+    "scripts/bitmap_census.py": "the reference's bitmap plane-count census; " + _CENSUS,
+    "scripts/dict_ab.py": "the A/B of the reference's VMEM dictionary gather; " + _CENSUS,
+    "scripts/pinned_scaling.py": "CPU-core pinning for the reference's virtual mesh (ROADMAP \"Do not port\")",
+}
+
 
 def params(fn: ast.FunctionDef) -> list[str]:
     a = fn.args
@@ -213,6 +233,37 @@ def subcommands(source: str) -> set[str]:
             and node.func.attr == "add_parser" and node.args and isinstance(node.args[0], ast.Constant)}
 
 
+def script_gaps(scripts: dict[str, str], not_ported: dict) -> list[str]:
+    """What of the repo's scripts (relative path -> source) is neither the
+    port's own, nor has a ``_torch`` counterpart whose ``main`` takes every
+    parameter of the reference's, nor an entry in ``not_ported``; and every
+    entry that no longer names such a script."""
+    out, used = [], set()
+    for path, source in sorted(scripts.items()):
+        if path in PORT_SCRIPTS or path.endswith("_torch.py"):
+            continue
+        twin = path[: -len(".py")] + "_torch.py"
+        if twin not in scripts:
+            if path in not_ported:
+                used.add(path)
+            else:
+                out.append(f"{path} has no counterpart")
+            continue
+        if path in not_ported:
+            used.add(path)
+            out.append(f"{path} is in SCRIPTS_NOT_PORTED but has {twin}")
+        mains = [surface(text).get("main") for text in (source, scripts[twin])]
+        out += [f"parameter {path} main({p}) has no counterpart in {twin}"
+                for p in mains[0] or [] if p not in (mains[1] or [])]
+    out += [f"stale entry {key}" for key in sorted(set(not_ported) - used)]
+    return out
+
+
+def repo_scripts() -> dict[str, str]:
+    return {str((ROOT / d / p.name).relative_to(ROOT)): p.read_text()
+            for d in SCRIPT_DIRS for p in sorted((ROOT / d).glob("*.py"))}
+
+
 @pytest.mark.parametrize("module", MODULES)
 def test_module_has_the_reference_surface(module):
     """A module the port has no file for (kernels/common.py) must account
@@ -226,6 +277,15 @@ def test_module_has_the_reference_surface(module):
 def test_cli_subcommands_match_bench_apart():
     ref, port = (subcommands((p / "cli.py").read_text()) for p in (REF, PORT))
     assert "bench" in ref and ref - set(CLI_NOT_PORTED) == port
+
+
+def test_every_script_is_ported_or_accounted_for():
+    """Each script at the root, in examples/ and in scripts/: the port's
+    own, ported beside itself, or in SCRIPTS_NOT_PORTED."""
+    scripts = repo_scripts()
+    assert {"examples/compression_tour_torch.py", "examples/tpch_demo_torch.py"} <= set(scripts)
+    found = script_gaps(scripts, SCRIPTS_NOT_PORTED)
+    assert not found, found
 
 
 def test_every_entry_names_a_module_and_a_port_file():
@@ -295,3 +355,34 @@ def test_checker_catches_a_planted_public_name(plant):
 
 def test_checker_refuses_a_not_ported_name_that_the_port_has():
     assert gaps(REFERENCE, REFERENCE, {}, {"WIDTH": "x"}) == ["WIDTH is in NOT_PORTED but the port has it"]
+
+
+SCRIPT = "def main(n: int = 1, *, out=None):\n    pass\n"
+SCRIPT_PLANTS = {
+    "script": ({"examples/planted.py": SCRIPT}, "examples/planted.py has no counterpart"),
+    "main parameter": ({"examples/planted.py": SCRIPT, "examples/planted_torch.py": SCRIPT.replace(", *, out=None", "")},
+                       "parameter examples/planted.py main(out) has no counterpart in examples/planted_torch.py"),
+}
+
+
+def test_script_checker_passes_ported_and_own_scripts():
+    twin = SCRIPT.replace("out=None", "out=None, device='cuda'")
+    scripts = {"examples/demo.py": SCRIPT, "examples/demo_torch.py": twin, "scripts/probe_torch.py": "",
+               "chip_smoke.py": "", "bench.py": SCRIPT}
+    assert script_gaps(scripts, {"bench.py": "planted in this test"}) == []
+
+
+@pytest.mark.parametrize("plant", list(SCRIPT_PLANTS))
+def test_script_checker_catches_a_planted_gap(plant):
+    """A script with neither a counterpart nor an entry, or a counterpart
+    whose main lacks a parameter, fails the check; an entry accounts for a
+    script with no counterpart, and one that names nothing missing is
+    stale."""
+    scripts, want = SCRIPT_PLANTS[plant]
+    assert script_gaps(scripts, {}) == [want]
+    if plant == "script":
+        assert script_gaps(scripts, {"examples/planted.py": "planted in this test"}) == []
+        assert script_gaps({}, {"examples/planted.py": "planted in this test"}) == ["stale entry examples/planted.py"]
+    else:
+        assert script_gaps(scripts, {"examples/planted.py": "planted in this test"}) == [
+            "examples/planted.py is in SCRIPTS_NOT_PORTED but has examples/planted_torch.py", want]
