@@ -45,8 +45,11 @@ configs[0], ``group_reduce_sharded`` and the wide ``sum_sharded`` on the
 lineitem columns, ``Table.join(mesh=)`` and ``Dataset.count(mesh=)``; a
 two-rank torch.distributed (gloo) drill on the card), the examples phase
 (examples/compression_tour_torch.py and examples/tpch_demo_torch.py, each
-one's ``main`` at 2^20 on the card, its own asserts the check), and times
-them.
+one's ``main`` at 2^20 on the card, its own asserts the check), the bench
+phase (every bench kind of bench_torch.py prepared on the card at 2^20 and
+held to the oracle; bench_torch.py's main at 2^24, its trials in fresh
+processes, and scripts/multihost_bench_torch.py as one process and as two
+gloo ranks on cuda:0, their JSON lines parsed), and times them.
 Kernel bounds take the card's memory rate from ``roofline.chip_bw`` and
 its issue rate from ``roofline.chip_rates``. Last, the ``[ops]`` phase
 checks the card's SM count against ``roofline.SM_CLOCK`` and takes the
@@ -1382,6 +1385,7 @@ def main_path(cols: list, x: torch.Tensor, container: list, casc: tuple, rank: t
     tables_main_path(tables, drive)
     dist_main_path(tables, container, drive)
     examples_main_path(drive, smi)
+    bench_main_path(drive)
     return totals, forms, picked
 
 
@@ -2420,7 +2424,10 @@ def dataset_main_path(tb: Tables, drive) -> None:
               ds.select(["l_quantity", "l_suppkey"], ("l_orderkey", "lt", k))))
 
     def compacted() -> bool:
+        t0 = time.perf_counter()
         ds.compact(f"{tmp.name}/compact", rows_per_partition=LINEITEM_N // 2)
+        torch.cuda.synchronize()
+        ONE_RUN_MS["lineitem dataset compact to 2 partitions"] = (time.perf_counter() - t0) * 1e3
         again = Dataset.open(f"{tmp.name}/compact", device=CUDA)
         return (again.n_partitions == 2 and len(again) == LINEITEM_N
                 and again.count(("l_orderkey", "lt", q25)) == int((ok < q25).sum())
@@ -2604,8 +2611,9 @@ def selftest_main_path(drive) -> None:
 
 def time_tables(tb: Tables, smi: str) -> None:
     """Phase 5 for the tables phase: each call's host-clock ms, the median
-    of 10 (3 where a host step takes seconds; 1 for the dataset's write
-    and compact), beside the raw H2D of the values it reads."""
+    of 10 (3 where a host step takes seconds; 1 for the left join, the
+    anti-join and the dataset's write; compact's is the main path's one
+    run), beside the raw H2D of the values it reads."""
     from giddy_tpu_torch import advisor
     from giddy_tpu_torch.dataset import Dataset
 
@@ -2636,12 +2644,12 @@ def time_tables(tb: Tables, smi: str) -> None:
          list(tb.cust)),
         ("orders.semi_join(o_custkey, BUILDING)", lambda: orders.semi_join("o_custkey", building, "c_custkey"), 3,
          ["o_custkey", "c_custkey"]),
-        ("customer.anti_join(c_custkey, orders)", lambda: customer.anti_join("c_custkey", orders, "o_custkey"), 3,
+        ("customer.anti_join(c_custkey, orders)", lambda: customer.anti_join("c_custkey", orders, "o_custkey"), 1,
          ["o_custkey", "c_custkey"]),
         ("join_indices(o_custkey, BUILDING c_custkey, inner)",
          lambda: gtt.join_indices(orders["o_custkey"], building["c_custkey"], device=CUDA), 3, ["o_custkey", "c_custkey"]),
         ("join_indices(..., left)", lambda: gtt.join_indices(orders["o_custkey"], building["c_custkey"], how="left",
-                                                             device=CUDA), 3, ["o_custkey", "c_custkey"]),
+                                                             device=CUDA), 1, ["o_custkey", "c_custkey"]),
         ("orders.join(BUILDING, other_select=[c_mktsegment, c_acctbal])",
          lambda: orders.join("o_custkey", building, "c_custkey", select=["o_custkey", "o_orderpriority"],
                              other_select=["c_mktsegment", "c_acctbal"]), 3,
@@ -2689,18 +2697,15 @@ def time_tables(tb: Tables, smi: str) -> None:
         ("encode(configs[1] timestamps, 'auto')", lambda: gtt.encode(tb.ts[0], "auto"), 3, ["configs[1]"]),
     ]
     for what, fn, runs, reads in cells:
-        ms = host_ms(fn, runs=runs, warmup=0 if runs == 3 else 1)
+        ms = host_ms(fn, runs=runs, warmup=1 if runs == 10 else 0)
         print(f"[time] tables {what} on {smi}: {ms:.3f} ms (host clock, median of {runs}); "
               f"H2D of the raw {'+'.join(reads) if reads else 'nothing'} {sum(raw[r] for r in reads):.3f} ms")
     with tempfile.TemporaryDirectory() as d:
         parts = lineitem_partitions(tb)
-        for what, fn in (("lineitem Dataset.write, 4 partitions (zones on the card)",
-                          lambda: Dataset.write(f"{d}/w", parts, device=CUDA)),
-                         ("lineitem dataset compact to 2 partitions",
-                          lambda: ds.compact(f"{d}/c", rows_per_partition=LINEITEM_N // 2))):
-            ms = host_ms(fn, runs=1, warmup=0)
-            print(f"[time] tables {what} on {smi}: {ms:.3f} ms (host clock, one run); H2D of the raw l_orderkey+"
-                  f"l_quantity+l_suppkey {raw['l_orderkey'] + raw['l_quantity'] + raw['l_suppkey']:.3f} ms")
+        ms = host_ms(lambda: Dataset.write(f"{d}/w", parts, device=CUDA), runs=1, warmup=0)
+        print(f"[time] tables lineitem Dataset.write, 4 partitions (zones on the card) on {smi}: {ms:.3f} ms (host "
+              f"clock, one run); H2D of the raw l_orderkey+l_quantity+l_suppkey "
+              f"{raw['l_orderkey'] + raw['l_quantity'] + raw['l_suppkey']:.3f} ms")
     for what, ms in ONE_RUN_MS.items():
         print(f"[time] tables {what} on {smi}: {ms:.3f} ms (host clock, one run)")
     torch.cuda.empty_cache()
@@ -2978,14 +2983,19 @@ EXAMPLES = {
 }
 
 
-def load_example(name: str):
-    """examples/<name>.py as a module."""
+def load_script(path: str, name: str):
+    """The script at ``path`` as a module named ``name``."""
     import importlib.util
 
-    spec = importlib.util.spec_from_file_location(f"examples.{name}", os.path.join(EXAMPLES_DIR, f"{name}.py"))
+    spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def load_example(name: str):
+    """examples/<name>.py as a module."""
+    return load_script(os.path.join(EXAMPLES_DIR, f"{name}.py"), f"examples.{name}")
 
 
 def decoders_of(cols: list) -> set[str]:
@@ -3042,6 +3052,160 @@ def examples_main_path(drive, smi: str) -> None:
               f"expected at least {sorted(expect[name])}")
 
 
+# -- the bench phase ----------------------------------------------------------------
+# bench_torch.py and scripts/multihost_bench_torch.py as a user runs them on the
+# card. Every bench kind's prepared decode goes through drive at 2^20, held bit
+# for bit to decode_ref; then bench_torch's main at 2^24 (its trials in fresh
+# processes, which load the library this run built) and the multihost script as
+# one process and as two gloo ranks on cuda:0, their JSON lines parsed. The
+# trials' launches happen in other processes and are not counted.
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+BENCH_N = 2**20
+BENCH_ARGV = ["--n", "24", "--trials", "1", "--iters", "8", "--no-selftest", "--device", "cuda"]
+MULTIHOST_ARGV = ["--n", "22", "--iters", "3", "--device", "cuda:0"]
+# the keys of each script's line (bench.py's and scripts/multihost_bench.py's)
+BENCH_LINE = ("metric", "value", "unit", "timing_suspect", "vs_baseline")
+MULTIHOST_LINE = ("num_hosts", "devices", "n", "schemes")
+MULTIHOST_RECORD = ("decode_GBps_slice", "decode_GBps_per_chip", "time_s")
+
+
+def bench_module():
+    return load_script(os.path.join(REPO, "bench_torch.py"), "bench_torch")
+
+
+def bench_main_path(drive) -> None:
+    """Each bench kind through bench_torch's own prepare (prepare_scheme,
+    prepare_mixed, prepare_narrow) on the card, one rng in turn, and its
+    run() against decode_ref through drive; raw launches no kernel and is
+    checked alone."""
+    bench = bench_module()
+    rng = np.random.default_rng(0)
+    for kind in [*bench.ALL, "rle_dense", "xordelta_narrow", "mixed", "narrow"]:
+        if kind in ("mixed", "narrow"):
+            cols, run = getattr(bench, f"prepare_{kind}")(BENCH_N, rng, CUDA)
+        else:
+            col, run_one = bench.prepare_scheme(kind, BENCH_N, rng, CUDA)
+            cols, run = [col], (lambda: [run_one()])
+        wants = [gtt.decode_ref(c) for c in cols]
+
+        def exact() -> bool:
+            return all(same_bits(as_numpy(u, c.n, c.dtype), w) for u, c, w in zip(run(), cols, wants))
+
+        label, what = f"bench_torch.py {kind} n={BENCH_N}", "its prepared run() vs decode_ref"
+        expect = decoders_of(cols)
+        if not expect:
+            check(exact(), f"{label}: {what} is wrong")
+            print(f"[main] {label}: {what} bit-exact; no kernel (raw)")
+            continue
+        drive(label, what, exact, expect=tuple(sorted(expect)))
+
+
+def script_line(stdout: str, keys: tuple, what: str) -> dict:
+    """The JSON object on the last line of ``stdout``, which must have every key."""
+    lines = stdout.splitlines()
+    check(bool(lines), f"{what} printed nothing")
+    line = json.loads(lines[-1])
+    check(all(k in line for k in keys), f"{what}: line {line} lacks one of {keys}")
+    return line
+
+
+def multihost_line(stdout: str, what: str, hosts: int, devices: int) -> dict:
+    line = script_line(stdout, MULTIHOST_LINE, what)
+    check((line["num_hosts"], line["devices"]) == (hosts, devices), f"{what}: {line['num_hosts']} hosts, "
+          f"{line['devices']} devices, not {hosts}, {devices}")
+    check(all(all(k in r for k in MULTIHOST_RECORD) and r["time_s"] > 0 for r in line["schemes"].values()),
+          f"{what}: a scheme's record lacks one of {MULTIHOST_RECORD}: {line['schemes']}")
+    return line
+
+
+def bench_gap(bench, smi: str) -> None:
+    """The bench's clock against the kernel's, on the very column each
+    headline scheme's bench trial times at its default size (a fresh
+    default_rng(0)): bench_torch._median_time (the host clock around
+    batches of 4 calls through a synchronise), CUDA events around one call
+    (median of 20, queued behind a sleep kernel), and the host's time to
+    issue one call while a sleep kernel holds the card."""
+    n = 1 << 26
+    for kind in bench.HEADLINE:
+        col, run = bench.prepare_scheme(kind, n, np.random.default_rng(0), CUDA)
+        host = bench._median_time(run, 8, [CUDA]) * 1e3
+        kernel = cuda_ms(run, queued=True)
+        torch.cuda._sleep(200_000_000)
+        t0 = time.perf_counter()
+        for _ in range(20):
+            run()
+        issue = (time.perf_counter() - t0) / 20 * 1e3
+        torch.cuda.synchronize()
+        print(f"[bench] {kind} n=2^26 (bench_torch.py's column) on {smi}: bench clock {host:.4f} ms, kernel "
+              f"{kernel:.4f} ms (CUDA events), bench/kernel {host / kernel:.3f}; issue {issue * 1e3:.1f} us a call "
+              f"(host clock, the card held)")
+        del col, run
+    torch.cuda.empty_cache()
+
+
+def bench_scripts(smi: str) -> None:
+    """bench_torch.main(BENCH_ARGV) with its records in a temporary
+    directory, then scripts/multihost_bench_torch.py as one process and as
+    two gloo ranks on cuda:0. Fails on a missing key, an ops census error
+    or a trial that fails (bench_torch raises)."""
+    import pathlib
+    import socket
+
+    bench = bench_module()
+    bench_gap(bench, smi)
+    with tempfile.TemporaryDirectory() as d:
+        bench.RESULTS = pathlib.Path(d)
+        out, t0 = io.StringIO(), time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            bench.main(BENCH_ARGV)
+        wall = time.perf_counter() - t0
+        line = script_line(out.getvalue(), BENCH_LINE, "bench_torch.py")
+        detail = json.loads((pathlib.Path(d) / "bench_detail.json").read_text())
+    check("ops_roofline_error" not in detail, f"bench_torch.py: {detail.get('ops_roofline_error')}")
+    check(sorted(detail["ops_roofline"]) == sorted(bench.ALL)
+          and not any(r["interpreted"] for r in detail["ops_roofline"].values()),
+          "bench_torch.py: the ops table lacks a scheme's SASS census")
+    check(line["timing_suspect"] is False, f"bench_torch.py: timing_suspect {line['timing_suspect']} on {smi}")
+    for name, r in [*detail["schemes"].items(), ("narrow", detail["narrow"])]:
+        sol = f", sol_fraction {r['sol_fraction']:.4f}" if r.get("sol_fraction") is not None else ""
+        print(f"[bench] bench_torch.py --n {BENCH_ARGV[1]} {name} on {smi}: {r['decode_GBps']:.3f} GB/s decoded, time_s "
+              f"{r['time_s'] * 1e3:.4f} ms (host clock, median of batches of 4), ratio {r['ratio']:.3f}{sol}")
+    print(f"[bench] bench_torch.py {' '.join(BENCH_ARGV)} on {smi}: {json.dumps(line)} ({wall:.1f} s wall, "
+          f"{len(detail['schemes']) + 1} trials in fresh processes, ops table of {len(detail['ops_roofline'])} schemes)")
+    script = os.path.join(REPO, "scripts", "multihost_bench_torch.py")
+    t0 = time.perf_counter()
+    one = subprocess.run([sys.executable, script, *MULTIHOST_ARGV], capture_output=True, text=True, timeout=600)
+    check(one.returncode == 0, f"multihost_bench_torch.py failed:\n{one.stderr[-2000:]}")
+    lines = {"one process": (multihost_line(one.stdout, "multihost_bench_torch.py", 1, 1), time.perf_counter() - t0)}
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, script, *MULTIHOST_ARGV, "--coordinator", f"localhost:{port}",
+                               "--num-hosts", "2", "--host-id", str(rank)],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for rank in (0, 1)]
+    try:
+        outs = [p.communicate(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for rank, (p, (_, err)) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0, f"multihost_bench_torch.py rank {rank} of 2 failed:\n{err[-2000:]}")
+    check(outs[1][0] == "", f"multihost_bench_torch.py rank 1 printed {outs[1][0]!r}")
+    lines["two gloo ranks on cuda:0"] = (multihost_line(outs[0][0], "multihost_bench_torch.py rank 0", 2, 2),
+                                         time.perf_counter() - t0)
+    for how, (line, wall) in lines.items():
+        for scheme, r in line["schemes"].items():
+            print(f"[bench] multihost_bench_torch.py {' '.join(MULTIHOST_ARGV)}, {how}, {scheme} on {smi}: "
+                  f"{r['decode_GBps_slice']:.3f} GB/s across the slice, {r['decode_GBps_per_chip']:.3f} a shard, "
+                  f"time_s {r['time_s'] * 1e3:.4f} ms (host clock, median of {MULTIHOST_ARGV[3]})")
+        print(f"[bench] multihost_bench_torch.py, {how}: {line['num_hosts']} host(s), {line['devices']} device(s), "
+              f"{wall:.1f} s wall (start-up included)")
+
+
 def main() -> int:
     smi = environment()
     build()
@@ -3077,6 +3241,7 @@ def main() -> int:
     time_tables(tables, smi)
     dist_drill()
     time_dist(tables, container, smi)
+    bench_scripts(smi)
     for d in DATASET_DIR:
         d.cleanup()
     for name, count in counts.items():

@@ -15,9 +15,10 @@ Subcommands:
   query     count (and select) the rows matching a predicate
   groupby   per-key aggregates over a dictionary-backed key column
   agg       one aggregate of a column
+  bench     per-scheme throughput + roofline (runs bench_torch.py's main)
 
 ``decode --trace DIR`` writes a torch.profiler trace of the decode into
-DIR. The port has no ``bench`` subcommand yet (ROADMAP.md queue 1, item 1).
+DIR.
 """
 
 from __future__ import annotations
@@ -288,6 +289,28 @@ def cmd_info(args) -> None:
         print(json.dumps(info))
 
 
+def cmd_bench(args) -> None:
+    """bench_torch.py's main with these options. The script lives at the
+    checkout's root; it is imported as ``bench_torch`` once a process."""
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parent.parent / "bench_torch.py"
+    if not path.exists():
+        sys.exit(
+            "giddy-tpu-torch bench needs the repository checkout (bench_torch.py lives at "
+            "the repo root and is not shipped in the wheel); run it from a clone, or use "
+            "the library API with giddy_tpu_torch.roofline directly."
+        )
+    mod = sys.modules.get("bench_torch")
+    if mod is None or pathlib.Path(mod.__file__).resolve() != path:
+        spec = importlib.util.spec_from_file_location("bench_torch", path)
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules["bench_torch"] = mod
+        spec.loader.exec_module(mod)
+    mod.main(["--n", str(args.n), "--iters", str(args.iters), "--schemes", args.schemes, "--device", args.device])
+
+
 def _trace_ctx(args):
     """A torch.profiler trace of the block into ``--trace DIR`` (the CPU
     activity, and the card's where the device is CUDA)."""
@@ -395,6 +418,13 @@ def main(argv=None) -> None:
     a.add_argument("--column", type=int, default=0)
     device_arg(a)
     a.set_defaults(fn=cmd_agg)
+
+    b = sub.add_parser("bench")
+    b.add_argument("--n", type=int, default=26)
+    b.add_argument("--iters", type=int, default=10)
+    b.add_argument("--schemes", default="nbit,for,delta,dict,rle")
+    device_arg(b)
+    b.set_defaults(fn=cmd_bench)
 
     args = p.parse_args(argv)
     try:

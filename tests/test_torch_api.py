@@ -185,7 +185,8 @@ def test_import_leaves_jax_out():
         "giddy_tpu_torch.wide, giddy_tpu_torch.strings, giddy_tpu_torch.dist, giddy_tpu_torch.partial, "
         "giddy_tpu_torch.zonemap, giddy_tpu_torch.topk, giddy_tpu_torch.layout, giddy_tpu_torch.advisor, "
         "giddy_tpu_torch.stream, giddy_tpu_torch.table, giddy_tpu_torch.join, giddy_tpu_torch.dataset, "
-        "giddy_tpu_torch.cli, giddy_tpu_torch.selftest; "
+        "giddy_tpu_torch.cli, giddy_tpu_torch.selftest, bench_torch; "
+        "sys.path.insert(0, 'scripts'); import multihost_bench_torch; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'giddy_tpu')); "
         "assert not bad, bad"
     )

@@ -7,11 +7,13 @@ dataset), decode (``--ref`` too), validate, info (container and dataset),
 query (``--between``, ``--select``), groupby (``--where``) and agg. The
 reference's commands run as one batch a test in the worker's reference
 process (test_torch_inputs.JAX), so that the worker itself keeps none of
-their interpret-mode programs. The port has no ``bench`` subcommand yet:
-argparse refuses it."""
+their interpret-mode programs. ``bench`` runs bench_torch.py's main with
+the options it was given (bench_torch.py against bench.py:
+test_torch_bench.py)."""
 
 import contextlib
 import io
+import json
 import os
 
 import numpy as np
@@ -166,10 +168,32 @@ def test_import_export_and_dataset_info(root):
         same_file(root, f"ds/{name}")
 
 
-def test_bench_is_not_a_subcommand_yet(capsys):
-    with pytest.raises(SystemExit) as e:
-        cli.main(["bench"])
-    assert e.value.code == 2 and "invalid choice" in capsys.readouterr().err
+def test_bench_prints_the_bench_line(tmp_path, monkeypatch, capsys):
+    """The subcommand's options reach bench_torch.main, which prints its
+    line; each trial runs in this process here (test_torch_bench.py spawns
+    them) and the selftest is stubbed (test_torch_selftest.py runs it)."""
+    import bench_torch
+
+    spawned = []
+
+    def spawn_one(kind, args):
+        spawned.append((kind, args.n, args.iters, args.trials, args.device))
+        return bench_torch._run_one(kind, 1 << args.n, args.iters, args.device)
+
+    monkeypatch.setattr(bench_torch, "RESULTS", tmp_path)
+    monkeypatch.setattr(bench_torch, "_spawn_one", spawn_one)
+    monkeypatch.setattr(bench_torch, "_run_selftest", lambda outdir, device: str(device) == "cpu")
+    cli.main(["bench", "--n", "12", "--iters", "1", "--schemes", "nbit,rle", "--device", "cpu"])
+    line = json.loads(capsys.readouterr().out.splitlines()[-1])
+    assert line["metric"] == "decode_GBps_geomean_headline5" and line["selftest_pass"] is True
+    assert spawned == [(kind, 12, 1, 2, "cpu") for kind in ("nbit", "rle", "narrow")]
+    assert list(json.loads((tmp_path / "bench_detail.json").read_text())["schemes"]) == ["nbit", "rle"]
+
+
+def test_bench_needs_the_checkout(tmp_path, monkeypatch):
+    monkeypatch.setattr(cli, "__file__", str(tmp_path / "giddy_tpu_torch" / "cli.py"))
+    with pytest.raises(SystemExit, match="needs the repository checkout"):
+        cli.main(["bench", "--device", "cpu"])
 
 
 def test_missing_card_is_an_error(tmp_path):

@@ -7,11 +7,13 @@ name of its own in the port module at the same relative path, an entry in
 RENAMED, or an entry in NOT_PORTED with a one-line reason that points at
 the port code taking its place. Every parameter of a public function, and
 of a public class's public methods, exists in its counterpart under the
-same renames, and the two command lines have the same subcommands,
-``bench`` apart. Every script of the repo (each ``*.py`` at its root, in
-examples/ and in scripts/) is the port's own, has a ``<name>_torch.py``
-beside it whose ``main`` takes every parameter of the reference's, or
-stands in SCRIPTS_NOT_PORTED with a one-line reason.
+same renames, and the two command lines have the same subcommands. Every
+script of the repo (each ``*.py`` at its root, in examples/ and in
+scripts/) is the port's own, has a ``<name>_torch.py`` beside it whose
+``main`` takes every parameter of the reference's and whose argparse
+takes every ``--option`` of the reference's (or the option stands in
+SCRIPTS_NOT_PORTED as ``"<script> --option"``), or stands in
+SCRIPTS_NOT_PORTED with a one-line reason.
 
 Both packages and the scripts are parsed with ``ast``, never imported, so
 the check costs well under a second and brings no JAX into the worker.
@@ -49,7 +51,6 @@ _TPU_RATES = "TPU v5e issue rates; the card's are SM_CLOCK, PER_SM_CLOCK and chi
 # module -> {reference name, or "function(param)": why the port has none}
 NOT_PORTED = {
     "__init__.py": {"plan": "registry.plan's re-export: " + _PLAN},
-    "cli.py": {"cmd_bench": "waits on the port's benchmark, ROADMAP item 1 (giddy_tpu_torch/cli.py)"},
     "groupby.py": {
         "CHUNK_GROUPS": "the reference sums uint32 byte planes 256 groups a chunk so none wraps; the port "
                         "sums each value as an int64 (giddy_tpu_torch/groupby.py, its docstring's Exactness)",
@@ -125,18 +126,17 @@ NOT_PORTED = {
     },
 }
 
-# reference subcommand -> why the port's command line has none
-CLI_NOT_PORTED = {"bench": "waits on the port's benchmark, ROADMAP item 1"}
-
 # The repo's scripts: each *.py in these directories (relative to the root).
 SCRIPT_DIRS = (".", "examples", "scripts")
 # The port's own scripts, beside every "*_torch.py".
 PORT_SCRIPTS = {"chip_smoke.py"}
 _CENSUS = "measures the reference's Mosaic or XLA path; the port measures with SASS censuses (ROADMAP \"Do not port\")"
-# script -> why the port has no "<name>_torch.py" beside it
+_SCAN_AB = "A/Bs the reference's MXU and pltpu.roll scans, which the port does not have (ROADMAP \"Do not port\")"
+# script -> why the port has no "<name>_torch.py" beside it; "<script> --option"
+# -> why its "_torch.py" takes no such option
 SCRIPTS_NOT_PORTED = {
-    "bench.py": "the reference's benchmark; waits on the port's benchmark, ROADMAP item 1",
-    "scripts/multihost_bench.py": "a bench run once a host; waits on ROADMAP item 1, and on item 12 for several hosts",
+    "bench.py --scan-ab": _SCAN_AB,
+    "bench.py --ab-trials": "the trial count of --scan-ab, which " + _SCAN_AB,
     "__graft_entry__.py": "the TPU entry points: a compile check and a multichip dry run; chip_smoke.py takes its place",
     "scripts/regime_census.py": "the reference's ops census over regimes; " + _CENSUS,
     "scripts/bitmap_census.py": "the reference's bitmap plane-count census; " + _CENSUS,
@@ -233,11 +233,20 @@ def subcommands(source: str) -> set[str]:
             and node.func.attr == "add_parser" and node.args and isinstance(node.args[0], ast.Constant)}
 
 
+def options(source: str) -> list[str]:
+    """The ``--options`` that ``source`` passes to ``add_argument``."""
+    return [node.args[0].value for node in ast.walk(ast.parse(source))
+            if isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute)
+            and node.func.attr == "add_argument" and node.args and isinstance(node.args[0], ast.Constant)
+            and str(node.args[0].value).startswith("--")]
+
+
 def script_gaps(scripts: dict[str, str], not_ported: dict) -> list[str]:
     """What of the repo's scripts (relative path -> source) is neither the
     port's own, nor has a ``_torch`` counterpart whose ``main`` takes every
-    parameter of the reference's, nor an entry in ``not_ported``; and every
-    entry that no longer names such a script."""
+    parameter of the reference's and whose argparse every option, nor an
+    entry in ``not_ported``; and every entry that no longer names such a
+    script or option."""
     out, used = [], set()
     for path, source in sorted(scripts.items()):
         if path in PORT_SCRIPTS or path.endswith("_torch.py"):
@@ -255,6 +264,13 @@ def script_gaps(scripts: dict[str, str], not_ported: dict) -> list[str]:
         mains = [surface(text).get("main") for text in (source, scripts[twin])]
         out += [f"parameter {path} main({p}) has no counterpart in {twin}"
                 for p in mains[0] or [] if p not in (mains[1] or [])]
+        for option in options(source):
+            if option in options(scripts[twin]):
+                continue
+            if f"{path} {option}" in not_ported:
+                used.add(f"{path} {option}")
+            else:
+                out.append(f"option {path} {option} has no counterpart in {twin}")
     out += [f"stale entry {key}" for key in sorted(set(not_ported) - used)]
     return out
 
@@ -274,16 +290,17 @@ def test_module_has_the_reference_surface(module):
     assert not found, found
 
 
-def test_cli_subcommands_match_bench_apart():
+def test_cli_subcommands_match():
     ref, port = (subcommands((p / "cli.py").read_text()) for p in (REF, PORT))
-    assert "bench" in ref and ref - set(CLI_NOT_PORTED) == port
+    assert "bench" in ref and ref == port
 
 
 def test_every_script_is_ported_or_accounted_for():
     """Each script at the root, in examples/ and in scripts/: the port's
     own, ported beside itself, or in SCRIPTS_NOT_PORTED."""
     scripts = repo_scripts()
-    assert {"examples/compression_tour_torch.py", "examples/tpch_demo_torch.py"} <= set(scripts)
+    assert {"examples/compression_tour_torch.py", "examples/tpch_demo_torch.py", "bench_torch.py",
+            "scripts/multihost_bench_torch.py"} <= set(scripts)
     found = script_gaps(scripts, SCRIPTS_NOT_PORTED)
     assert not found, found
 
@@ -357,11 +374,14 @@ def test_checker_refuses_a_not_ported_name_that_the_port_has():
     assert gaps(REFERENCE, REFERENCE, {}, {"WIDTH": "x"}) == ["WIDTH is in NOT_PORTED but the port has it"]
 
 
-SCRIPT = "def main(n: int = 1, *, out=None):\n    pass\n"
+SCRIPT = "def main(n: int = 1, *, out=None):\n    ap.add_argument('--n', type=int)\n"
 SCRIPT_PLANTS = {
     "script": ({"examples/planted.py": SCRIPT}, "examples/planted.py has no counterpart"),
     "main parameter": ({"examples/planted.py": SCRIPT, "examples/planted_torch.py": SCRIPT.replace(", *, out=None", "")},
                        "parameter examples/planted.py main(out) has no counterpart in examples/planted_torch.py"),
+    "option": ({"examples/planted.py": SCRIPT + "    ap.add_argument('--planted', action='store_true')\n",
+                "examples/planted_torch.py": SCRIPT},
+               "option examples/planted.py --planted has no counterpart in examples/planted_torch.py"),
 }
 
 
@@ -380,7 +400,11 @@ def test_script_checker_catches_a_planted_gap(plant):
     stale."""
     scripts, want = SCRIPT_PLANTS[plant]
     assert script_gaps(scripts, {}) == [want]
-    if plant == "script":
+    if plant == "option":
+        key = "examples/planted.py --planted"
+        assert script_gaps(scripts, {key: "planted in this test"}) == []
+        assert script_gaps({p: SCRIPT for p in scripts}, {key: "planted in this test"}) == [f"stale entry {key}"]
+    elif plant == "script":
         assert script_gaps(scripts, {"examples/planted.py": "planted in this test"}) == []
         assert script_gaps({}, {"examples/planted.py": "planted in this test"}) == ["stale entry examples/planted.py"]
     else:
