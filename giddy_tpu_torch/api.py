@@ -25,7 +25,7 @@ from . import kernels as _kernels  # noqa: F401  (installs device decoders)
 from . import ref as _ref  # noqa: F401  (installs host codecs)
 from . import strings as _strings  # noqa: F401  (installs the string-dictionary scheme)
 from . import wide as _wide  # noqa: F401  (installs the 64-bit plane wrapper)
-from . import registry, util
+from . import registry, trace, util
 from .format import EncodedColumn
 from .util import GROUP, check_device_addressable, num_groups
 
@@ -109,8 +109,17 @@ def get_decoder(col: EncodedColumn, out_store: torch.dtype = torch.int32):
         builder = registry.get(col.scheme).decode_device
         if builder is None:
             raise NotImplementedError(f"no device decoder for {col.scheme!r}")
-        fn = _DECODER_CACHE[key] = builder(col, out_store)
+        with trace.span("build_decoder", col.scheme):
+            fn = _DECODER_CACHE[key] = _traced(builder(col, out_store), col.scheme)
     return fn
+
+
+def _traced(decoder, scheme: str):
+    """``decoder`` inside a ``giddy.decode:<scheme>`` span."""
+    def decode(streams):
+        with trace.span("decode", scheme):
+            return decoder(streams)
+    return decode
 
 
 def upload(streams: dict[str, np.ndarray], device: torch.device | str = "cuda") -> dict[str, torch.Tensor]:
@@ -127,12 +136,13 @@ def upload(streams: dict[str, np.ndarray], device: torch.device | str = "cuda") 
         v = np.ascontiguousarray(v)
         if v.dtype == np.uint32:
             v = v.view(np.int32)
-        if v.flags.writeable:
-            out[k] = torch.from_numpy(v).to(device)
-        elif device.type == "cpu":
-            out[k] = torch.from_numpy(v.copy())
+        if device.type == "cpu":
+            out[k] = torch.from_numpy(v if v.flags.writeable else v.copy())
+        elif v.flags.writeable:
+            with trace.span("wait", "upload"):  # from pageable host memory: the copy blocks
+                out[k] = torch.from_numpy(v).to(device)
         else:
-            with warnings.catch_warnings():
+            with warnings.catch_warnings(), trace.span("wait", "upload"):
                 warnings.filterwarnings("ignore", "The given NumPy array is not writable", UserWarning)
                 out[k] = torch.from_numpy(v).to(device)
     return out
@@ -140,8 +150,11 @@ def upload(streams: dict[str, np.ndarray], device: torch.device | str = "cuda") 
 
 def device_streams(col: EncodedColumn, device: torch.device | str = "cuda") -> dict[str, torch.Tensor]:
     """Host prep, then :func:`upload` of the prepped streams."""
-    prep = registry.get(col.scheme).prep_streams
-    return upload(prep(col) if prep is not None else col.streams, device)
+    with trace.span("device_streams", col.scheme):
+        prep = registry.get(col.scheme).prep_streams
+        with trace.span("prep", col.scheme):
+            streams = prep(col) if prep is not None else col.streams
+        return upload(streams, device)
 
 
 def _to_logical(u: torch.Tensor, dtype: str) -> torch.Tensor:

@@ -18,7 +18,9 @@ Subcommands:
   bench     per-scheme throughput + roofline (runs bench_torch.py's main)
 
 ``decode --trace DIR`` writes a torch.profiler trace of the decode into
-DIR.
+DIR. Beside the card's kernels it carries the port's own ``giddy.`` host
+ranges (trace.py): the decoder's build, the streams' prep and upload, the
+decode call and its kernel launch. PERF.md §3 lists every span.
 """
 
 from __future__ import annotations

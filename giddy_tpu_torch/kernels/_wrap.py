@@ -16,6 +16,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import trace
 from ..util import GROUP, LANES
 from . import _build
 
@@ -215,7 +216,7 @@ def empty_out(ng: int, out_dtype: torch.dtype, device: torch.device) -> torch.Te
 def launch(fn_name: str, device: torch.device, *args) -> None:
     """Call one C entry point of the kernel library on ``device`` and its
     current PyTorch stream (passed last); raise on a CUDA error."""
-    with torch.cuda.device(device):
+    with trace.span("launch", fn_name), torch.cuda.device(device):
         rc = getattr(_build.lib(), fn_name)(*args, torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{fn_name}: CUDA error {rc} at launch")
