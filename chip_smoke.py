@@ -13,7 +13,8 @@ line counts K5's launches by form), model (poly2),
 bitmap and alp columns, alone and through ``decode_columns``, and a dzbv
 column in each of its three stream forms, and beside configs[4] through
 ``decode_columns``), the scan layer (``query.count_where`` /
-``filter_bitmap`` through the fused filter K16, ``aggregate.sum_`` /
+``filter_bitmap`` through the fused filter K16, ``count_between`` of an
+rle column through the run-table filter K19, ``aggregate.sum_`` /
 ``min_`` / ``max_`` / ``avg_`` through the fused aggregate K17, nullable
 and dictionary columns, one general-path column; K16 and K17 also held
 against their plain versions at every packed width, K13 and K14 at every
@@ -90,7 +91,7 @@ from giddy_tpu_torch import (
 from giddy_tpu_torch.datagen import gen_column
 from giddy_tpu_torch.kernels import (
     _build, agg, alp, bitmap, cascade, cumsum, delta, delta2, dict_, dzbv, encode, filter_, for_, lanes, model, nbit,
-    patch, rle, xordelta,
+    patch, rle, run_filter, xordelta,
 )
 from giddy_tpu_torch.ref import dzbv as ref_dzbv
 from giddy_tpu_torch.ref import lmp as ref_lmp
@@ -171,6 +172,10 @@ KERNELS = {
                  lambda args: 14 if args[7] == "sum" else 8),
     "lmp_pack": (encode.lmp_pack, lanes.lmp_pack, "giddy_tpu/kernels/encode.py:45", ENCODE_SOURCE,
                  lambda args: PACK_OPS[args[2]]),
+    # no Pallas kernel: the reference's general path (decode, compare, pack); a word
+    # a lane takes its tile's bits from h[0] and is stored
+    "run_filter": (run_filter.run_filter, lanes.run_filter, "none (giddy_tpu/query.py:310-320, decode and compare)",
+                   SCAN_SOURCE, 2),
 }
 MAX_ABS_ERR = {name: 0 for name in KERNELS}
 CUDA = torch.device("cuda")
@@ -474,9 +479,10 @@ def run_table_checks(rng, ng: int) -> None:
     every w_pad of both forms (the chain form's 8 and 16, the rank form's
     32, 64 and 128) and T of 1, 32 and 64 (W of 32768, 1024, 512), at 4-
     and 1-byte stores, and with a cascade table (codes past its 1000
-    entries clamp) at 2 bytes."""
+    entries clamp) at 2 bytes; K19 on the same tables against the general
+    path on the card."""
     lut = card_words(rng, (1000,))
-    launches = 0
+    launches = k19 = 0
     for w_pad in (8, 16, 32, 64, 128):
         for tiles in (1, 32, 64):
             ends, vals = edge_run_tables(rng, w_pad, tiles, ng)
@@ -486,9 +492,18 @@ def run_table_checks(rng, ng: int) -> None:
                 compare(f"K5 edge tables w_pad {w_pad} T {tiles} store {store} table {table is not None}",
                         "run_expand", rle.run_expand(e, vv, ng, store, table), lanes.run_expand(e, vv, ng, store, table))
                 launches += 1
+            for kind, itemsize in (("u", 4), ("i", 1), ("f", 4)):
+                key = int(lanes.order_key(v[:1, 1:2], kind, itemsize)[0, 0])
+                for op in ("lt", "eq"):
+                    compare(f"K19 edge tables w_pad {w_pad} T {tiles} {kind}{itemsize} {op}", "run_filter",
+                            run_filter.run_filter(e, v, None, ng, kind, itemsize, op, key),
+                            lanes.pack_hits(query._cmp(rle.run_expand(e, v, ng), key, op, kind, itemsize)))
+                    k19 += 1
     print(f"[kernel] run_expand on edge tables (equal ends, ends of 0, all-pad tiles, runs of one, ends across a "
           f"warp's span, a padded last group) at w_pad 8..128, T 1/32/64, ng={ng}, stores 4/1 and 2 with a table: "
           f"{launches} launches bit-exact vs plain")
+    print(f"[kernel] run_filter on the same tables at three kinds, lt and eq: {k19} launches bit-exact vs the "
+          f"general path (K5, the compare, pack_hits)")
 
 
 def scan_checks(rng, n: int) -> None:
@@ -1277,8 +1292,9 @@ def scan_input() -> torch.Tensor:
 def scan_columns(cols: list) -> dict:
     """The scan layer's main-path columns, by role: configs[0] (nbit), the
     configs[1] timestamps as for and as delta, the same for column with 1%
-    nulls (encoded through encode(..., valid=mask)) and configs[2] (dict),
-    each as (input values, validity or None, encoded column)."""
+    nulls (encoded through encode(..., valid=mask)), configs[2] (dict) and
+    configs[3] (rle), each as (input values, validity or None, encoded
+    column)."""
     by_label = {label: (v, col) for label, v, col in cols}
     ts, for_col = by_label["configs[1] for n=2^26"]
     valid = np.random.default_rng(8).random(ts.shape[0]) >= 0.01
@@ -1288,12 +1304,14 @@ def scan_columns(cols: list) -> dict:
           f"{nulls.null_count(nullable)} nulls")
     v0, c0 = by_label["configs[0] nbit 9-bit n=2^28"]
     v2, c2 = by_label["configs[2] dict d=1000 n=2^26"]
+    v3, c3 = by_label["configs[3] rle n=2^26"]
     return {
         "configs[0] nbit": (v0, None, c0),
         "configs[1] for": (ts, None, for_col),
         "configs[1] for 1% nulls": (ts, valid, nullable),
         "configs[2] dict": (v2, None, c2),
         "configs[1] delta": (ts, None, by_label["configs[1] delta n=2^26"][1]),
+        "configs[3] rle": (v3, None, c3),
     }
 
 
@@ -1396,8 +1414,9 @@ def scan_main_path(scan: dict, drive) -> None:
     (K17 with validity words for the sum), and its count_where (K16 with
     them); count_where on configs[2] through the dict-domain pushdown (K16
     over the codes) and its sum_ through the code counts (K1); count_where
-    on configs[1] as delta (K3, then the compare in torch ops). Each held
-    against NumPy on the input."""
+    on configs[1] as delta (K3, then the compare in torch ops);
+    count_between on configs[3] as rle (K19 on its run tables, twice). Each
+    held against NumPy on the input."""
     v, _, col = scan["configs[0] nbit"]
     value = 256
     for op in OPS:
@@ -1434,6 +1453,10 @@ def scan_main_path(scan: dict, drive) -> None:
     want = int(oracle_mask(v, "ge", value).sum())
     drive("configs[1] delta count_where ge (general path)", "query.count_where(col, device=cuda) vs NumPy",
           lambda: query.count_where(col, "ge", value, device=CUDA) == want, ("delta_decode",))
+    v, _, col = scan["configs[3] rle"]
+    want = int(((v >= 1) & (v <= 3)).sum())
+    drive("configs[3] rle count_between 1 3 (run tables)", "query.count_between(col, device=cuda) vs NumPy",
+          lambda: query.count_between(col, 1, 3, device=CUDA) == want, ("run_filter",))
 
 
 ENCODE_CELLS = {
@@ -1559,7 +1582,7 @@ def run_bytes(col, name: str, args: tuple) -> int | None:
     tile-form tables repeat runs that span tiles and pad each tile to w_pad,
     which is prep overhead, not work the function must do. None for any
     other kernel."""
-    if not (name == "run_expand" or name == "cascade_lut" and args[0] == "run_expand"):
+    if not (name in ("run_expand", "run_filter") or name == "cascade_lut" and args[0] == "run_expand"):
         return None
     runs = int(col.streams["c_run_counts" if col.scheme == "cascade" else "run_counts"].sum())
     return runs * 8 + (col.streams["values"].nbytes if col.scheme == "cascade" else 0)
@@ -1671,12 +1694,14 @@ def time_fold(label: str, smi: str, name: str, args: tuple) -> float:
 def time_scan_layer(scan: dict, smi: str) -> dict:
     """Phase 5 for K16 and K17 at configs[0] on resident packed words (and,
     printed with their bounds, K17 min there, both at the configs[1] FOR
-    column and K17 sum on its 1%-null twin): each
+    column and K17 sum on its 1%-null twin), and K19 at configs[3] as rle on
+    its resident run tables: each
     kernel (also held against its plain version at this shape), its bound,
-    its plain version and count_where / sum_ end to end, beside the unfused
-    route at the same column -- K1's decode, then the compare and the bit
-    pack in torch ops (the general path's), or then a torch sum -- and the
-    raw column's H2D. No single PyTorch call computes either function."""
+    its plain version and count_where / sum_ / count_between end to end,
+    beside the unfused route at the same column -- K1's (K5's) decode, then
+    the compare and the bit pack in torch ops (the general path's), or then
+    a torch sum -- and the raw column's H2D. No single PyTorch call computes
+    any of the three functions."""
     v, _, col = scan["configs[0] nbit"]
     packed, refs_g, bits, kind, itemsize = scan_args(col)
     value = 256
@@ -1709,6 +1734,18 @@ def time_scan_layer(scan: dict, smi: str) -> dict:
         col.nbytes_decoded, lambda: aggregate.sum_(col, device=CUDA), "aggregate.sum_(col)",
         f"unfused K1 decode + torch int64 sum {unfused_sum:.4f} ms; K17 min {min_ms:.4f} ms (CUDA events, medians "
         f"of 20); H2D of the raw column {r_ms:.3f} ms")
+    _, _, rcol = scan["configs[3] rle"]
+    streams = gtt.device_streams(rcol, CUDA)
+    w_pad = streams["vals_w"].shape[-1]
+    ends, vals, rng_ = streams["ends_w"].reshape(-1, w_pad), streams["vals_w"].reshape(-1, w_pad), num_groups(rcol.n)
+    rkey = query._stage_key(rcol.dtype, 2)
+    general = cuda_ms(lambda: lanes.pack_hits(query._cmp(rle.run_expand(ends, vals, rng_), rkey, "ge", "i", 4)))
+    rargs = (ends, vals, None, rng_, "i", 4, "ge", rkey)
+    timings["run_filter"] = time_kernel(
+        "configs[3] rle n=2^26 filter ge 2", smi, "run_filter", rargs, rcol.nbytes_decoded,
+        lambda: query.count_between(rcol, 1, 3, device=CUDA), "query.count_between(col, 1, 3)",
+        f"the general path, K5 decode + torch compare and bit pack {general:.4f} ms (CUDA events, median of 20); "
+        f"T {ends.shape[0] // rng_} of w_pad {w_pad}", run_bytes(rcol, "run_filter", rargs))
     return timings
 
 

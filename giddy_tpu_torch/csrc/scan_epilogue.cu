@@ -1,11 +1,12 @@
-// The scan layer's two fused kernels of giddy_tpu_torch: the filter (K16)
-// and the aggregate (K17) that read a packed column (nbit, dzbf, for) and
-// never write its decoded form. Plain C interface, bound with ctypes by
-// giddy_tpu_torch/kernels/_build.py. Both stage tiles of packed words in
-// shared memory with bulk async copies and fold them there (walk_tiles
-// below); thread c of a tile reads its lane through gt::SmemLaneReader,
-// adds the group's frame reference (FOR; 0 otherwise) with a uint32 wrap,
-// and folds the lane's 32 values in registers.
+// The scan layer's fused kernels of giddy_tpu_torch, which never write a
+// column's decoded form: the filter (K16) and the aggregate (K17) that read
+// a packed column (nbit, dzbf, for), and the filter on run tables (K19,
+// rle and rpe). Plain C interface, bound with ctypes by
+// giddy_tpu_torch/kernels/_build.py. K16 and K17 stage tiles of packed
+// words in shared memory with bulk async copies and fold them there
+// (walk_tiles below); thread c of a tile reads its lane through
+// gt::SmemLaneReader, adds the group's frame reference (FOR; 0 otherwise)
+// with a uint32 wrap, and folds the lane's 32 values in registers.
 //
 // Comparisons and min/max run on an order key (order_key below, the
 // counterpart of giddy_tpu/aggregate.py:33-52 _key_map_traced): an int32
@@ -309,8 +310,160 @@ __global__ void __launch_bounds__(kTileLanes, 4)
   });
 }
 
+// K19. Replaces no TPU kernel: the reference scans rle and rpe columns on
+// its general path (giddy_tpu/query.py:310-320: decode, compare, pack), and
+// the port did the same with K5 and torch ops. A predicate on a run-length
+// column is a predicate on its runs. K19 reads the tile-form run tables of
+// the host prep (kernels/rle.py tile_prep, K5's input) and writes the
+// LMP(1) bitmap: bit i of word [g, c] = order_key(value at position
+// g * GROUP + i * 1024 + c) <op> key, the value being K5's, vals[#{m <
+// w_pad - 1 : ends[m] <= j}] at tile position j (pad positions too),
+// ANDed with the validity word when one is given. The decoded column never
+// exists.
+// Bound: device-memory bytes, the 4 bytes a word written and the tables
+// read once. At SSB lineorder SF 100 (600M rows, 18,312 groups of one
+// tile of 8 runs) that is 75 MB out and 1.2 MB in, 22.8 us at 3.35 TB/s;
+// the general path moved ~15 GB a call for the same bitmap.
+// Design: a warp owns a quarter group, 256 words, 8 a lane, and visits the
+// tiles its words' positions lie in (W >= 1024: every tile, each covering
+// S = W / 1024 consecutive slots of every lane; W = 512: the 32 tiles of
+// its half of the lanes, one slot each). For each tile it
+// (1) compares each entry's value once, entry 32 q + lane in lane `lane`,
+//     one ballot a 32 entries giving the tile's hit bits h;
+// (2) keeps the entries m < w_pad - 1 at which the hit flips (h[m] !=
+//     h[m + 1]) and whose end lies before W, their ends compacted in order
+//     into the warp's slice of shared memory: F flips. As the ends do not
+//     decrease, position j holds h[0] XOR the parity of the flips at ends
+//     <= j (h[m] ^ h[m + 1] telescopes to K5's run), so no run is searched;
+// (3) sets the tile's S bits of each of its words from h[0], then, where
+//     F <= 2 S, XORs in for each flip at e the bits of the slots whose
+//     position is >= e (the slots from ceil((e - c) / 1024): a contiguous
+//     range), F steps a word; else, slot by slot, marks the flips that fall
+//     among the warp's 256 positions of the slot in eight 32-bit window
+//     masks (an XOR reduction across the warp a window, 32 flips a round)
+//     and counts the rest below it, so that each bit is the parity of a
+//     popcount: no search, no dependent load. The choice is the warp's.
+// A column clustered on its key flips at most twice for a range predicate,
+// so nearly every tile takes h[0] alone and the stores bound the kernel.
+// A first design searched the flips at each position (7 dependent shared
+// loads a bit): 0.296 ms at T = 32 of w_pad 128 over 2^26 rows, 2.5 times
+// K5 (H100 SXM at 700 W). Each thread stores its 8 words once, each a
+// coalesced warp store.
+constexpr int kRunFilterWarps = 8;                         // warps a block
+constexpr int kRunFilterLanes = kLanes / 4;                // words a warp: a quarter group
+constexpr int kRunFilterWords = kRunFilterLanes / 32;      // words a thread
+constexpr int kRunTableMax = 128;                          // the largest w_pad, CHAIN_HARD of the host prep
+
+bool valid_run_table(int w_shift, int w_pad);  // csrc/run_decode.cu, K5's check of the same tables
+
+// Bits b .. 31 of a word, none for b >= 32.
+__device__ __forceinline__ uint32_t bits_from(int b) { return b >= 32 ? 0u : ~0u << b; }
+
+template <Kind K, Op O>
+__global__ void __launch_bounds__(32 * kRunFilterWarps)
+    run_filter_kernel(const int32_t* __restrict__ ends_w, const uint32_t* __restrict__ vals_w,
+                      const uint32_t* __restrict__ valid, uint32_t* __restrict__ out, long long ng, int w_shift,
+                      int w_pad, int width, int32_t key) {
+  __shared__ int32_t flips[kRunFilterWarps][kRunTableMax];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const long long unit = static_cast<long long>(blockIdx.x) * kRunFilterWarps + warp;  // a quarter group
+  if (unit >= 4 * ng) return;
+  const long long g = unit >> 2;
+  const int c0 = static_cast<int>(unit & 3) * kRunFilterLanes + lane;  // the thread's word k is lane c0 + 32 k
+  const uint32_t sext = sext_selector(width);
+  const int tiles = kGroup >> w_shift;
+  const bool halves = w_shift < 10;  // W = 512: slot i of lane c lies in tile 2 i + c / 512
+  const int visits = halves ? kSlots : tiles;
+  const int span = halves ? 1 : 1 << (w_shift - 10);  // S
+  const int entries = (w_pad + 31) >> 5;              // entries a lane
+  const int jc = halves ? c0 & 511 : c0;              // the position in its tile of the thread's word 0 at slot 0
+  const int window = jc - lane;                       // of the warp's: its words are at window + 32 k + lane
+  int32_t* fl = flips[warp];
+  uint32_t words[kRunFilterWords] = {};
+#pragma unroll 1
+  for (int v = 0; v < visits; ++v) {
+    const long long row = g * tiles + (halves ? 2 * v + (c0 >> 9) : v);
+    int32_t e[4];
+    uint32_t hit[5] = {};  // hit[4]: no entries past the table
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int m = 32 * q + lane;
+      e[q] = INT_MAX;
+      bool h = false;
+      if (q < entries) {
+        if (m < w_pad) {
+          e[q] = __ldg(ends_w + row * w_pad + m);
+          const int32_t k = order_key<K, K == Kind::kSigned>(__ldg(vals_w + row * w_pad + m), sext);
+          h = or_if<O>(0u, k, key, 1u) != 0u;
+        }
+        hit[q] = __ballot_sync(kFullMask, h);
+      }
+    }
+    __syncwarp();  // the tile before has read its flips
+    int count = 0;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      if (q < entries) {
+        const int m = 32 * q + lane;
+        const uint32_t next = lane < 31 ? hit[q] >> (lane + 1) : hit[q + 1];
+        const bool flip = m < w_pad - 1 && e[q] < (1 << w_shift) && (((hit[q] >> lane) ^ next) & 1u);
+        const uint32_t ballot = __ballot_sync(kFullMask, flip);
+        if (flip) fl[count + __popc(ballot & ((1u << lane) - 1u))] = max(e[q], 0);
+        count += __popc(ballot);
+      }
+    }
+    __syncwarp();
+    const int k0 = v * span;  // the tile's first slot
+    const uint32_t tile_bits = span == kSlots ? ~0u : ((1u << span) - 1u) << k0;
+    const bool h0 = hit[0] & 1u;
+#pragma unroll
+    for (int k = 0; k < kRunFilterWords; ++k) words[k] |= h0 ? tile_bits : 0u;
+    if (count <= 2 * span) {
+#pragma unroll 1
+      for (int f = 0; f < count; ++f) {
+        const int32_t end = fl[f];
+#pragma unroll
+        for (int k = 0; k < kRunFilterWords; ++k) {
+          words[k] ^= tile_bits & bits_from(k0 + ((end - (jc + 32 * k) + 1023) >> 10));
+        }
+      }
+    } else {
+      const uint32_t upto = (2u << lane) - 1u;  // bits 0 .. lane
+#pragma unroll 1
+      for (int s = 0; s < span; ++s) {
+        const int first = s * 1024 + window;  // the warp's positions of slot k0 + s: first .. first + 255
+        uint32_t below = 0;                   // its parity: the flips before them
+        uint32_t marks[kRunFilterWords] = {};
+#pragma unroll 1
+        for (int f = lane; f - lane < count; f += 32) {
+          const int d = f < count ? fl[f] - first : kRunFilterLanes;
+          below ^= __ballot_sync(kFullMask, d < 0);
+#pragma unroll
+          for (int k = 0; k < kRunFilterWords; ++k) {
+            marks[k] ^= __reduce_xor_sync(kFullMask, d >> 5 == k ? 1u << (d & 31) : 0u);
+          }
+        }
+        uint32_t parity = __popc(below) & 1u;
+#pragma unroll
+        for (int k = 0; k < kRunFilterWords; ++k) {
+          words[k] ^= (parity ^ (__popc(marks[k] & upto) & 1u)) << (k0 + s);
+          parity ^= __popc(marks[k]) & 1u;
+        }
+      }
+    }
+  }
+  const size_t o = g * kLanes + c0;
+#pragma unroll
+  for (int k = 0; k < kRunFilterWords; ++k) {
+    out[o + 32 * k] = valid != nullptr ? words[k] & __ldg(valid + o + 32 * k) : words[k];
+  }
+}
+
 using FilterKernel = void (*)(const uint32_t*, const int32_t*, const uint32_t*, uint32_t*, long long, int, int, int,
                               int32_t, LaneSlots);
+using RunFilterKernel = void (*)(const int32_t*, const uint32_t*, const uint32_t*, uint32_t*, long long, int, int, int,
+                                 int32_t);
 using AggKernel = void (*)(const uint32_t*, const int32_t*, const uint32_t*, uint32_t*, uint32_t*, uint32_t*,
                            long long, int, int, int, long long, LaneSlots);
 
@@ -333,6 +486,19 @@ AggKernel agg_instance(int agg) {
     case 0: return agg_fold_kernel<K, Agg::kSum>;
     case 1: return agg_fold_kernel<K, Agg::kMin>;
     case 2: return agg_fold_kernel<K, Agg::kMax>;
+    default: return nullptr;
+  }
+}
+
+template <Kind K>
+RunFilterKernel run_filter_instance(int op) {
+  switch (op) {
+    case 0: return run_filter_kernel<K, Op::kEq>;
+    case 1: return run_filter_kernel<K, Op::kNe>;
+    case 2: return run_filter_kernel<K, Op::kLt>;
+    case 3: return run_filter_kernel<K, Op::kLe>;
+    case 4: return run_filter_kernel<K, Op::kGt>;
+    case 5: return run_filter_kernel<K, Op::kGe>;
     default: return nullptr;
   }
 }
@@ -404,6 +570,25 @@ int gt_agg_fold(const void* packed, const void* refs_g, const void* valid, void*
                          static_cast<const uint32_t*>(valid), static_cast<uint32_t*>(out0),
                          static_cast<uint32_t*>(out1), static_cast<uint32_t*>(out2), ng, bits, stages,
                          8 * itemsize, n, gt::lane_slots(bits));
+}
+
+// ends_w, vals_w: the tile-form run tables, (ng << (15 - w_shift), w_pad)
+// int32, tile t of group g in row g * T + t; valid: (ng, 1024) words or
+// nullptr; out: (ng, 1024) words. w_shift 9-15 (W = 2^w_shift positions a
+// tile), w_pad a power of two <= 128; kind, itemsize, op and key as
+// gt_filter_fold. A block of 8 warps, a warp a quarter group.
+int gt_run_filter(const void* ends_w, const void* vals_w, const void* valid, void* out, long long ng, int w_shift,
+                  int w_pad, int kind, int itemsize, int op, int key, void* stream) {
+  if (!gt::valid(ng, 1) || !gt::valid_run_table(w_shift, w_pad) || !gt::valid_itemsize(itemsize))
+    return cudaErrorInvalidValue;
+  const gt::RunFilterKernel kernel =
+      gt::by_kind<gt::RunFilterKernel>(kind, [&](auto k) { return gt::run_filter_instance<decltype(k)::value>(op); });
+  if (kernel == nullptr) return cudaErrorInvalidValue;
+  const long long blocks = (4 * ng + gt::kRunFilterWarps - 1) / gt::kRunFilterWarps;
+  kernel<<<static_cast<unsigned>(blocks), 32 * gt::kRunFilterWarps, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(ends_w), static_cast<const uint32_t*>(vals_w), static_cast<const uint32_t*>(valid),
+      static_cast<uint32_t*>(out), ng, w_shift, w_pad, 8 * itemsize, static_cast<int32_t>(key));
+  return cudaGetLastError();
 }
 
 }  // extern "C"

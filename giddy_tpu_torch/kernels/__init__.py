@@ -7,10 +7,10 @@ live in ``giddy_tpu_torch/csrc`` and are built at first launch.
 """
 
 from .. import ref as _ref  # noqa: F401  (host codecs must register first)
-from . import agg, alp, bitmap, cascade, cumsum, delta, delta2, dict_, dzbv, encode, filter_, for_, model, nbit, patch, raw, rle, xordelta  # noqa: F401  (import = registration)
+from . import agg, alp, bitmap, cascade, cumsum, delta, delta2, dict_, dzbv, encode, filter_, for_, model, nbit, patch, raw, rle, run_filter, xordelta  # noqa: F401  (import = registration)
 
 # Every kernel of the decode path, of the scan layer (filter_fold K16,
-# agg_fold K17) and of device encode (lmp_pack K18) -> the module of its
+# agg_fold K17, run_filter K19) and of device encode (lmp_pack K18) -> the module of its
 # wrapper (which holds the wrapper under the kernel's name and
 # ``LAUNCHES``, or, for dzbv's three kernels, ``LAUNCHES[name]``). cascade_lut is the fused dictionary stage of K1-K7;
 # its launches are counted both there and by the inner kernel's wrapper.
@@ -20,7 +20,7 @@ WRAPPERS = {
     "patched_decode": patch, "cascade_lut": cascade,
     "model_decode": model, "bitmap_decode": bitmap, "alp_decode": alp,
     "dzbv_tile_decode": dzbv, "dzbv_group_decode": dzbv, "dzbv_plane_decode": dzbv,
-    "filter_fold": filter_, "agg_fold": agg, "lmp_pack": encode,
+    "filter_fold": filter_, "agg_fold": agg, "lmp_pack": encode, "run_filter": run_filter,
 }
 # Schemes that one kernel decodes; rle and rpe take K5 or K6 and dzbv K13,
 # K14 or K15 by stream form, cascade its inner scheme's kernel with the table.

@@ -52,6 +52,7 @@ _SIGNATURES = {
     "gt_filter_fold": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _P],
     "gt_agg_fold": [_P, _P, _P, _P, _P, _P, _L, _I, _L, _I, _I, _I, _I, _I, _P],
     "gt_lmp_pack": [_P, _P, _P, _L, _I, _I, _L, _I, _P],
+    "gt_run_filter": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _LIB: ctypes.CDLL | None = None

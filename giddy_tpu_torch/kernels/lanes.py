@@ -2,8 +2,8 @@
 csrc/run_decode.cu K5-K8, csrc/patch_decode.cu K9, csrc/epilogue_decode.cu
 K10-K12, csrc/dzbv_decode.cu K13-K15), with the fused
 dictionary stage of cascade (``lut``) where the kernel has one, and of the
-scan epilogue (csrc/scan_epilogue.cu K16, K17), whose slot math the scan
-layer's general path also runs on decoded values, and of device encode's
+scan epilogue (csrc/scan_epilogue.cu K16, K17, K19), whose slot math the
+scan layer's general path also runs on decoded values, and of device encode's
 pack (csrc/encode.cu K18).
 
 The counterpart of Pallas interpret mode: the same arithmetic in torch
@@ -230,7 +230,7 @@ def dzbv_plane_decode(widths: torch.Tensor, plane0: torch.Tensor, planes: tuple,
     return out.to(out_dtype)
 
 
-# -- the scan epilogue: K16 filter_fold, K17 agg_fold -------------------------
+# -- the scan epilogue: K16 filter_fold, K17 agg_fold, K19 run_filter ----------
 
 CMP = {"eq": torch.eq, "ne": torch.ne, "lt": torch.lt, "le": torch.le, "gt": torch.gt, "ge": torch.ge}
 
@@ -267,6 +267,16 @@ def filter_fold(packed: torch.Tensor, refs_g: torch.Tensor | None, valid: torch.
     if refs_g is not None:
         u = u + refs_g[:, None]
     words = pack_hits(CMP[op](order_key(u, kind, itemsize), key))
+    return words if valid is None else words & valid
+
+
+def run_filter(ends_w: torch.Tensor, vals_w: torch.Tensor, valid: torch.Tensor | None, ng: int, kind: str, itemsize: int, op: str, key: int) -> torch.Tensor:
+    """Tile-form run tables (rows, w_pad) -> (ng, LANES) LMP(1) words of the
+    predicate (K19): each entry's value compared once, each position taking
+    its run's hit by :func:`run_expand`'s rule (pad positions too), ANDed
+    with the validity words when given."""
+    hits = CMP[op](order_key(vals_w, kind, itemsize), key).to(torch.int32)
+    words = pack_hits(run_expand(ends_w, hits, ng).bool())
     return words if valid is None else words & valid
 
 

@@ -3,7 +3,9 @@
 Counterpart of giddy_tpu/query.py. A scan evaluates its predicate inside
 the decode: for nbit, dzbf and for the kernel K16 (kernels/filter_.py)
 reads the packed words and writes a 1-bit LMP(1) bitmap, 1/32 of the
-decoded bytes; every other scheme decodes with its own kernel and
+decoded bytes; for rle and rpe in the tile form K19
+(kernels/run_filter.py) compares each run once and writes the bitmap
+from the run tables; every other scheme decodes with its own kernel and
 compares in torch ops on the card. The comparison value is a kernel
 argument, staged on the host.
 
@@ -35,11 +37,15 @@ from .api import _check_supported, _decode_device, device_streams, get_decoder
 from .format import EncodedColumn
 from .kernels import lanes
 from .kernels.filter_ import OPS, filter_fold
+from .kernels.run_filter import run_filter
 from .ref.lmp import lmp_unpack
 from .util import GROUP, LANES, NP_CMP, SLOTS, check_device_addressable, np_dtype, num_groups
 
 # Schemes that K16 scans from their packed words.
 FUSED = ("nbit", "dzbf", "for")
+# Schemes that K19 scans from their run tables, in the tile form (the
+# scatter form, runs too dense for tiles, takes the general path).
+RUN_TABLES = ("rle", "rpe")
 
 
 def _host_key_u32(u: np.ndarray) -> np.ndarray:
@@ -213,6 +219,10 @@ def filter_bitmap(col: EncodedColumn, op: str, value, *, device: torch.device | 
     if col.scheme in FUSED:  # one launch, the validity AND included
         bits = col.params["bits"] if col.scheme != "dzbf" else 8 * col.params["width"]
         return filter_fold(streams["packed"], streams.get("refs_g"), valid, bits, dt.kind, dt.itemsize, op, key)
+    if col.scheme in RUN_TABLES and "vals_w" in streams:  # the tile form: one launch on the runs
+        w_pad = streams["vals_w"].shape[-1]
+        return run_filter(streams["ends_w"].reshape(-1, w_pad), streams["vals_w"].reshape(-1, w_pad), valid,
+                          num_groups(col.n), dt.kind, dt.itemsize, op, key)
     u = get_decoder(col)(streams).view(num_groups(col.n), GROUP)
     bm = lanes.pack_hits(_cmp(u, key, op, dt.kind, dt.itemsize))
     return bm if valid is None else bm & valid

@@ -16,14 +16,16 @@ import giddy_tpu_torch as gtt
 from giddy_tpu_torch import aggregate, kernels, nulls, query
 from giddy_tpu_torch.datagen import CORE_SCHEMES
 from giddy_tpu_torch.groupby import _codes_device_column
-from giddy_tpu_torch.kernels import _wrap, agg, cascade, delta2, dict_, dzbv, encode, filter_, lanes, nbit, patch, rle
+from giddy_tpu_torch.kernels import (
+    _wrap, agg, cascade, delta2, dict_, dzbv, encode, filter_, lanes, nbit, patch, rle, run_filter,
+)
 from giddy_tpu_torch.ref import lmp as ref_lmp
 from giddy_tpu_torch.util import GROUP, LANES, np_dtype, pad_to_groups
 
 from test_torch_inputs import (
     DICT_KINDS, OPS, PRIORITIES, RUN_TABLE_CASES, SCAN_DTYPES, STRING_KINDS, WIDE_KINDS, WINDOW_HEAD, assert_same_column,
-    bitmap_values, dict_values, dzbv_values, for_values, rng_of, run_tables, salted_prices, scan_thresholds, scan_values,
-    string_values, want_agg, want_mask, wide_thresholds, wide_values, wrapping_walk,
+    bitmap_values, dict_values, dzbv_values, for_values, rng_of, run_table_values, run_tables, salted_prices, scan_runs,
+    scan_thresholds, scan_values, string_values, want_agg, want_mask, wide_thresholds, wide_values, wrapping_walk,
 )
 
 pytestmark = pytest.mark.cuda
@@ -919,6 +921,103 @@ def test_scan_wrappers_reject_misaligned_words(cuda):
     assert _wrap.walk_args(aligned, None, bits)[1] <= ng * _wrap.TILES_PER_GROUP
 
 
+# -- K19 run_filter: predicates on rle / rpe run tables -----------------------
+
+
+def _run_general(ends, vals, ng, kind, itemsize, op, key):
+    """The general path on the card: K5's decode, the compare, pack_hits."""
+    return lanes.pack_hits(query._cmp(rle.run_expand(ends, vals, ng), key, op, kind, itemsize))
+
+
+@pytest.mark.parametrize("tiles", [1, 2, 4, 8, 16, 32, 64])
+@pytest.mark.parametrize("w_pad", [8, 16, 32, 128])
+def test_run_filter_matches_general_path(cuda, w_pad, tiles):
+    """K19 against the general path (K5, compare, pack) word for word, pad
+    bits included, on every hand-made table of three groups (the last one's
+    second half of tiles all pad), at every dtype, op and threshold, and
+    with validity words; each call one K19 launch and no K5 launch."""
+    for case in RUN_TABLE_CASES:
+        ends, _ = run_tables(case, w_pad, tiles, 3, seed=w_pad + tiles)
+        e = torch.from_numpy(ends).to(cuda)
+        for dtype in SCAN_DTYPES:
+            rng = rng_of(f"k19/{case}/{w_pad}/{tiles}/{dtype}")
+            vals, v = run_table_values(dtype, ends.shape, rng)
+            u, vw = torch.from_numpy(vals).to(cuda), _words(rng, (3, LANES), cuda)
+            kind, itemsize = np_dtype(dtype).kind, np_dtype(dtype).itemsize
+            for op in OPS:
+                for value in scan_thresholds(dtype, v):
+                    key = query._stage_key(dtype, value)
+                    want = _run_general(e, u, 3, kind, itemsize, op, key)
+                    before = kernels.launches()
+                    got = run_filter.run_filter(e, u, None, 3, kind, itemsize, op, key)
+                    after = kernels.launches()
+                    assert after["run_filter"] == before["run_filter"] + 1
+                    assert after["run_expand"] == before["run_expand"]
+                    torch.cuda.synchronize()
+                    assert got.is_cuda and torch.equal(got, want), (case, dtype, op, value)
+                got = run_filter.run_filter(e, u, vw, 3, kind, itemsize, op, key)
+                assert torch.equal(got, want & vw), (case, dtype, op, "valid")
+
+
+@pytest.mark.parametrize("nullable", [False, True])
+@pytest.mark.parametrize("dtype", SCAN_DTYPES)
+@pytest.mark.parametrize("scheme", ["rle", "rpe"])
+def test_run_filter_on_run_columns(cuda, scheme, dtype, nullable):
+    """query.filter_bitmap on rle and rpe columns in tile form: one K19
+    launch a predicate and no K5, the words equal to the general path's on
+    the same streams (validity ANDed in), count_where equal to the
+    oracle's."""
+    rng = rng_of(f"k19/column/{scheme}/{dtype}/{nullable}")
+    v = scan_runs(dtype, N, rng)
+    valid = rng.random(N) > 0.1 if nullable else None
+    col = gtt.encode(v, scheme, valid=valid)
+    streams = gtt.device_streams(col, cuda)
+    w_pad = streams["vals_w"].shape[-1]
+    ends, vals = streams["ends_w"].reshape(-1, w_pad), streams["vals_w"].reshape(-1, w_pad)
+    vw = nulls.valid_words_device(col, cuda) if nullable else None
+    dt = np_dtype(col.dtype)
+    for op in OPS:
+        for value in scan_thresholds(dtype, v):
+            want = _run_general(ends, vals, -(-col.n // GROUP), dt.kind, dt.itemsize, op,
+                                query._stage_key(col.dtype, value))
+            kernels.reset_launches()
+            got = query.filter_bitmap(col, op, value, device=cuda, streams=streams)
+            assert kernels.launches()["run_filter"] == 1 and kernels.launches()["run_expand"] == 0
+            torch.cuda.synchronize()
+            assert torch.equal(got, want if vw is None else want & vw), (op, value)
+            assert query.count_where(col, op, value, device=cuda) == int(want_mask(v, op, value, valid).sum())
+
+
+def test_run_filter_on_a_clustered_date_column(cuda):
+    """A yyyymmdd date column clustered on its key, 2^26 rows in runs of
+    ~250k (the tile form of one tile a group that SSB's lo_orderdate takes):
+    count_between over a year, a month, a week and a day against NumPy's
+    count, two K19 launches each and no K5."""
+    n = 2**26
+    rng = rng_of("k19/dates")
+    days = np.datetime64("1992-01-01") + np.arange(n // 200_000 + 1)
+    ymd = days.astype("datetime64[D]").astype(object)
+    dates = np.array([d.year * 10000 + d.month * 100 + d.day for d in ymd], np.int32)
+    v = np.repeat(dates, rng.integers(200_000, 300_000, dates.size))[:n]
+    col = gtt.encode(v, "rle")
+    streams = gtt.device_streams(col, cuda)
+    assert "vals_w" in streams and streams["vals_w"].shape[-2:] == (1, 8)
+    for lo, hi in ((19920101, 19921231), (19920301, 19920331), (19920407, 19920413), (19920510, 19920510),
+                   (int(v[0]), int(v[-1]))):
+        kernels.reset_launches()
+        assert query.count_between(col, lo, hi, device=cuda) == int(((v >= lo) & (v <= hi)).sum()), (lo, hi)
+        assert kernels.launches()["run_filter"] == 2 and kernels.launches()["run_expand"] == 0
+
+
+def test_run_filter_leaves_the_scatter_form_to_the_general_path(cuda):
+    """Runs of ~2 take the scatter form: the general path (K6) answers."""
+    v = np.repeat(rng_of("k19/scatter").integers(-50, 50, N // 2 + 1), 2)[:N].astype(np.int32)
+    col = gtt.encode(v, "rle")
+    kernels.reset_launches()
+    assert query.count_where(col, "lt", 7, device=cuda) == int((v < 7).sum())
+    assert kernels.launches()["run_filter"] == 0 and kernels.launches()["cumsum_rows"] == 1
+
+
 # -- device encode: K18 lmp_pack and the encoders around it ------------------
 
 PACK_CASES = [("none", GROUP), ("for_sub", GROUP), ("for_sub", 2 * GROUP), ("delta_zigzag", GROUP)]
@@ -1616,6 +1715,21 @@ def test_ops_census_of_scan_folds(cuda, kind, itemsize, nullable):
         _closed("filter_fold", (packed, None, valid, bits, kind, itemsize, op, 3), ng * GROUP)
     for name in ("sum",) if nullable else ("sum", "min", "max"):
         _closed("agg_fold", (packed, None, valid, bits, ng * GROUP - 5, kind, itemsize, name), ng * GROUP)
+
+
+@pytest.mark.parametrize("tiles", [1, 4, 32, 64])
+def test_ops_census_of_run_filter(cuda, tiles):
+    """K19 in every kind, at two ops, with and without validity words, at
+    the smallest and the largest w_pad."""
+    ng = 3
+    valid = _words(rng_of("ops/k19/valid"), (ng, LANES), cuda)
+    for w_pad in (8, 128):
+        ends, vals = run_tables("random", w_pad, tiles, ng)
+        e, u = torch.from_numpy(ends).to(cuda), torch.from_numpy(vals).to(cuda)
+        for kind, itemsize in (("u", 4), ("i", 2), ("f", 4)):
+            for op in ("lt", "eq"):
+                for vw in (None, valid):
+                    _closed("run_filter", (e, u, vw, ng, kind, itemsize, op, 3), ng * GROUP)
 
 
 @pytest.mark.parametrize("prologue", ["none", "for_sub", "delta_zigzag"])

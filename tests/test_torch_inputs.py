@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 
 from giddy_tpu_torch.datagen import gen_column
-from giddy_tpu_torch.util import GROUP
+from giddy_tpu_torch.util import GROUP, dtype_to_u32
 
 # NaN, ±Inf, -0.0, values whose v·100 lands at 2^23 - 1, 2^23 and ±(2^23 + 1),
 # then the subnormals 1 and 2 ulp, the largest subnormal and -1 ulp
@@ -427,6 +427,30 @@ def run_tables(case: str, w_pad: int, tiles: int, ng: int, seed: int = 0) -> tup
     return ends.astype(np.int32), vals
 
 
+RUN_SPECIALS = np.array([-0.0, 0.0, np.nan, -np.nan], np.float32)
+
+
+def run_table_values(dtype: str, shape: tuple, rng: np.random.Generator) -> tuple[np.ndarray, np.ndarray]:
+    """(table, values): scan_values of dtype, for floats with -0.0, +0.0,
+    NaN and -NaN salted in, and the same values as tile-form run tables
+    carry them, int32 bits of the zero-extended uint32 payloads."""
+    v = scan_values(dtype, int(np.prod(shape)), rng)
+    if dtype == "float32":
+        v[rng.integers(0, v.size, 8)] = np.tile(RUN_SPECIALS, 2)
+    return dtype_to_u32(v).view(np.int32).reshape(shape), v
+
+
+def scan_runs(dtype: str, n: int, rng: np.random.Generator) -> np.ndarray:
+    """n values of dtype in runs of 1-399 rows, each run one of 64
+    scan_values (for floats -0.0, +0.0, NaN and -NaN among them): an rle or
+    rpe column that takes the tile form."""
+    pool = scan_values(dtype, 64, rng)
+    if dtype == "float32":
+        pool[: RUN_SPECIALS.size] = RUN_SPECIALS
+    lengths = rng.integers(1, 400, n // 100)
+    return np.repeat(pool[rng.integers(0, pool.size, lengths.size)], lengths)[:n]
+
+
 @pytest.mark.parametrize("case", RUN_TABLE_CASES)
 def test_run_tables_are_what_they_name(case):
     for w_pad, tiles in ((8, 1), (32, 64), (128, 32)):
@@ -446,6 +470,22 @@ def test_run_tables_are_what_they_name(case):
                 "straddle": (np.diff(first[: w_pad - 1]) == 1).all() and (first[0] < 1024 <= first[w_pad - 2]
                                                                           or width <= 1024),
                 "random": True}[case]
+
+
+@pytest.mark.parametrize("dtype", SCAN_DTYPES)
+def test_scan_runs_and_run_table_values_are_what_they_name(dtype):
+    rng = rng_of(f"inputs/runs/{dtype}")
+    v = scan_runs(dtype, 3 * GROUP + 17, rng)
+    assert v.dtype == np.dtype(dtype) and v.shape == (3 * GROUP + 17,)
+    bits = v.view(np.uint8).reshape(v.size, -1)
+    runs = 1 + int((bits[1:] != bits[:-1]).any(axis=1).sum())
+    assert runs <= v.size // 50  # runs of ~200 rows
+    table, values = run_table_values(dtype, (6, 8), rng)
+    assert table.shape == (6, 8) and table.dtype == np.int32
+    assert (table.reshape(-1).view(np.uint32) == dtype_to_u32(values)).all()
+    if dtype == "float32":
+        for special in RUN_SPECIALS.view(np.uint32):
+            assert (v.view(np.uint32) == special).any() and (values.view(np.uint32) == special).any()
 
 
 def test_scan_oracle_orders_floats_totally():

@@ -452,6 +452,26 @@ def test_scan_walk_trips():
     assert trips[5] == trips[14] == 0 and _wrap.walk_trips(ng, 32, True, 2, grid)[5] > 0
 
 
+@pytest.mark.parametrize("tiles", [1, 4, 32, 64])
+def test_run_filter_census(tiles):
+    """K19's census from the call's shapes (no kernel, so on the CPU too):
+    the instance by kind and op, blocks of 8 warps, a warp a quarter group
+    (ng = 3: 12 warps in 2 blocks), the tiles a warp visits (T, or the 32
+    of its half of the lanes at W = 512) averaged over the warps launched,
+    and the flip loops (XORed in; slots, rounds of marks), whose trips are
+    data."""
+    from giddy_tpu_torch.kernels import run_filter
+
+    from test_torch_inputs import run_tables
+
+    ends, vals = run_tables("random", 16, tiles, 3)
+    args = (torch.from_numpy(ends), torch.from_numpy(vals), None, 3, "f", 4, "ge", 0)
+    (launch,) = run_filter.census("run_filter", args)
+    assert launch.kernel == "gt::run_filter_kernel<(gt::Kind)2, (gt::Op)5>"
+    assert launch.threads == 2 * 8 * 32
+    assert launch.trips == ((32 if tiles == 64 else tiles) * 12 / 16, None, None, None)
+
+
 def test_loop_trip_helpers():
     assert _wrap.strided_trips(8) == 1 / 32 and _wrap.strided_trips(1024) == 1
     assert _wrap.strided_trips(2049) == (32 * 2 + 1) / 32

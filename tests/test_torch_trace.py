@@ -101,12 +101,24 @@ def test_upload_waits_only_off_the_cpu(device, writeable):
 
 
 def test_general_path_filter_carries_its_decode(monkeypatch):
-    # an rle column's predicate decodes through the cached decoder, then compares and packs
+    # an rle column in the scatter form (runs of 2, too dense for run tables): its
+    # predicate decodes through the cached decoder, then compares and packs
+    monkeypatch.setattr(api, "_DECODER_CACHE", {})
+    col = api.encode(np.repeat(np.arange(N // 2 + 1, dtype=np.int32), 2)[:N], "rle")
+    streams = api.device_streams(col, DEVICE)
+    assert "pos" in streams
+    spans = recorded(lambda: query.filter_bitmap(col, "lt", N // 4, device=DEVICE, streams=streams))
+    assert names(spans) == ["giddy.build_decoder:rle", "giddy.decode:rle"]
+
+
+def test_run_table_filter_carries_no_decode(monkeypatch):
+    # in the tile form the predicate runs on the run tables (run_filter): no decoder is built or called
     monkeypatch.setattr(api, "_DECODER_CACHE", {})
     col = api.encode(np.repeat(np.arange(N // 100 + 1, dtype=np.int32), 100)[:N], "rle")
     streams = api.device_streams(col, DEVICE)
+    assert "vals_w" in streams
     spans = recorded(lambda: query.filter_bitmap(col, "lt", N // 200, device=DEVICE, streams=streams))
-    assert names(spans) == ["giddy.build_decoder:rle", "giddy.decode:rle"]
+    assert names(spans) == []
 
 
 def test_launch_records_its_entry(monkeypatch):
